@@ -115,16 +115,23 @@ class NoiseFlow(nn.Module):
         return cond
 
     # ------------------------------------------------------------- inverse
-    def inverse(self, x, cond, train: bool):
+    def inverse(self, x, cond, train: bool, state_out=None):
         """data -> latent; returns (z, objective[B]) where the objective is
-        the sum of the inverse log-det-jacobians (ref:noise_flow_model.py:394-428)."""
+        the sum of the inverse log-det-jacobians (ref:noise_flow_model.py:394-428).
+
+        Given a dict ``state_out``, puts there the new BatchNorm running
+        statistics of every coupling, keyed as the flow's ``state_dict``
+        buffers (``layers.1.nn.bn1.mean``, ...)."""
         shared = self.shared_view()
         z = squeeze2d(x, self.cfg.squeeze_factor, self.cfg.squeeze_type)
         cond = self._squeezed_cond(cond)
         obj = x.new_zeros((x.shape[0],))
-        for layer in self.layers:
-            z, ildj = layer.inverse(z, cond, train, shared)
+        for i, layer in enumerate(self.layers):
+            sub = {} if state_out is not None else None
+            z, ildj = layer.inverse(z, cond, train, shared, sub)
             obj = obj + ildj
+            if sub:
+                state_out.update({f"layers.{i}.{k}": v for k, v in sub.items()})
         return z, obj
 
     # ------------------------------------------------------------- forward
@@ -138,16 +145,31 @@ class NoiseFlow(nn.Module):
         return unsqueeze2d(x, self.cfg.squeeze_factor, self.cfg.squeeze_type)
 
     # ---------------------------------------------------------------- loss
-    def _nll(self, x, cond, train):
+    def _nll(self, x, cond, train, state_out=None):
         c = cond if self._is_cond else {"clean": None}
-        z, obj = self.inverse(x, c, train)
+        z, obj = self.inverse(x, c, train, state_out)
         return -(obj + diag_gaussian_logp(z)), z
 
     def loss(self, x, cond, train: bool):
-        """Returns (mean NLL [nats/patch], sd_z) (ref:noise_flow_model.py:458-484)."""
-        nll, z = self._nll(x, cond, train)
+        """Returns (mean NLL [nats/patch], sd_z, new_state)
+        (ref:noise_flow_model.py:458-484), as the JAX ``flow.loss``.
+
+        ``new_state`` is a dict keyed as the flow's ``state_dict`` buffers
+        that holds every coupling's BatchNorm running statistics: updated to
+        ``s - 0.1 * (s - batch_stat)`` with ``train=True``, the current values
+        otherwise. The buffers themselves are not changed; ``apply_state``
+        writes a new state into them."""
+        new_state = {}
+        nll, z = self._nll(x, cond, train, new_state)
         var_z = torch.var(z.reshape(z.shape[0], -1), dim=1, unbiased=False)
-        return torch.mean(nll), torch.mean(torch.sqrt(var_z))
+        return torch.mean(nll), torch.mean(torch.sqrt(var_z)), new_state
+
+    @torch.no_grad()
+    def apply_state(self, new_state) -> None:
+        """Write a state returned by ``loss`` into the flow's buffers."""
+        bufs = dict(self.named_buffers())
+        for k, v in new_state.items():
+            bufs[k].copy_(v)
 
     def nll_per_sample(self, x, cond, train: bool = False):
         return self._nll(x, cond, train)[0]

@@ -11,8 +11,12 @@ level index dropped. Each layer has
 
 ``cond`` is a dict {'clean':[B,H,W,C], 'nlf0','nlf1','iso','cam': [B]}.
 ``shared`` is the flow's shared view {'sdn_gain': ParamTree, 'c_i': float}.
-With ``train=True`` BatchNorm normalises with batch moments; the running
-statistics are left as they are.
+With ``train=True`` BatchNorm normalises with batch moments. A layer with
+BatchNorm (the coupling) changes none of its buffers: given a dict
+``state_out`` it puts its new running statistics there, keyed as its
+``state_dict`` buffers (``nn.bn1.mean``, ...), ``s - 0.1 * (s - batch_stat)``
+in train mode and the current values otherwise, as the JAX layers return
+their new state.
 
 Faithfulness quirks preserved (they change NLL numbers):
 - gain/gain1/gain2/gain3 log-dets carry NO pixel-count factor
@@ -86,7 +90,7 @@ def _sum_hwc(t):
 class Layer(ParamTree):
     kind = ""
 
-    def inverse(self, y, cond, train: bool, shared):
+    def inverse(self, y, cond, train: bool, shared, state_out=None):
         raise NotImplementedError
 
     def forward(self, x, cond, train: bool, shared):
@@ -100,7 +104,7 @@ class Layer(ParamTree):
 class PermReverse(Layer):
     kind = "perm_reverse"
 
-    def inverse(self, y, cond, train, shared):
+    def inverse(self, y, cond, train, shared, state_out=None):
         return torch.flip(y, dims=(-1,)), y.new_zeros((y.shape[0],))
 
     def forward(self, x, cond, train, shared):
@@ -129,7 +133,7 @@ class Conv1x1(Layer):
         ldj = sign * m["log_abs_det"] * (x.shape[1] * x.shape[2])
         return y, ldj.expand(x.shape[0])
 
-    def inverse(self, y, cond, train, shared):
+    def inverse(self, y, cond, train, shared, state_out=None):
         return self._mix(y, "A", 1.0)
 
     def forward(self, x, cond, train, shared):
@@ -149,14 +153,18 @@ class Coupling(Layer):
         super().__init__({"nn": nn_p, "rescale": np.float32(1e-4)},
                          {"nn": nn_s})
 
-    def net(self, x0, train):
-        shift, log_scale, _ = coupling_nn_apply(self.nn, self.nn, x0, train)
+    def net(self, x0, train, state_out=None):
+        shift, log_scale, new = coupling_nn_apply(self.nn, self.nn, x0, train)
+        if state_out is not None:
+            for bn, st in new.items():
+                for k, v in st.items():
+                    state_out[f"nn.{bn}.{k}"] = v.detach()
         return shift, self.rescale * torch.tanh(log_scale)
 
-    def inverse(self, y, cond, train, shared):
+    def inverse(self, y, cond, train, shared, state_out=None):
         c = y.shape[-1]
         y0, y1 = y[..., : c // 2], y[..., c // 2:]
-        shift, ls = self.net(y0, train)
+        shift, ls = self.net(y0, train, state_out)
         return torch.cat([y0, y1 * torch.exp(ls) + shift], -1), _sum_hwc(ls)
 
     def forward(self, x, cond, train, shared):
@@ -262,7 +270,7 @@ class ScaleLayer(Layer):
             scale = _bb(scale.reshape(-1).expand(y.shape[0]))
         return y * scale if sign > 0 else y / scale
 
-    def inverse(self, y, cond, train, shared):
+    def inverse(self, y, cond, train, shared, state_out=None):
         scale = self._scale_fn(self, shared, cond, y)
         return self._mul(y, scale, -1), -self._ldj(scale, y)
 

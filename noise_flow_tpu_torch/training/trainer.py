@@ -1,0 +1,482 @@
+"""Training/eval/sampling orchestration.
+
+Port of noise_flow_tpu.training.trainer (ref:train_noise_flow.py:30-541).
+One eager train step a batch: the loss (the fused one-shot kernel with
+``cfg.use_pallas``, else plain autograd of ``NoiseFlow.loss``), one
+``backward``, one optimizer step, then the BatchNorm running statistics that
+the loss returned are written into the flow's buffers, as the JAX trainer
+threads its state from step to step.
+
+Epoch schedule, TSV logs (train/test/sample.txt columns), best-model tracking,
+and the NLL_G/NLL_SDN baseline columns match the reference
+(ref:train_noise_flow.py:334-348,384-535) and the JAX package.
+
+What does not carry over: ``cfg.steps_per_call`` (JAX's ``lax.scan`` of K
+steps a dispatch) is read and changes nothing, since each step is one eager
+call; a data-parallel mesh of more than one device is not ported yet.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import signal
+import threading
+import time
+from typing import Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from noise_flow_tpu_torch.ops.fused_train import (
+    SEGMENT_PATH_ITEM,
+    FusedFlow,
+    FusedTrainStep,
+    pick_block,
+)
+from noise_flow_tpu_torch.utils.checkpoint import (
+    latest_checkpoint,
+    load_checkpoint,
+    save_checkpoint,
+)
+from noise_flow_tpu_torch.utils.logger import ResultLogger
+from noise_flow_tpu_torch.utils.metrics import calc_kldiv_mb, kldiv_batch
+from noise_flow_tpu_torch.utils.profiling import PhaseTimers
+
+MESH_ITEM = "ROADMAP.md queue 1, item 8 (data-parallel training across cards)"
+_KEEP = ("_x", "_y", "nlf0", "nlf1", "iso", "cam")
+# S6 at ISO 100 (ref:train_noise_flow.py:158-159)
+_NLF_S6_100 = 0.000479
+
+
+def _timed_iter(it, timers, name: str):
+    """Yield from `it`, charging the time spent inside the iterator (host
+    input: decode/patch/batch assembly) to timers[name]."""
+    it = iter(it)
+    while True:
+        with timers.phase(name):
+            try:
+                mb = next(it)
+            except StopIteration:
+                return
+        yield mb
+
+
+def make_optimizer(cfg, params):
+    """Adam beta1=.9 beta2=.999 eps=1e-8, or SGD momentum .9
+    (ref:train_noise_flow.py:187-198). The arithmetic is optax's; optax's
+    ``flatten`` wrapper (one fused vector) has no counterpart here."""
+    if cfg.optim == "adam":
+        return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+    if cfg.optim == "sgd":
+        return torch.optim.SGD(params, lr=cfg.lr, momentum=0.9)
+    raise ValueError(f"unknown optimizer {cfg.optim!r}")
+
+
+def batch_to_cond(mb: Dict) -> Dict:
+    return {
+        "clean": mb["_y"],
+        "nlf0": mb["nlf0"], "nlf1": mb["nlf1"],
+        "iso": mb["iso"], "cam": mb["cam"],
+    }
+
+
+class Trainer:
+    """Trains a ``NoiseFlow`` from its current weights on its device.
+
+    ``mesh`` is accepted for the JAX signature: None, 1 or a one-device mesh.
+    """
+
+    def __init__(self, flow, cfg, mesh=None):
+        if mesh not in (None, 1) and getattr(mesh, "size", mesh) != 1:
+            raise NotImplementedError(
+                f"training on a mesh of more than one device is not ported yet: {MESH_ITEM}")
+        self.flow = flow
+        self.cfg = cfg
+        self.device = flow.device
+        self.optimizer = make_optimizer(cfg, [p for _, p in flow.named_parameters()])
+        self.timers = PhaseTimers()  # input/step wall-clock attribution
+        # condSDN is a non-trainable baseline: evaluate only, never step
+        # (ref:train_noise_flow.py:189).
+        self.trainable = cfg.sidd_cond != "condSDN"
+        self._fused_cache: Dict[int, FusedFlow] = {}
+        self._step_cache: Dict[int, FusedTrainStep] = {}
+        self.use_fused = False
+        self.use_oneshot = False
+        if getattr(cfg, "use_pallas", False):
+            try:
+                FusedFlow(flow, bt=8)  # envelope check only
+                self.use_fused = True
+            except ValueError as e:
+                logging.getLogger(__name__).warning(
+                    "use_pallas requested but arch outside the fused "
+                    "envelope (%s); falling back to the plain path", e)
+            if self.use_fused:
+                if not getattr(cfg, "pallas_oneshot", True):
+                    raise NotImplementedError(
+                        "pallas_oneshot=False trains through the segment path, "
+                        f"which is not ported yet: {SEGMENT_PATH_ITEM}")
+                FusedTrainStep(flow, bt=8)  # raises beyond MAX_SCALE
+                self.use_oneshot = True
+                if getattr(cfg, "pallas_train_dtype", "float32") != "float32":
+                    logging.getLogger(__name__).warning(
+                        "pallas_train_dtype=%r: the fused kernels run float32 only "
+                        "(ROADMAP.md queue 2, 'the bf16 train mode')",
+                        cfg.pallas_train_dtype)
+
+    # ------------------------------------------------------------ kernels
+    def _fused_for_batch(self, b: int) -> FusedFlow:
+        bt = pick_block(b)
+        if bt not in self._fused_cache:
+            self._fused_cache[bt] = FusedFlow(self.flow, bt=bt)
+        return self._fused_cache[bt]
+
+    def _step_for_batch(self, b: int) -> FusedTrainStep:
+        bt = pick_block(b, target=64, stretch=8)
+        if bt not in self._step_cache:
+            self._step_cache[bt] = FusedTrainStep(self.flow, bt=bt)
+        return self._step_cache[bt]
+
+    # -------------------------------------------------------------- steps
+    def _put(self, mb: Dict) -> Dict:
+        """Host batch -> float32 tensors on the flow's device."""
+        return {k: torch.as_tensor(np.asarray(mb[k]), dtype=torch.float32, device=self.device)
+                for k in _KEEP}
+
+    def train_step(self, batch: Dict):
+        """One optimizer step on a device batch; returns (nll, sd_z) as
+        0-d tensors on the device."""
+        flow = self.flow
+        if self.use_oneshot:
+            fs = self._step_for_batch(batch["_x"].shape[0])
+            nll, sd_z, new_state = fs.loss(batch["_x"], batch_to_cond(batch))
+        else:
+            nll, sd_z, new_state = flow.loss(batch["_x"], batch_to_cond(batch), train=True)
+        self.optimizer.zero_grad(set_to_none=True)
+        nll.backward()
+        self.optimizer.step()
+        flow.apply_state(new_state)
+        return nll.detach(), sd_z.detach()
+
+    @torch.no_grad()
+    def eval_step(self, batch: Dict):
+        if self.use_fused:
+            ff = self._fused_for_batch(batch["_x"].shape[0])
+            nll, sd_z, _ = ff.loss(batch["_x"], batch_to_cond(batch), train=False)
+        else:
+            nll, sd_z, _ = self.flow.loss(batch["_x"], batch_to_cond(batch), train=False)
+        return nll, sd_z
+
+    @torch.no_grad()
+    def sample_kld_step(self, batch: Dict, temp: float, sc_sd: float,
+                        generator: Optional[torch.Generator] = None):
+        """Sample, NLL round trip and per-patch marginal KLDs on the device;
+        only scalars come back. The Gaussian and camera-NLF comparison noise
+        is drawn from ``generator`` after the flow's sample."""
+        cond = batch_to_cond(batch)
+        y = batch["_y"]
+        x = self.flow.sample(cond, temp, batch=y.shape[0], train=False, generator=generator)
+        nll, sd_z, _ = self.flow.loss(x, cond, train=False)
+        shp = (-1,) + (1,) * (y.ndim - 1)
+        ng = sc_sd * torch.randn(y.shape, generator=generator, device=y.device)
+        nlf_sd = torch.sqrt(batch["nlf0"].reshape(shp) * y + batch["nlf1"].reshape(shp))
+        nl = nlf_sd * torch.randn(y.shape, generator=generator, device=y.device)
+        sums, cnt = kldiv_batch(ng, nl, x, batch["_x"])
+        return nll, sd_z, sums, cnt
+
+    def _step_or_eval(self, batch):
+        if self.trainable:
+            return self.train_step(batch)
+        return self.eval_step(batch)
+
+    # ------------------------------------------------------------- epochs
+    def train_epoch(self, batches: Iterable[Dict], steps_per_call: Optional[int] = None):
+        """One pass over host batches; ``steps_per_call`` is accepted for the
+        JAX signature and changes nothing (one eager call a step)."""
+        losses, sdzs = [], []
+        for mb in _timed_iter(batches, self.timers, "input"):
+            with self.timers.phase("step"):
+                nll, sd_z = self._step_or_eval(self._put(mb))
+            losses.append(nll)
+            sdzs.append(sd_z)
+        with self.timers.phase("sync"):
+            return (float(torch.stack(losses).mean()), float(torch.stack(sdzs).mean()))
+
+    def eval_epoch(self, batches: Iterable[Dict]):
+        out = [self.eval_step(self._put(mb)) for mb in batches]
+        return (float(torch.stack([o[0] for o in out]).mean()),
+                float(torch.stack([o[1] for o in out]).mean()))
+
+    def _fix_cam_iso(self, mb: Dict) -> Dict:
+        """Sample with cam=S6, iso=100; the reference feeds nlf0 == nlf1 ==
+        its NLF table's first entry (ref:train_noise_flow.py:158-159)."""
+        shape = (mb["_x"].shape[0],)
+        return {**mb, **{k: torch.full(shape, v, device=self.device) for k, v in
+                         (("iso", 100.0), ("cam", 2.0), ("nlf0", _NLF_S6_100),
+                          ("nlf1", _NLF_S6_100))}}
+
+    def _host_kld(self, db: Dict, temp: float, generator, sc_sd: float, vis_dir):
+        """Sample on the device, NLL there, KLDs in numpy (owns the .mat dump)."""
+        with torch.no_grad():
+            x = self.flow.sample(batch_to_cond(db), temp, batch=db["_y"].shape[0],
+                                 train=False, generator=generator)
+        nll, sd_z = self.eval_step({**db, "_x": x})
+        with self.timers.phase("sample_host"):
+            mb = {k: v.cpu().numpy() for k, v in db.items()}
+            kld = calc_kldiv_mb(mb, x.cpu().numpy(), sc_sd, vis_dir=vis_dir)
+        return nll, sd_z, kld, len(range(0, x.shape[0], 5))
+
+    def sample_epoch(self, batches: Iterable[Dict], temp: float,
+                     generator: Optional[torch.Generator] = None, sc_sd: float = 1.0,
+                     fix_cam_iso: bool = True, compute_kld: bool = True,
+                     vis_dir: Optional[str] = None, on_device_kld: bool = True):
+        """Per-epoch sampling diagnostics (ref:train_noise_flow.py:139-184):
+        sample with (optionally) fixed cam=S6 iso=100, push samples back
+        through the inverse for their NLL, and compute marginal KLDs. With
+        vis_dir the first batch takes the numpy path and dumps the per-patch
+        .mat artifact set there (ref:sidd_utils.py:995-1058)."""
+        losses, sdzs = [], []
+        kld_sum, kld_cnt = np.zeros(4), 0.0
+        for bi, mb in enumerate(batches):
+            db = self._put(mb)
+            if fix_cam_iso:
+                db = self._fix_cam_iso(db)
+            use_dev = compute_kld and on_device_kld and not (vis_dir is not None and bi == 0)
+            with self.timers.phase("sample"):
+                if use_dev:
+                    nll, sd_z, sums, cnt = self.sample_kld_step(db, temp, sc_sd, generator)
+                    kld_sum += sums.cpu().numpy()
+                    kld_cnt += cnt
+                elif compute_kld:
+                    nll, sd_z, kld, n_pat = self._host_kld(
+                        db, temp, generator, sc_sd, vis_dir if bi == 0 else None)
+                    kld_sum += kld * n_pat
+                    kld_cnt += n_pat
+                else:
+                    with torch.no_grad():
+                        x = self.flow.sample(batch_to_cond(db), temp, train=False,
+                                             generator=generator)
+                    nll, sd_z = self.eval_step({**db, "_x": x})
+            losses.append(nll)
+            sdzs.append(sd_z)
+        kld = kld_sum / kld_cnt if kld_cnt else np.zeros(4)
+        return (float(torch.stack(losses).mean()), float(torch.stack(sdzs).mean()), kld)
+
+    # ------------------------------------------------ device-resident data
+    _staged_train = None
+    _staged_test = None
+    # number of test batches the per-epoch sampling phase runs over when
+    # sampling from the staged set (0 = the full staged split)
+    sample_batches_cap = 0
+
+    def stage_dataset(self, batches: Iterable[Dict], split: str = "train",
+                      max_patches: int = 0) -> int:
+        """Stream one pass of `batches` and stage the whole set on the card
+        as one tensor per field; epochs then gather their batches there with
+        ``index_select``. max_patches > 0 truncates the stream. Returns the
+        staged patch count."""
+        cols = {k: [] for k in _KEEP}
+        n = 0
+        for mb in batches:
+            for k in _KEEP:
+                cols[k].append(np.asarray(mb[k], np.float32))
+            n += len(cols["_x"][-1])
+            if max_patches and n >= max_patches:
+                break
+        if not cols["_x"]:
+            raise ValueError("stage_dataset: empty batch stream")
+        host = {k: np.concatenate(v) for k, v in cols.items()}
+        if max_patches:
+            host = {k: v[:max_patches] for k, v in host.items()}
+        setattr(self, f"_staged_{split}",
+                {k: torch.as_tensor(v, device=self.device) for k, v in host.items()})
+        return int(host["_x"].shape[0])
+
+    def _gather_staged(self, data: Dict, idx) -> Dict:
+        idx = torch.as_tensor(idx, dtype=torch.long, device=self.device)
+        return {k: v.index_select(0, idx) for k, v in data.items()}
+
+    def _train_epoch_staged(self, shuffle_seed: int):
+        data = self._staged_train
+        n = int(data["_x"].shape[0])
+        b = self.cfg.n_batch_train
+        nsteps = n // b
+        if nsteps == 0:
+            raise ValueError(
+                f"staged train set has {n} patches < n_batch_train={b}; "
+                "stage more patches or lower the batch size")
+        order = np.random.default_rng(shuffle_seed).permutation(n)[:nsteps * b]
+        order = torch.as_tensor(order.reshape(nsteps, b), device=self.device)
+        losses, sdzs = [], []
+        for s in range(nsteps):
+            with self.timers.phase("step"):
+                nll, sd_z = self._step_or_eval(self._gather_staged(data, order[s]))
+            losses.append(nll)
+            sdzs.append(sd_z)
+        with self.timers.phase("sync"):
+            return (float(torch.stack(losses).mean()), float(torch.stack(sdzs).mean()))
+
+    def _staged_test_steps(self, max_batches: int = 0):
+        n = int(self._staged_test["_x"].shape[0])
+        b = self.cfg.n_batch_test
+        nsteps = n // b
+        if nsteps == 0:
+            raise ValueError(
+                f"staged test set has {n} patches < n_batch_test={b}; "
+                "stage more patches or lower the batch size")
+        if max_batches:
+            nsteps = min(nsteps, max_batches)
+        return [torch.arange(s * b, (s + 1) * b, device=self.device) for s in range(nsteps)]
+
+    def _eval_epoch_staged(self):
+        out = [self.eval_step(self._gather_staged(self._staged_test, idx))
+               for idx in self._staged_test_steps()]
+        return (float(torch.stack([o[0] for o in out]).mean()),
+                float(torch.stack([o[1] for o in out]).mean()))
+
+    def _sample_epoch_staged(self, temp: float, generator=None, sc_sd: float = 1.0,
+                             fix_cam_iso: bool = True, vis_dir: Optional[str] = None,
+                             max_batches: int = 0):
+        """sample_epoch over the staged test set: batches gather on the card
+        and the KLD sums stay there until one copy at the end. The first
+        batch takes the numpy path when vis_dir is set (the .mat dump)."""
+        losses, sdzs = [], []
+        kld_sum = torch.zeros((4,), device=self.device)
+        kld_cnt = 0
+        host_sum, host_cnt = np.zeros(4), 0
+        for s, idx in enumerate(self._staged_test_steps(max_batches)):
+            batch = self._gather_staged(self._staged_test, idx)
+            if fix_cam_iso:
+                batch = self._fix_cam_iso(batch)
+            if vis_dir is not None and s == 0:
+                nll, sd_z, kld, n_pat = self._host_kld(batch, temp, generator, sc_sd, vis_dir)
+                host_sum += kld * n_pat
+                host_cnt += n_pat
+            else:
+                with self.timers.phase("sample"):
+                    nll, sd_z, sums, cnt = self.sample_kld_step(batch, temp, sc_sd, generator)
+                kld_sum = kld_sum + sums
+                kld_cnt += cnt
+            losses.append(nll)
+            sdzs.append(sd_z)
+        with self.timers.phase("sync"):
+            tot_cnt = kld_cnt + host_cnt
+            kld = ((kld_sum.cpu().numpy() + host_sum) / tot_cnt if tot_cnt else np.zeros(4))
+            return (float(torch.stack(losses).mean()), float(torch.stack(sdzs).mean()), kld)
+
+    # ----------------------------------------------------------- main loop
+    def fit(self, train_batches_fn, test_batches_fn, logdir: str,
+            epochs: Optional[int] = None, nll_gauss: float = 0.0,
+            nll_sdn: float = 0.0, sc_sd: float = 1.0,
+            do_sampling: bool = True, verbose: bool = True,
+            sample_batches_fn=None):
+        """Full epoch loop with the reference's test gating
+        (ref:train_noise_flow.py:384-535). *_batches_fn are callables
+        returning fresh batch iterators per epoch; sample_batches_fn
+        (default: test_batches_fn) feeds the per-epoch sampling diagnostics
+        only."""
+        cfg = self.cfg
+        epochs = epochs or cfg.epochs
+        os.makedirs(logdir, exist_ok=True)
+        ckpt_dir = os.path.join(logdir, "ckpt")
+
+        def mk_logger(name, columns):
+            return ResultLogger(os.path.join(logdir, name), columns, cfg.continue_training)
+
+        cols = ["epoch", "NLL", "NLL_G", "NLL_SDN", "sdz"]
+        train_logger = mk_logger("train.txt", cols + ["train_time"])
+        test_logger = mk_logger("test.txt", cols + ["msg"])
+        sample_logger = mk_logger(
+            "sample.txt", cols + ["sample_time", "KLD_G", "KLD_NLF", "KLD_NF", "KLD_R"])
+
+        start_epoch = 1
+        if cfg.continue_training:
+            last = latest_checkpoint(ckpt_dir)
+            if last:
+                start_epoch = load_checkpoint(last, self.flow, self.optimizer) + 1
+
+        best_nll = np.inf
+        generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        train_time = 0.0
+        history = {"train": [], "test": [], "sample": []}
+
+        # Ctrl-C: finish the current epoch, save a resumable checkpoint,
+        # close the TSV logs, and exit cleanly (ref:train_noise_flow.py:545-548)
+        interrupted = {"flag": False}
+        prev_handler = None
+        in_main_thread = threading.current_thread() is threading.main_thread()
+        if in_main_thread:
+            def _on_sigint(signum, frame):
+                interrupted["flag"] = True
+                print("SIGINT: finishing epoch, saving checkpoint...", flush=True)
+            prev_handler = signal.signal(signal.SIGINT, _on_sigint)
+
+        def save(tag, epoch):
+            save_checkpoint(ckpt_dir, tag, self.flow, epoch, self.optimizer)
+
+        try:
+            for epoch in range(start_epoch, epochs + 1):
+                do_test = (epoch < 10 or (epoch < 100 and epoch % 10 == 0)
+                           or epoch % cfg.epochs_full_valid == 0)
+                is_best = 0
+                if do_test:
+                    if self._staged_test is not None:
+                        ts_nll, ts_sdz = self._eval_epoch_staged()
+                    else:
+                        ts_nll, ts_sdz = self.eval_epoch(test_batches_fn())
+                    history["test"].append(ts_nll)
+                    save(epoch, epoch)
+                    if ts_nll < best_nll:
+                        best_nll = ts_nll
+                        save("best", epoch)
+                        is_best = 1
+                    test_logger.log({"epoch": epoch, "NLL": ts_nll, "NLL_G": nll_gauss,
+                                     "NLL_SDN": nll_sdn, "sdz": ts_sdz, "msg": is_best})
+
+                if do_sampling and do_test:
+                    t0 = time.time()
+                    # per-epoch sample visualization artifacts
+                    # (ref:train_noise_flow.py:176-177)
+                    vis_dir = os.path.join(logdir, "samples_epoch_%04d" % epoch,
+                                           "samples_%.1f" % cfg.temp)
+                    if self._staged_test is not None:
+                        sm_nll, sm_sdz, kld = self._sample_epoch_staged(
+                            cfg.temp, generator, sc_sd, vis_dir=vis_dir,
+                            max_batches=self.sample_batches_cap)
+                    else:
+                        sm_nll, sm_sdz, kld = self.sample_epoch(
+                            (sample_batches_fn or test_batches_fn)(), cfg.temp,
+                            generator, sc_sd, vis_dir=vis_dir)
+                    history["sample"].append(sm_nll)
+                    sample_logger.log({
+                        "epoch": epoch, "NLL": sm_nll, "NLL_G": nll_gauss,
+                        "NLL_SDN": nll_sdn, "sdz": sm_sdz, "sample_time": time.time() - t0,
+                        "KLD_G": kld[0], "KLD_NLF": kld[1], "KLD_NF": kld[2], "KLD_R": kld[3]})
+
+                t0 = time.time()
+                self.timers.reset()
+                if self._staged_train is not None:
+                    tr_nll, tr_sdz = self._train_epoch_staged(cfg.seed + epoch)
+                else:
+                    tr_nll, tr_sdz = self.train_epoch(train_batches_fn())
+                train_time += time.time() - t0
+                history["train"].append(tr_nll)
+                train_logger.log({"epoch": epoch, "NLL": tr_nll, "NLL_G": nll_gauss,
+                                  "NLL_SDN": nll_sdn, "sdz": tr_sdz,
+                                  "train_time": int(train_time)})
+                if verbose and do_test:
+                    print(f"E={epoch} tL={tr_nll:9.1f} sL={history['test'][-1]:9.1f} "
+                          f"SDr={tr_sdz:.2f} B={is_best} [{self.timers.line()}]", flush=True)
+                if self.timers.totals:
+                    # the last epoch's input-vs-step attribution
+                    with open(os.path.join(logdir, "phase_timers.txt"), "w") as f:
+                        f.write(f"epoch {epoch}: {self.timers.line()}\n")
+                if interrupted["flag"]:
+                    save(epoch, epoch)
+                    break
+        finally:
+            if in_main_thread:
+                signal.signal(signal.SIGINT, prev_handler)
+            for lg in (train_logger, test_logger, sample_logger):
+                lg.close()
+        return history

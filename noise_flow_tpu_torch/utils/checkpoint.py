@@ -6,12 +6,20 @@ The format (noise_flow_tpu.utils.checkpoint) is a flat npz whose keys are
 ``__epoch__``. The port's ``state_dict`` key of a leaf is its key path with
 the level index after ``layers`` dropped (single-level flows):
 ``layers.2.nn.l1_w``. Parameters come from the ``params`` group, buffers
-from ``state``; the optimizer group is not read by the sampling path.
+from ``state``, so both packages read each other's weights.
+
+The ``opt`` group holds the optimizer state in the port's own layout,
+``opt|torch/<parameter name>/<slot>`` (``exp_avg``, ``exp_avg_sq``, ``step``
+for Adam; ``momentum_buffer`` for SGD). The JAX package's optax layout
+differs: a checkpoint in the other package's layout loads its parameters and
+state and resumes without the optimizer slots, with a warning, as the JAX
+loader does for a layout it does not know.
 """
 
 from __future__ import annotations
 
 import glob
+import logging
 import os
 import re
 from typing import Dict, Iterator, Optional, Tuple
@@ -92,10 +100,32 @@ def _load_into(module: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> None:
     module.load_state_dict(sd, strict=True)
 
 
-def load_checkpoint(path: str, module: torch.nn.Module) -> int:
-    """Load an npz checkpoint's params and state into ``module``; returns
-    the epoch it was written at."""
-    sd = {}
+_OPT_PREFIX = "torch/"
+
+
+def _load_optimizer(path: str, module, optimizer, opt: Dict[str, np.ndarray]) -> None:
+    params = dict(module.named_parameters())
+    slots: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, v in opt.items():
+        name, _, slot = key[len(_OPT_PREFIX):].rpartition("/")
+        if not key.startswith(_OPT_PREFIX) or name not in params:
+            logging.getLogger(__name__).warning(
+                "checkpoint %s: optimizer state layout does not match the "
+                "current optimizer; resuming without it", path)
+            return
+        slots.setdefault(name, {})[slot] = v
+    for name, st in slots.items():
+        p = params[name]
+        optimizer.state[p] = {
+            k: torch.as_tensor(v) if k == "step" else torch.as_tensor(v, device=p.device)
+            for k, v in st.items()}
+
+
+def load_checkpoint(path: str, module: torch.nn.Module, optimizer=None) -> int:
+    """Load an npz checkpoint's params and state into ``module`` and, given
+    an ``optimizer`` over ``module.parameters()``, its optimizer slots;
+    returns the epoch it was written at."""
+    sd, opt = {}, {}
     with np.load(path, allow_pickle=False) as z:
         epoch = int(z["__epoch__"])
         for k in z.files:
@@ -105,20 +135,30 @@ def load_checkpoint(path: str, module: torch.nn.Module) -> int:
             if group in ("params", "state"):
                 sd[_path_to_key(_parse_path(key))] = torch.as_tensor(
                     np.array(z[k], dtype=np.float32))
+            elif group == "opt":
+                opt[key] = np.array(z[k])
     _load_into(module, sd)
+    if optimizer is not None and opt:
+        _load_optimizer(path, module, optimizer, opt)
     return epoch
 
 
 def save_checkpoint(ckpt_dir: str, tag, module: torch.nn.Module,
-                    epoch: int = 0) -> str:
+                    epoch: int = 0, optimizer=None) -> str:
     """Write ``module``'s parameters and buffers as ``model.ckpt-<tag>.npz``
-    in the JAX package's format."""
+    in the JAX package's format, and the ``optimizer``'s slots (if given)
+    in the ``opt`` group."""
     os.makedirs(ckpt_dir, exist_ok=True)
     out = {}
     params = dict(module.named_parameters())
     for k, v in module.state_dict().items():
         group = "params" if k in params else "state"
         out[f"{group}|{_format_path(_key_to_path(k))}"] = v.detach().cpu().numpy()
+    if optimizer is not None:
+        for name, p in params.items():
+            for slot, v in optimizer.state.get(p, {}).items():
+                out[f"opt|{_OPT_PREFIX}{name}/{slot}"] = np.asarray(
+                    v.detach().cpu().numpy() if torch.is_tensor(v) else v)
     out["__epoch__"] = np.asarray(epoch)
     path = os.path.join(ckpt_dir, f"model.ckpt-{tag}.npz")
     tmp = path + ".tmp"

@@ -134,7 +134,7 @@ def _port_sources():
 
 def test_port_and_chip_smoke_never_name_jax():
     files = list(_port_sources()) + [os.path.join(ROOT, "chip_smoke.py")]
-    assert len(files) > 15
+    assert len(files) > 30
     for path in files:
         bad = _imported_modules(path) & {"jax", "jaxlib", "noise_flow_tpu"}
         assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
@@ -157,7 +157,7 @@ def test_port_imports_without_jax():
                          text=True, timeout=300,
                          env=dict(os.environ, JAX_PLATFORMS="cpu"))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    assert int(out.stdout.split()[-1]) >= 32
 
 
 def test_entry_points_default_to_the_card():
@@ -166,6 +166,7 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the default device is usable")
     from noise_flow_tpu_torch.cli.sample import main
+    from noise_flow_tpu_torch.cli.train import main as train_main
     from noise_flow_tpu_torch.models.flow import NoiseFlow
     from noise_flow_tpu_torch.wrapper import NoiseFlowWrapper
 
@@ -175,6 +176,20 @@ def test_entry_points_default_to_the_card():
         NoiseFlow((32, 32, 4), config.default_config())
     with pytest.raises(RuntimeError, match="cuda"):
         main(["--model_path", MODEL, "--synthetic", "--n_pat", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_main(["--synthetic_data", "1", "--epochs", "1", "--logdir", "unused"])
+
+
+def test_train_kernels_never_fall_back_for_card_tensors():
+    """The fused train wrappers take their plain versions only for CPU
+    tensors; any other device goes to the kernel or raises."""
+    from noise_flow_tpu_torch.ops import fused_train as ft
+
+    x = torch.zeros((2, 32, 32, 4), device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        ft.fused_train_step(x, x, x, x, x, x, x, [], 2)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        ft.fused_segment_forward(x, x, x, x, [])
 
 
 def test_chip_smoke_refuses_without_a_card():

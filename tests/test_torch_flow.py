@@ -87,7 +87,7 @@ def test_flagship_inverse_and_loss_match(flagship, train):
     loss_ref, sdz_ref, _ = jflow.loss(params, state, jnp.asarray(noise), jc, train)
     with torch.no_grad():
         z, obj = flow.inverse(torch.as_tensor(noise), tc, train)
-        loss, sdz = flow.loss(torch.as_tensor(noise), tc, train)
+        loss, sdz, _ = flow.loss(torch.as_tensor(noise), tc, train)
     np.testing.assert_allclose(z.numpy(), np.asarray(z_ref), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(obj.numpy(), np.asarray(obj_ref), rtol=1e-5, atol=5e-2)
     np.testing.assert_allclose(float(loss), float(loss_ref), rtol=1e-5, atol=5e-2)
