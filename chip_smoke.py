@@ -42,7 +42,27 @@ Phases, each of which fails the run if it fails:
 10. run 5 Adam steps through the kernels and 5 through the plain versions
    from the same weights on the same batches; the parameters must agree;
 11. time the train kernels, their plain versions and one train step's parts;
-12. print the ``{"kernels": [...]}`` line.
+12. the segment path's kernels against their plain versions on both flagship
+   segments at b = 138, bt 69 and 138: the ghost-BN forward (z elementwise,
+   ldj relative, the group moments elementwise) and the backward from
+   seeded cotangents (gz, gldj) that are not the analytic seeds (gx and
+   every raw gradient normwise, b1/b2 exactly zero);
+13. the segment path (``FusedFlow.loss(train=True)`` through those kernels)
+   against the one-shot path (``FusedTrainStep`` through the step kernel)
+   on the same batch: loss, sd_z, new BN state, every parameter gradient;
+14. plant faults in the backward (BN groups of bt/3, gldj zeroed, one
+   coupling's weight gradients left out) that the comparison must report;
+15. train through the segment path: ``Trainer(use_pallas=True,
+   pallas_oneshot=False)``, the fit of phase 9 with exact launch counts of
+   the segment kernels and none of the step kernel; then 5 steps of the
+   5-scale arch ``sdn|gain|sdn1|gain1|sdn2|unc``, whose only fused path is
+   the segment path;
+16. 5 Adam steps through the segment kernels against 5 through their plain
+   versions, as phase 10;
+17. time the segment kernels, their plain versions and their bounds;
+18. break a segment-path train step down, as phase 11;
+19. print the ``{"kernels": [...]}`` line, one entry a TPU kernel function
+   (the segment forward with its running and ghost modes).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; it is printed
 only if every phase passed. Exit code 0 then, non-zero otherwise.
@@ -51,6 +71,7 @@ only if every phase passed. Exit code 0 then, non-zero otherwise.
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import os
 import shutil
@@ -96,6 +117,23 @@ LDJ_RTOL = 2e-6
 # 5 Adam steps from the same weights, kernel vs plain: parameters, absolute
 # (observed 2.2e-6 after moves of up to 5e-4)
 TRAJ_ATOL = 1e-5
+# The segment path's kernels on N(0, 1) input (observed with this script on
+# an H100 80GB HBM3 at 700 W). The ghost-BN forward: z and ldj as the eval
+# forward above (observed 9.5e-6 abs, 3.8e-7 rel); the group moments
+# |k - p| <= atol + rtol |p| (observed 1.2e-7 abs, 1.1e-6 rel: sums of up to
+# 141k values in another order). The backward from seeded cotangents:
+# gx and every raw gradient normwise. Observed at most 6.5e-7 here, where no
+# ReLU mask flips; a flip (float32 rounding on either side of a kink, as the
+# train-step comparison above allows for) moved one card test's gradients
+# by up to 9.2e-5 at b = 300. BN groups of bt/3 move them by 1.5e-3 to
+# 3.6e-3, and must be reported on every output.
+GHOST_BN_TOL = (4e-7, 5e-6)
+SEG_GRAD_RTOL = 5e-4
+# The segment path against the one-shot path on the same batch: the mean NLL
+# and sd_z, relative (sd_z from the two-pass variance there, from sum z and
+# sum z^2 here)
+PATH_LOSS_RTOL = 1e-6
+FIVE_SCALE_ARCH = "sdn|gain|sdn1|gain1|sdn2|unc"   # beyond the one-shot step's 4 scale layers
 TRAIN_B, TRAIN_BTS = 138, (69, 138)
 TRAIN_EPOCHS, TRAIN_IMAGES, TEST_IMAGES = 2, 17, 3    # 512x512: 256 patches each
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3
@@ -168,19 +206,27 @@ def _train_batch(b, seed):
     return x.contiguous(), cond
 
 
-def _train_work(inputs, b, step: bool):
-    """(FLOPs, bytes) of the train step (step=True: forward, data gradient
+def _train_work(inputs, b, kind: str):
+    """(FLOPs, bytes) of the train step (kind "step": forward, data gradient
     and weight gradient of every conv and mix, 3x the forward's
-    multiply-adds) or of one eval segment (the forward's). Bytes: each input
-    read once, each output written once."""
+    multiply-adds), of one segment's forward ("forward": running BN;
+    "ghost": ghost BN, which also writes the group moments) or of one
+    segment's backward ("backward": its forward again, then both gradients,
+    3x the forward's). Bytes: each input read once, each output written
+    once."""
     rec, offs, mixes = inputs[:3]
     n_c, n_m = rec.shape[0], mixes.shape[0]
     mac_per_px = n_c * (9 * 2 * 4 + 4 * 4 + 9 * 4 * 4) + n_m * 16
     weights = rec.numel() + offs.numel() + mixes.numel()
-    if not step:
-        return 2.0 * mac_per_px * 1024 * b, 4.0 * (2 * b * 4096 + b + weights)
+    fwd_flops = 2.0 * mac_per_px * 1024 * b
+    if kind == "forward":
+        return fwd_flops, 4.0 * (2 * b * 4096 + b + weights)
+    if kind == "ghost":
+        return fwd_flops, 4.0 * (2 * b * 4096 + b + weights + n_c * 16)
+    if kind == "backward":   # x, gz, gldj, weights in; gx, gradients out
+        return 3 * fwd_flops, 4.0 * (3 * b * 4096 + b + 2 * weights)
     ns = inputs[3].shape[1]
-    return (3 * 2.0 * mac_per_px * 1024 * b,
+    return (3 * fwd_flops,
             4.0 * (2 * b * 4096 + 4 * b * ns + 2 * weights + 3 * b + n_c * 16))
 
 
@@ -334,9 +380,14 @@ def _training_phases(phase, agree):
     ts = PatchDataset(make_synthetic_samples(TEST_IMAGES, 512, 512, seed=9,
                                              isos=[100, 400, 800, 1600, 3200]), 32, 256)
 
-    def train():
-        trainer = Trainer(NoiseFlow((32, 32, 4), tcfg, device="cuda", seed=tcfg.seed), tcfg)
-        assert trainer.use_oneshot
+    def train(oneshot):
+        """A 2-epoch fit through the one-shot step or the segment path."""
+        cfg = copy.copy(tcfg)
+        cfg.pallas_oneshot = oneshot
+        trainer = Trainer(NoiseFlow((32, 32, 4), cfg, device="cuda", seed=cfg.seed), cfg)
+        if trainer.use_oneshot != oneshot or not trainer.use_fused:
+            raise AssertionError(f"trainer took use_oneshot={trainer.use_oneshot}")
+        n_seg = sum(1 for it in trainer._fused_for_batch(b).plan if it[0] == "segment")
         stats = calc_pat_stats(tr.x, tr.y)
         nll_g, nll_sdn = calc_baselines(ts.batches(b, drop_remainder=True), stats["sc_in_vr"])
         n_tr = trainer.stage_dataset(tr.batches(b, drop_remainder=True), "train")
@@ -358,18 +409,24 @@ def _training_phases(phase, agree):
                     sc_sd=stats["sc_in_sd"], do_sampling=True, verbose=True)
         torch.cuda.synchronize()
         t_fit = time.time() - t0
-        launches.update(fs.launch_counts)
+        counts = dict(fs.launch_counts)
+        launches[oneshot] = counts
         nll = torch.stack(nlls).cpu().numpy()
         # eval steps: each test batch, plus the sampling phase's first batch
-        # (its NLL round trip takes the numpy path for the .mat dump)
-        want = {"fused_train_step": TRAIN_EPOCHS * steps,
-                "fused_segment_forward": TRAIN_EPOCHS * (test_steps + 1) * len(segs)}
-        print(f"train: {n_tr} train / {n_ts} test patches staged, fit of {TRAIN_EPOCHS} epochs "
-              f"in {t_fit:.2f} s; launches {dict(launches)} (expected {want}); NLL first 10 "
-              f"{nll[:10].mean():.3f}, last 10 {nll[-10:].mean():.3f}")
+        # (its NLL round trip takes the numpy path for the .mat dump); train
+        # steps: one step kernel, or a forward and a backward a segment
+        train_launches = TRAIN_EPOCHS * steps * (1 if oneshot else n_seg)
+        want = {"fused_train_step": train_launches if oneshot else 0,
+                "fused_segment_train_forward": 0 if oneshot else train_launches,
+                "fused_segment_backward": 0 if oneshot else train_launches,
+                "fused_segment_forward": TRAIN_EPOCHS * (test_steps + 1) * n_seg}
+        print(f"train ({'one-shot' if oneshot else 'segment path'}): {n_tr} train / {n_ts} "
+              f"test patches staged, fit of {TRAIN_EPOCHS} epochs in {t_fit:.2f} s; launches "
+              f"{counts} (expected {want}); NLL first 10 {nll[:10].mean():.3f}, last 10 "
+              f"{nll[-10:].mean():.3f}")
         for name, n in want.items():
-            if launches.get(name, 0) != n:
-                raise AssertionError(f"{name} launched {launches.get(name, 0)} times, not {n}")
+            if counts.get(name, 0) != n:
+                raise AssertionError(f"{name} launched {counts.get(name, 0)} times, not {n}")
         if not np.isfinite(nll).all() or not nll[-10:].mean() < nll[:10].mean():
             raise AssertionError("train NLL not finite or not falling")
         cols = ["epoch", "NLL", "NLL_G", "NLL_SDN", "sdz"]
@@ -384,8 +441,8 @@ def _training_phases(phase, agree):
                 raise AssertionError(f"{name} has values that are not finite: {vals}")
             print(f"  {name}: {rows[0]} last {rows[-1]}")
         for tag in [str(e) for e in range(1, TRAIN_EPOCHS + 1)] + ["best"]:
-            back = NoiseFlow((32, 32, 4), tcfg, device="cuda", seed=1)
-            opt = make_optimizer(tcfg, list(back.parameters()))
+            back = NoiseFlow((32, 32, 4), cfg, device="cuda", seed=1)
+            opt = make_optimizer(cfg, list(back.parameters()))
             path = os.path.join(logdir, "ckpt", f"model.ckpt-{tag}.npz")
             epoch = load_checkpoint(path, back, opt)
             if not opt.state and epoch > 1:
@@ -393,21 +450,31 @@ def _training_phases(phase, agree):
             print(f"  checkpoint {tag}: epoch {epoch}, {len(opt.state)} optimizer slots loaded")
         shutil.rmtree(logdir, ignore_errors=True)
         return trainer
-    trainer = phase("train on the card (fit, staged data)", train)
+    trainer = phase("train on the card (fit, staged data)", lambda: train(True))
 
-    def trajectory():
+    def trajectory(oneshot):
+        """5 Adam steps through the kernels and 5 through their plain
+        versions, on the one-shot path or the segment path."""
         runs = {}
-        for name, fn in (("kernel", ft.fused_train_step), ("plain", ft.train_step_reference)):
+        fns = ((("kernel", ft.fused_train_step), ("plain", ft.train_step_reference)) if oneshot
+               else (("kernel", ft.SEGMENT_KERNELS), ("plain", ft.SEGMENT_PLAIN)))
+        for name, fn in fns:
             f = NoiseFlow((32, 32, 4), tcfg, device="cuda", seed=tcfg.seed)
             opt = make_optimizer(tcfg, [q for _, q in f.named_parameters()])
-            step = ft.FusedTrainStep(f, bt=69)
+            if oneshot:
+                step = ft.FusedTrainStep(f, bt=69)
+            else:
+                ff_t = ft.FusedFlow(f, bt=69)
             for i in range(5):
                 mb = {k: torch.as_tensor(v[i * b:(i + 1) * b], device="cuda")
                       for k, v in (("_x", tr.x), ("_y", tr.y), ("nlf0", tr.nlf0),
                                    ("nlf1", tr.nlf1), ("iso", tr.iso), ("cam", tr.cam))}
                 cnd = {"clean": mb["_y"], "nlf0": mb["nlf0"], "nlf1": mb["nlf1"],
                        "iso": mb["iso"], "cam": mb["cam"]}
-                nll, _, new_state = step.loss(mb["_x"], cnd, step_fn=fn)
+                if oneshot:
+                    nll, _, new_state = step.loss(mb["_x"], cnd, step_fn=fn)
+                else:
+                    nll, _, new_state = ff_t.loss(mb["_x"], cnd, train=True, seg_fns=fn)
                 opt.zero_grad(set_to_none=True)
                 nll.backward()
                 opt.step()
@@ -420,13 +487,14 @@ def _training_phases(phase, agree):
                      if not k.endswith(("l1_b", "l2_b"))}
             moved = max(float((pp[k] - p0[k]).abs().max()) for k in diffs)
         worst = max(diffs, key=diffs.get)
-        print(f"trajectory: 5 Adam steps (lr {tcfg.lr}), kernel vs plain: max abs param "
+        print(f"trajectory ({'one-shot' if oneshot else 'segment path'}): 5 Adam steps "
+              f"(lr {tcfg.lr}), kernel vs plain: max abs param "
               f"difference {diffs[worst]:.3e} ({worst}); largest move from init {moved:.3e}; "
               f"tol {TRAJ_ATOL} (l1_b/l2_b left out: their true gradient is zero, and Adam "
               f"turns the plain version's rounding into lr-sized steps)")
         if not diffs[worst] <= TRAJ_ATOL:
             raise AssertionError("kernel and plain trajectories disagree")
-    phase("trajectory: 5 Adam steps kernel vs plain", trajectory)
+    phase("trajectory: 5 Adam steps kernel vs plain", lambda: trajectory(True))
 
     def timing():
         for bt in TRAIN_BTS:
@@ -434,7 +502,7 @@ def _training_phases(phase, agree):
             inputs = kernel_inputs(step)
             k_ms = _time_ms(lambda: raw(step, inputs, bt, ft.fused_train_step), 20)
             p_ms = _time_ms(lambda: raw(step, inputs, bt, ft.train_step_reference), 5)
-            flops, nbytes = _train_work(inputs, b, True)
+            flops, nbytes = _train_work(inputs, b, "step")
             t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
             timings[bt] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
                            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -444,7 +512,7 @@ def _training_phases(phase, agree):
         ins = [(seg_inputs(lo, hi), ft._ops_code(seg.ops)) for _, seg, lo, hi in segs]
         k_ms = _time_ms(lambda: [ft.fused_segment_forward(z_in, *i, c) for i, c in ins], 20)
         p_ms = _time_ms(lambda: [ft.segment_forward_reference(z_in, *i, c) for i, c in ins], 5)
-        work = [_train_work(i, b, False) for i, _ in ins]
+        work = [_train_work(i, b, "forward") for i, _ in ins]
         t_ops = sum(w[0] for w in work) / PEAK_FP32_FLOPS
         t_bytes = sum(w[1] for w in work) / PEAK_HBM_BYTES
         timings["segment"] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
@@ -490,22 +558,249 @@ def _training_phases(phase, agree):
               ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
     phase("train step breakdown", step_breakdown)
 
-    if len(timings) == 3 and len(errs) == 3 and launches:
-        for name, src_line, key, shape in (
-                ("fused_train_step", "noise_flow_tpu/ops/pallas_train.py:645", 69,
-                 "b=138, bt=69 (the trainer's block)"),
-                ("fused_segment_forward", "noise_flow_tpu/ops/pallas_train.py:315", "segment",
-                 "b=138, running BN, both segments of one eval step")):
-            entry = {"name": name, "route": "cuda",
-                     "source": "noise_flow_tpu_torch/csrc/fused_train.cu",
-                     "replaces": src_line, "launches": launches.get(name, 0),
-                     "max_abs_err": max(v for k, v in errs.items()
-                                        if (k == "segment") == (key == "segment")),
-                     **timings[key], "library_ms": None, "shape": shape}
-            if key == 69:
-                entry["by_shape"] = {f"b=138,bt={bt}": dict(timings[bt], max_abs_err=errs[bt])
-                                     for bt in TRAIN_BTS}
-            out["entries"].append(entry)
+    # ---- the segment path ---------------------------------------------------
+    ffs = ft.FusedFlow(flow, bt=b)
+    with torch.no_grad():
+        train_segs = [(*ffs.fold_segment(lo, hi, fold_bn=False)[:3], ft._ops_code(seg.ops))
+                      for _, seg, lo, hi in segs]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    # cotangents at the scale of the mean NLL's, but not its analytic seeds
+    gz = torch.randn((b, 32, 32, 4), generator=gen, device="cuda") / b
+    gldj = (-1.0 + 0.5 * torch.randn((b,), generator=gen, device="cuda")) / b
+    grad_names = ("gx", "grad_rec", "grad_offs", "grad_mixes")
+
+    def bwd_agree(label, k, p):
+        """The backward kernel's outputs against the plain version's,
+        normwise; returns (agrees, max abs error)."""
+        torch.cuda.synchronize()
+        ok, worst = True, 0.0
+        for name, a, r in zip(grad_names, k, p):
+            e = norm_rel(a, r)
+            good = e <= SEG_GRAD_RTOL and bool(torch.isfinite(a).all())
+            ok = ok and good
+            worst = max(worst, float((a - r).abs().max()))
+            print(f"  {label} {name}: normwise rel {e:.3e} max_abs "
+                  f"{float((a - r).abs().max()):.3e} {'ok' if good else 'DISAGREES'}")
+        print(f"compare {label}: {'ok' if ok else 'DISAGREES'}")
+        return ok, worst
+
+    def ghost_vs_plain(bt):
+        worst = 0.0
+        for n, (rec, offs, mixes, code) in enumerate(train_segs):
+            zk, lk, mk = ft.fused_segment_train_forward(z_in, rec, offs, mixes, code, bt)
+            zp, lp, mp = ft.segment_train_forward_reference(z_in, rec, offs, mixes, code, bt)
+            ok, e = agree(f"ghost segment {n} z b={b} bt={bt}", zk, zp, SEG_TOL)
+            e_l = float(((lk - lp).abs() / lp.abs().clamp_min(1.0)).max())
+            d_m = (mk - mp).abs()
+            ok_m = bool((d_m <= GHOST_BN_TOL[0] + GHOST_BN_TOL[1] * mp.abs()).all())
+            print(f"compare ghost segment {n} ldj b={b} bt={bt}: max rel {e_l:.3e} (tol "
+                  f"{LDJ_RTOL}); group moments max_abs {float(d_m.max()):.3e} max_rel "
+                  f"{float((d_m / mp.abs().clamp_min(1e-6)).max()):.3e} (atol, rtol "
+                  f"{GHOST_BN_TOL}) {'ok' if ok_m else 'DISAGREES'}")
+            worst = max(worst, e, float((lk - lp).abs().max()), float(d_m.max()))
+            if not (ok and e_l <= LDJ_RTOL and ok_m):
+                raise AssertionError(f"ghost segment forward disagrees with plain (segment {n})")
+        errs[("ghost", bt)] = worst
+
+    def backward_vs_plain(bt):
+        worst = 0.0
+        for n, (rec, offs, mixes, code) in enumerate(train_segs):
+            k = ft.fused_segment_backward(z_in, rec, offs, mixes, code, bt, gz, gldj)
+            p = ft.segment_backward_reference(z_in, rec, offs, mixes, code, bt, gz, gldj)
+            ok, w = bwd_agree(f"segment {n} backward b={b} bt={bt}", k, p)
+            for field in ("b1", "b2"):
+                off, shape = fs._REC_LAYOUT[field]
+                ok = ok and float(k[1][:, off:off + shape[0]].abs().max()) == 0.0
+            worst = max(worst, w)
+            if not ok:
+                raise AssertionError(f"segment backward disagrees with plain (segment {n}), "
+                                     f"or its b1/b2 gradients are not exactly zero")
+        errs[("bwd", bt)] = worst
+
+    for bt in TRAIN_BTS:
+        phase(f"ghost segment forward kernel vs plain b={b} bt={bt}",
+              lambda bt=bt: ghost_vs_plain(bt))
+    for bt in TRAIN_BTS:
+        phase(f"segment backward kernel vs plain b={b} bt={bt}",
+              lambda bt=bt: backward_vs_plain(bt))
+
+    def path_vs_oneshot():
+        """Two CUDA kernels computing one function: the segment path's loss
+        and gradients against the one-shot step's, at the trainer's bt."""
+        params = dict(flow.named_parameters())
+        nll_s, sd_s, st_s = ft.FusedFlow(flow, bt=69).loss(x, cond, train=True)
+        g_s = torch.autograd.grad(nll_s, list(params.values()), allow_unused=True)
+        nll_s = nll_s.detach()
+        g_s = {k: torch.zeros_like(q) if g is None else g for (k, q), g in zip(params.items(), g_s)}
+        nll_o, sd_o, st_o, g_o = ft.FusedTrainStep(flow, bt=69).loss_and_grad(x, cond)
+        torch.cuda.synchronize()
+        e_loss = abs(float(nll_s) - float(nll_o)) / abs(float(nll_o))
+        e_sd = abs(float(sd_s) - float(sd_o)) / abs(float(sd_o))
+        e_st = max(float((st_s[k] - st_o[k]).abs().max()) for k in st_o)
+        ok = (set(st_s) == set(st_o) and e_loss <= PATH_LOSS_RTOL and e_sd <= PATH_LOSS_RTOL
+              and e_st <= BN_ATOL * 0.1)
+        rels = {}
+        for k, g in g_o.items():
+            if k.endswith(("l1_b", "l2_b")):
+                ok = ok and float(g_s[k].abs().max()) == 0.0 == float(g.abs().max())
+                continue
+            rels[k] = norm_rel(g_s[k], g)
+        worst = max(rels, key=rels.get)
+        bad = sorted(k for k, v in rels.items() if not v <= LEAF_GRAD_RTOL)
+        print(f"compare segment path vs one-shot b={b} bt=69: loss {float(nll_s):.4f} vs "
+              f"{float(nll_o):.4f} (rel {e_loss:.2e}), sd_z rel {e_sd:.2e} (tol {PATH_LOSS_RTOL}); "
+              f"new BN state max_abs {e_st:.2e} (tol {BN_ATOL * 0.1:.0e}); {len(rels)} gradient "
+              f"leaves, worst normwise {rels[worst]:.3e} ({worst}) (tol {LEAF_GRAD_RTOL}); "
+              f"{'ok' if ok and not bad else 'DISAGREES ' + str(bad)}")
+        if bad or not ok:
+            raise AssertionError("the segment path and the one-shot path disagree")
+    phase("segment path vs one-shot path", path_vs_oneshot)
+
+    def segment_faults():
+        rec, offs, mixes, code = train_segs[0]
+        right = ft.segment_backward_reference(z_in, rec, offs, mixes, code, 69, gz, gldj)
+        left_out = [t.clone() for t in ft.fused_segment_backward(z_in, rec, offs, mixes, code,
+                                                                 69, gz, gldj)]
+        left_out[1][2] = 0.0        # coupling 2's weight gradients left out
+        left_out[2][2] = 0.0
+        faults = (("BN groups of bt/3 in the backward alone",
+                   ft.fused_segment_backward(z_in, rec, offs, mixes, code, 23, gz, gldj)),
+                  ("gldj zeroed", ft.fused_segment_backward(z_in, rec, offs, mixes, code, 69, gz,
+                                                            torch.zeros_like(gldj))),
+                  ("one coupling's weight gradients left out", left_out))
+        for name, wrong in faults:
+            ok, _ = bwd_agree(f"planted fault ({name})", wrong, right)
+            if ok:
+                raise AssertionError(f"the comparison missed a planted fault: {name}")
+    phase("segment planted faults are caught", segment_faults)
+
+    seg_trainer = phase("train on the card through the segment path (fit, staged data)",
+                        lambda: train(False))
+
+    def five_scale():
+        cfg = copy.copy(tcfg)
+        cfg.arch = FIVE_SCALE_ARCH
+        tr5 = Trainer(NoiseFlow((32, 32, 4), cfg, device="cuda", seed=cfg.seed), cfg)
+        if tr5.use_oneshot or not tr5.use_fused:
+            raise AssertionError(f"{cfg.arch}: use_fused={tr5.use_fused}, "
+                                 f"use_oneshot={tr5.use_oneshot}")
+        n_seg = sum(1 for it in tr5._fused_for_batch(b).plan if it[0] == "segment")
+        fs.launch_counts.clear()
+        nlls = [float(tr5.train_step(tr5._put(mb))[0])
+                for mb in itertools.islice(tr.batches(b, drop_remainder=True), 5)]
+        counts = dict(fs.launch_counts)
+        want = {"fused_segment_train_forward": 5 * n_seg, "fused_segment_backward": 5 * n_seg}
+        print(f"train {cfg.arch} (5 scale layers, segment path): 5 steps at b={b}, NLL "
+              f"{[round(v, 3) for v in nlls]}; launches {counts} (expected {want})")
+        if counts != want or not np.isfinite(nlls).all():
+            raise AssertionError("5-scale arch: launches or losses wrong")
+    phase("train the 5-scale arch (segment path)", five_scale)
+    phase("trajectory (segment path): 5 Adam steps kernel vs plain", lambda: trajectory(False))
+
+    def segment_timing():
+        for bt in TRAIN_BTS:
+            for kind, fn, plain in (
+                    ("ghost", lambda bt=bt: [ft.fused_segment_train_forward(z_in, *sg, bt)
+                                             for sg in train_segs],
+                     lambda bt=bt: [ft.segment_train_forward_reference(z_in, *sg, bt)
+                                    for sg in train_segs]),
+                    ("backward", lambda bt=bt: [ft.fused_segment_backward(z_in, *sg, bt, gz, gldj)
+                                                for sg in train_segs],
+                     lambda bt=bt: [ft.segment_backward_reference(z_in, *sg, bt, gz, gldj)
+                                    for sg in train_segs])):
+                k_ms = _time_ms(fn, 20)
+                p_ms = _time_ms(plain, 5)
+                work = [_train_work(sg, b, kind) for sg in train_segs]
+                flops, nbytes = sum(w[0] for w in work), sum(w[1] for w in work)
+                t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+                key = ("ghost" if kind == "ghost" else "bwd", bt)
+                timings[key] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
+                                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+                print(f"time segment {kind} b={b} bt={bt} ({len(train_segs)} calls, one train "
+                      f"step): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                      f"{timings[key]['bound_ms']:.4f} ms ({timings[key]['bound_by']}; "
+                      f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
+    phase("segment timing", segment_timing)
+
+    def segment_step_breakdown():
+        """One segment-path train step of the trainer on the host clock, and
+        its parts, each timed alone between synchronisations, 10 times. The
+        loss holds the folds and the forward kernels; backward holds the
+        backward kernels and autograd through the scale layers and folds."""
+        if seg_trainer is None:
+            raise AssertionError("no trainer (the segment-path train phase failed)")
+        batch = seg_trainer._gather_staged(seg_trainer._staged_train,
+                                           torch.arange(b, device="cuda"))
+        cnd = {"clean": batch["_y"], "nlf0": batch["nlf0"], "nlf1": batch["nlf1"],
+               "iso": batch["iso"], "cam": batch["cam"]}
+        ff_s = seg_trainer._fused_for_batch(b)
+        parts = {k: 0.0 for k in ("step", "loss", "fold", "fwd kernels", "backward",
+                                  "bwd kernels", "adam")}
+        n = 10
+
+        def clock(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            parts[name] += (time.perf_counter() - t0) * 1e3 / n
+            return r
+        for _ in range(3):
+            seg_trainer.train_step(batch)
+        for _ in range(n):
+            clock("step", lambda: seg_trainer.train_step(batch))
+            nll = clock("loss", lambda: ff_s.loss(batch["_x"], cnd, train=True))[0]
+            clock("fold", lambda: [ff_s.fold_segment(lo, hi, False) for _, _, lo, hi in segs])
+            clock("fwd kernels", lambda: [ft.fused_segment_train_forward(z_in, *sg, ff_s.bt)
+                                          for sg in train_segs])
+            seg_trainer.optimizer.zero_grad(set_to_none=True)
+            clock("backward", nll.backward)
+            clock("bwd kernels", lambda: [ft.fused_segment_backward(z_in, *sg, ff_s.bt, gz, gldj)
+                                          for sg in train_segs])
+            clock("adam", seg_trainer.optimizer.step)
+        print(f"breakdown segment-path train step b={b} bt={ff_s.bt} (host clock, ms): " +
+              ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
+    phase("segment-path train step breakdown", segment_step_breakdown)
+
+    need_t = [69, 138, "segment"] + [(k, bt) for k in ("ghost", "bwd") for bt in TRAIN_BTS]
+    if all(k in timings and k in errs for k in need_t) and True in launches and False in launches:
+        seg_l = launches[False]
+
+        def by_bt(kind):
+            return {f"b=138,bt={bt}": dict(timings[(kind, bt)], max_abs_err=errs[(kind, bt)])
+                    for bt in TRAIN_BTS}
+        common = {"route": "cuda", "source": "noise_flow_tpu_torch/csrc/fused_train.cu",
+                  "library_ms": None}
+        out["entries"] = [
+            {"name": "fused_train_step", **common,
+             "replaces": "noise_flow_tpu/ops/pallas_train.py:645",
+             "launches": launches[True].get("fused_train_step", 0),
+             "max_abs_err": max(errs[69], errs[138]), **timings[69],
+             "shape": "b=138, bt=69 (the trainer's block)",
+             "by_shape": {f"b=138,bt={bt}": dict(timings[bt], max_abs_err=errs[bt])
+                          for bt in TRAIN_BTS}},
+            {"name": "fused_segment_forward", **common,
+             "replaces": "noise_flow_tpu/ops/pallas_train.py:315",
+             "launches": seg_l.get("fused_segment_forward", 0)
+             + seg_l.get("fused_segment_train_forward", 0),
+             "max_abs_err": max(errs["segment"], *(errs[("ghost", bt)] for bt in TRAIN_BTS)),
+             **timings[("ghost", 69)],
+             "shape": "b=138, ghost BN bt=69 (the segment path's block), both segments of one "
+                      "train step",
+             "by_mode": {
+                 "running": dict(timings["segment"], max_abs_err=errs["segment"],
+                                 launches=seg_l.get("fused_segment_forward", 0),
+                                 shape="b=138, both segments of one eval step"),
+                 "ghost": dict(timings[("ghost", 69)], max_abs_err=errs[("ghost", 69)],
+                               launches=seg_l.get("fused_segment_train_forward", 0),
+                               by_shape=by_bt("ghost"))}},
+            {"name": "fused_segment_backward", **common,
+             "replaces": "noise_flow_tpu/ops/pallas_train.py:388",
+             "launches": seg_l.get("fused_segment_backward", 0),
+             "max_abs_err": max(errs[("bwd", bt)] for bt in TRAIN_BTS), **timings[("bwd", 69)],
+             "shape": "b=138, bt=69, both segments of one train step",
+             "by_shape": by_bt("bwd")},
+        ]
     return out
 
 

@@ -94,15 +94,13 @@ class Config:
     # matmuls and DnCNN convs (f32 accumulation in both).
     dtype: str = "float32"
     use_pallas: bool = False             # fused Pallas flow kernels for the hot path
-    # matmul dtype inside the fused TRAINING kernel. bf16 keeps f32
-    # accumulation and measured 237k vs 87k patches/s on one chip with an
-    # NLL trajectory indistinguishable from f32 (see bench.py); set
-    # "float32" for bit-level parity studies.
+    # matmul dtype inside the fused TRAINING kernels (the JAX package's
+    # option; the port's kernels run float32 only and warn on "bfloat16")
     pallas_train_dtype: str = "bfloat16"
     # one-shot train step: loss AND grads in a single kernel pass (forward
     # once per block, analytic NLL cotangents, in-kernel backward — see
-    # ops/pallas_train.FusedTrainStep). Measured +24% over the segment
-    # custom_vjp path at batch 8192 on one chip. Off = segment path.
+    # ops/fused_train.FusedTrainStep). Off = the segment path (FusedFlow in
+    # train mode: a forward and a backward kernel per segment).
     pallas_oneshot: bool = True
     # train steps fused into one device dispatch via lax.scan (Trainer
     # stacks this many same-shape minibatches per call). 1 = step-per-call.

@@ -10,6 +10,14 @@
 // (launched by `_seg_fwd_call`): the inverse chain of one [mix, coupling]*
 // segment with BatchNorm folded into the convolutions, giving z and the
 // per-patch log-det.
+// nf_segment_train_forward replaces `_fwd_kernel_factory` in ghost-BN mode
+// (`ghost_bn=True`): the same chain with BN over groups of bt patches, giving
+// z, the per-patch log-det and the group moments averaged over the groups.
+// nf_segment_backward replaces `_bwd_kernel_factory` (launched by
+// `_seg_bwd_call`): it recomputes that forward, keeping nothing between the
+// two calls, then sweeps back from any cotangents (gz, gldj), gldj one value
+// per patch, giving gx and the gradients of the records, offset maps and
+// mixes.
 //
 // The chain is the program of noise_flow_tpu_torch/ops/fused_train.py, in
 // NHWC layout: mix ops (x @ A, 4x4), scale ops (x *= 1/sqrt(a*clean + b),
@@ -58,6 +66,16 @@
 // batch in patch order. b1/b2 gradients are exactly zero (BN removes the
 // mean), as the TPU kernel returns them; the wrapper's zeroed buffer keeps
 // them so.
+//
+// The segment path's two kernels are the step kernel's template in two more
+// modes (one launch a call each, the same stages and fixed-order reductions).
+// SEG_FWD runs the forward stages only, writing z in place of the chain
+// state and keeping no residuals for a backward. SEG_BWD runs the forward
+// again, seeds the backward with gz in place of z/B and reads each patch's
+// ldj cotangent from gldj in place of the constant -1/B; the backward then
+// leaves gx in the chain-state gradient. At the flagship's segments (4
+// couplings, 4 mixes) the backward does about 3x the forward's multiply-adds,
+// and both are bound by operations, not bytes.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -80,6 +98,8 @@ constexpr int NPART = 8;  // partial sums per patch per stage
 constexpr float BN_EPS = 1e-4f;
 
 enum OpKind { OP_MIX = 0, OP_SCALE = 1, OP_COUPLING = 2 };
+// what one launch of train_kernel computes
+enum Mode { STEP = 0, SEG_FWD = 1, SEG_BWD = 2 };
 
 __device__ __forceinline__ float4 operator+(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
@@ -315,6 +335,7 @@ __device__ void wgrad(const float4* as, const float4* gs, int ntaps, int cin,
 // the train step
 // ---------------------------------------------------------------------------
 
+// Pointers a mode does not use are null (see the C entries).
 struct StepArgs {
   const float4* x;      // [B, NPIX] input
   const float4* clean;  // [B, NPIX]
@@ -323,15 +344,19 @@ struct StepArgs {
   const float* rec;     // [nc, REC] coupling records
   const float4* offs;   // [nc, NPIX] zero-conv offset maps
   const float* mixes;   // [nm, 16]
-  float4* cur;          // scratch [B, NPIX]: chain state, z after the forward
-  float4* gcur;         // scratch [B, NPIX]: gradient of the chain state
+  const float4* gz;     // SEG_BWD: [B, NPIX] cotangent of z
+  const float* gldj;    // SEG_BWD: [B] cotangent of each patch's ldj
+  float4* cur;          // [B, NPIX]: chain state, z after the forward
+  float4* gcur;         // [B, NPIX]: gradient of the chain state, gx at the end
   float4* xin;          // scratch [n_ops, B, NPIX]: each op's input
   float4* res;          // scratch [nc, 3, B, NPIX]: n1; h2, n2, gn1; t, gn2
+                        // (SEG_FWD: [1, 3, B, NPIX], reused by every coupling)
   float4* gt;           // scratch [nc, B, NPIX]: gradient of t
   float* part;          // scratch [2, B, NPART]: per-patch partial sums
   float* mom;           // scratch [nc, B / bt, 16]: group m1, v1, m2, v2
   float* wpart;         // zeroed scratch [B, nw]: per-patch weight gradients
-  float* rows;          // out [B, 3]: ldj, sum z, sum z^2
+  float* rows;          // out [B, 3]: ldj, sum z, sum z^2 (SEG_FWD: ldj, then
+                        // zeros; SEG_BWD: none)
   float* gsa;           // out [B, ns]
   float* gsb;           // out [B, ns]
   float* grad_w;        // out [nw] = [nc * REC + nm * 16]: records, then mixes
@@ -368,10 +393,23 @@ __device__ __forceinline__ void put_part(float* part, int patch, float4 s1, floa
   }
 }
 
+// After the last grid sync: each BN's group moments averaged over the groups,
+// summed in group order.
+__device__ void put_bnmom(const StepArgs& a) {
+  const int n_groups = a.B / a.bt;
+  for (int e = blockIdx.x * THREADS + threadIdx.x; e < a.nc * 16; e += gridDim.x * THREADS) {
+    const float* m = a.mom + static_cast<size_t>(e / 16) * n_groups * 16 + e % 16;
+    float s = 0.f;
+    for (int gi = 0; gi < n_groups; ++gi) s += m[gi * 16];
+    a.bnmom[e] = s / n_groups;
+  }
+}
+
 // at most 128 registers a thread, so that two CTAs fit on an SM: the grid
 // must be co-resident, and B = 138 patches on 132 SMs need two an SM
+template <int MODE>
 __global__ void __launch_bounds__(THREADS, 2)
-step_kernel(const StepArgs a) {
+train_kernel(const StepArgs a) {
   cg::grid_group grid = cg::this_grid();
   __shared__ float4 sA[NPIX];
   __shared__ float4 sB[NPIX];
@@ -394,11 +432,13 @@ step_kernel(const StepArgs a) {
   for (int patch = blockIdx.x; patch < a.B; patch += gridDim.x) {
 #pragma unroll
     for (int k = 0; k < PPT; ++k) a.cur[slot(patch) + pix(k)] = a.x[slot(patch) + pix(k)];
-    if (tid < 3) a.rows[patch * 3 + tid] = 0.f;
+    if (MODE != SEG_BWD && tid < 3) a.rows[patch * 3 + tid] = 0.f;
   }
+  // only a backward needs each op's input and the residuals of every coupling
+  constexpr bool KEEP = MODE != SEG_FWD;
   for (int i = 0; i < a.n_ops; ++i) {
     const int kind = a.ops[i] >> 8, idx = a.ops[i] & 255;
-    float4* xin = a.xin + i * BP;
+    float4* xin = KEEP ? a.xin + i * BP : nullptr;
     if (kind == OP_MIX) {
       const float* m = a.mixes + idx * 16;
       const float4 m0 = ldg4(m), m1 = ldg4(m + 4), m2 = ldg4(m + 8), m3 = ldg4(m + 12);
@@ -407,7 +447,7 @@ step_kernel(const StepArgs a) {
         for (int k = 0; k < PPT; ++k) {
           const size_t q = slot(patch) + pix(k);
           const float4 v = a.cur[q];
-          xin[q] = v;
+          if (KEEP) xin[q] = v;
           a.cur[q] = fma4(v.w, m3, fma4(v.z, m2, fma4(v.y, m1, scale4(m0, v.x))));
         }
       }
@@ -420,7 +460,7 @@ step_kernel(const StepArgs a) {
         for (int k = 0; k < PPT; ++k) {
           const size_t q = slot(patch) + pix(k);
           const float4 v = a.cur[q], cl = __ldg(a.clean + q);
-          xin[q] = v;
+          if (KEEP) xin[q] = v;
           a.cur[q] = make_float4(v.x / sqrtf(fmaf(sa, cl.x, sb)), v.y / sqrtf(fmaf(sa, cl.y, sb)),
                                  v.z / sqrtf(fmaf(sa, cl.z, sb)), v.w / sqrtf(fmaf(sa, cl.w, sb)));
         }
@@ -429,9 +469,10 @@ step_kernel(const StepArgs a) {
     }
     // coupling
     const float* rec = a.rec + static_cast<size_t>(idx) * REC;
-    float4* n1s = a.res + (static_cast<size_t>(idx) * 3 + 0) * BP;
-    float4* h2s = a.res + (static_cast<size_t>(idx) * 3 + 1) * BP;
-    float4* ts = a.res + (static_cast<size_t>(idx) * 3 + 2) * BP;
+    const size_t ridx = KEEP ? idx : 0;
+    float4* n1s = a.res + (ridx * 3 + 0) * BP;
+    float4* h2s = a.res + (ridx * 3 + 1) * BP;
+    float4* ts = a.res + (ridx * 3 + 2) * BP;
     float* mom = a.mom + static_cast<size_t>(idx) * n_groups * 16;
     // F1: h1 = conv1(x) + b1 (kept in n1s until normalised); partial sum h1
     for (int patch = blockIdx.x; patch < a.B; patch += gridDim.x) {
@@ -440,7 +481,7 @@ step_kernel(const StepArgs a) {
       for (int k = 0; k < PPT; ++k) {
         const size_t q = slot(patch) + pix(k);
         const float4 v = a.cur[q];
-        xin[q] = v;
+        if (KEEP) xin[q] = v;
         sA[pix(k)] = v;
       }
       __syncthreads();
@@ -535,7 +576,7 @@ step_kernel(const StepArgs a) {
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
         const size_t q = slot(patch) + pix(k);
-        ts[q] = t[k];
+        if (KEEP) ts[q] = t[k];
         const float ls2 = rescale * tanhf(t[k].z), ls3 = rescale * tanhf(t[k].w);
         float4 v = a.cur[q];
         v.z = fmaf(v.z, expf(ls2), t[k].x);
@@ -543,14 +584,30 @@ step_kernel(const StepArgs a) {
         a.cur[q] = v;
         lsum += ls2 + ls3;
       }
-      const float4 l = block_sum4(make_float4(lsum, 0.f, 0.f, 0.f), red);
-      if (tid == 0) a.rows[patch * 3] += l.x;
+      if (MODE != SEG_BWD) {  // the backward needs no ldj
+        const float4 l = block_sum4(make_float4(lsum, 0.f, 0.f, 0.f), red);
+        if (tid == 0) a.rows[patch * 3] += l.x;
+      }
       __syncthreads();  // sA is read by conv3 of this patch
     }
   }
 
+  if constexpr (MODE == SEG_FWD) {
+    grid.sync();  // every group's moments are written
+    put_bnmom(a);
+    return;
+  }
+
   // ---- z rows and the seed of the backward --------------------------------
   for (int patch = blockIdx.x; patch < a.B; patch += gridDim.x) {
+    if constexpr (MODE == SEG_BWD) {
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        const size_t q = slot(patch) + pix(k);
+        a.gcur[q] = __ldg(a.gz + q);
+      }
+      continue;
+    }
     float zs = 0.f, z2 = 0.f;
 #pragma unroll
     for (int k = 0; k < PPT; ++k) {
@@ -568,7 +625,6 @@ step_kernel(const StepArgs a) {
   }
 
   // ---- backward -----------------------------------------------------------
-  const float gl = a.gl;
   for (int i = a.n_ops - 1; i >= 0; --i) {
     const int kind = a.ops[i] >> 8, idx = a.ops[i] & 255;
     const float4* xin = a.xin + i * BP;
@@ -624,6 +680,7 @@ step_kernel(const StepArgs a) {
     // Q1: gt; gradients of rescale, w3; gn2 = conv3^T(gt) * [n2 > 0]
     for (int patch = blockIdx.x; patch < a.B; patch += gridDim.x) {
       __syncthreads();
+      const float gl = MODE == SEG_BWD ? __ldg(a.gldj + patch) : a.gl;
       float grs = 0.f;
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
@@ -735,12 +792,7 @@ step_kernel(const StepArgs a) {
     for (int p = 0; p < a.B; ++p) s = s + g[slot(p)];
     reinterpret_cast<float4*>(a.goffs)[e] = s;
   }
-  for (int e = gtid; e < a.nc * 16; e += gstride) {
-    const float* m = a.mom + static_cast<size_t>(e / 16) * n_groups * 16 + e % 16;
-    float s = 0.f;
-    for (int gi = 0; gi < n_groups; ++gi) s += m[gi * 16];
-    a.bnmom[e] = s / n_groups;
-  }
+  if (MODE == STEP) put_bnmom(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -820,20 +872,92 @@ int check_ops(const int* ops, int n_ops, int nc, int nm, int ns, bool allow_scal
   return 0;
 }
 
+// float4 tiles of [B, NPIX] in a mode's float4 scratch: the chain state and
+// its gradient where the caller does not give them, each op's input, the
+// residuals of every coupling and their gradient of t (SEG_FWD keeps one
+// coupling's residuals, reused).
+long long scratch_tiles(int mode, int nc, int n_ops) {
+  if (mode == SEG_FWD) return 3;
+  return (mode == STEP ? 2 : 1) + n_ops + 4LL * nc;
+}
+
+// The sizes, the op list and the scratch pointers of one launch; the caller
+// sets the inputs and outputs. STEP's scratch holds cur and gcur; SEG_BWD's
+// holds cur (gcur is gx); SEG_FWD's holds neither (cur is z).
+StepArgs make_args(int mode, int B, int bt, int ns, int nc, int nm, const int* ops, int n_ops,
+                   float* scratch_f4, float* scratch_f, float* wpart) {
+  StepArgs a{};
+  const size_t bp = static_cast<size_t>(B) * NPIX;
+  float4* f4 = reinterpret_cast<float4*>(scratch_f4);
+  if (mode == SEG_FWD) {
+    a.res = f4;
+  } else {
+    a.cur = f4;
+    f4 += bp;
+    if (mode == STEP) {
+      a.gcur = f4;
+      f4 += bp;
+    }
+    a.xin = f4;
+    a.res = a.xin + n_ops * bp;
+    a.gt = a.res + 3 * static_cast<size_t>(nc) * bp;
+  }
+  a.part = scratch_f;
+  a.mom = scratch_f + 2 * static_cast<size_t>(B) * NPART;
+  a.wpart = wpart;
+  a.B = B;
+  a.bt = bt;
+  a.ns = ns;
+  a.nc = nc;
+  a.nm = nm;
+  a.nw = nc * REC + nm * 16;
+  a.n_ops = n_ops;
+  for (int i = 0; i < n_ops; ++i) a.ops[i] = ops[i];
+  return a;
+}
+
+// One cooperative launch of train_kernel<MODE> on `stream`: as many CTAs as
+// can be resident at once (occupancy API), at most B.
+template <int MODE>
+int launch_train(StepArgs a, void* stream, int* launched) {
+  int dev = 0, sms = 0, per_sm = 0, coop = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, train_kernel<MODE>, THREADS, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!coop || per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const int grid = a.B < per_sm * sms ? a.B : per_sm * sms;
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(train_kernel<MODE>), dim3(grid),
+                                    dim3(THREADS), args, 0, static_cast<cudaStream_t>(stream));
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launched;
+  return static_cast<int>(err);
+}
+
+bool bad_sizes(int B, int bt, int nc, int nm) {
+  return B <= 0 || bt <= 0 || B % bt || nc <= 0 || nm <= 0;
+}
+
 }  // namespace
 
-// Size of the step's device scratch, in floats, for the wrapper to allocate:
-// scratch[0] the float4 scratch (cur, gcur, xin, res, gt), scratch[1] the
-// partial sums and group moments, scratch[2] the per-patch weight gradients
-// (which must be zeroed). Returns 0, or cudaErrorInvalidValue for bad sizes.
-extern "C" int nf_train_step_scratch(int B, int bt, int nc, int nm, int n_ops,
-                                     long long* sizes) {
-  if (B <= 0 || bt <= 0 || B % bt || nc < 0 || nm < 0 || n_ops < 0)
+// Size of the device scratch of one launch in `mode` (0 the train step, 1
+// the segment's ghost-BN forward, 2 its backward), in floats, for the wrapper
+// to allocate: sizes[0] the float4 scratch (chain state, op inputs,
+// residuals), sizes[1] the partial sums and group moments, sizes[2] the
+// per-patch weight gradients (which must be zeroed; 0 in mode 1). Returns 0,
+// or cudaErrorInvalidValue for bad sizes.
+extern "C" int nf_train_scratch(int mode, int B, int bt, int nc, int nm, int n_ops,
+                                long long* sizes) {
+  if (B <= 0 || bt <= 0 || B % bt || nc < 0 || nm < 0 || n_ops < 0 || mode < STEP ||
+      mode > SEG_BWD)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long bp4 = static_cast<long long>(B) * NPIX * 4;
-  sizes[0] = bp4 * (2 + n_ops + 4LL * nc);
+  sizes[0] = bp4 * scratch_tiles(mode, nc, n_ops);
   sizes[1] = 2LL * B * NPART + static_cast<long long>(nc) * (B / bt) * 16;
-  sizes[2] = static_cast<long long>(B) * (nc * REC + nm * 16);
+  sizes[2] = mode == SEG_FWD ? 0 : static_cast<long long>(B) * (nc * REC + nm * 16);
   return 0;
 }
 
@@ -845,8 +969,8 @@ extern "C" int nf_train_step_scratch(int B, int bt, int nc, int nm, int n_ops,
 // Outputs rows [B,3] (ldj, sum z, sum z^2), gsa/gsb [B, ns], grad_w
 // [nc*REC + nm*16] (gradients of the records, then of the mixes), goffs
 // [nc,32,32,4], bnmom [nc,16] (m1, v1, m2, v2 of each BN, averaged over the
-// groups). scratch_f4, scratch_f, wpart as sized by nf_train_step_scratch,
-// wpart zeroed. Sets *launched to the kernel launches issued (1 or 0) and
+// groups). scratch_f4, scratch_f, wpart as sized by nf_train_scratch (mode
+// 0), wpart zeroed. Sets *launched to the kernel launches issued (1 or 0) and
 // returns the launch error (cudaError_t), 0 if none.
 extern "C" int nf_train_step(const float* x, const float* clean, const float* sa,
                              const float* sb, const float* rec, const float* offs,
@@ -856,12 +980,9 @@ extern "C" int nf_train_step(const float* x, const float* clean, const float* sa
                              int ns, int nc, int nm, float invb, float gl, const int* ops,
                              int n_ops, void* stream, int* launched) {
   *launched = 0;
-  if (B <= 0 || bt <= 0 || B % bt || ns <= 0 || nc <= 0 || nm <= 0 ||
-      check_ops(ops, n_ops, nc, nm, ns, true))
+  if (bad_sizes(B, bt, nc, nm) || ns <= 0 || check_ops(ops, n_ops, nc, nm, ns, true))
     return static_cast<int>(cudaErrorInvalidValue);
-  StepArgs a{};
-  const size_t bp = static_cast<size_t>(B) * NPIX;
-  float4* f4 = reinterpret_cast<float4*>(scratch_f4);
+  StepArgs a = make_args(STEP, B, bt, ns, nc, nm, ops, n_ops, scratch_f4, scratch_f, wpart);
   a.x = reinterpret_cast<const float4*>(x);
   a.clean = reinterpret_cast<const float4*>(clean);
   a.sa = sa;
@@ -869,14 +990,6 @@ extern "C" int nf_train_step(const float* x, const float* clean, const float* sa
   a.rec = rec;
   a.offs = reinterpret_cast<const float4*>(offs);
   a.mixes = mixes;
-  a.cur = f4;
-  a.gcur = f4 + bp;
-  a.xin = f4 + 2 * bp;
-  a.res = a.xin + n_ops * bp;
-  a.gt = a.res + 3 * static_cast<size_t>(nc) * bp;
-  a.part = scratch_f;
-  a.mom = scratch_f + 2 * static_cast<size_t>(B) * NPART;
-  a.wpart = wpart;
   a.rows = rows;
   a.gsa = gsa;
   a.gsb = gsb;
@@ -885,31 +998,62 @@ extern "C" int nf_train_step(const float* x, const float* clean, const float* sa
   a.bnmom = bnmom;
   a.invb = invb;
   a.gl = gl;
-  a.B = B;
-  a.bt = bt;
-  a.ns = ns;
-  a.nc = nc;
-  a.nm = nm;
-  a.nw = nc * REC + nm * 16;
-  a.n_ops = n_ops;
-  for (int i = 0; i < n_ops; ++i) a.ops[i] = ops[i];
+  return launch_train<STEP>(a, stream, launched);
+}
 
-  int dev = 0, sms = 0, per_sm = 0, coop = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, step_kernel, THREADS, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!coop || per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  const int grid = B < per_sm * sms ? B : per_sm * sms;
-  void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(step_kernel), dim3(grid),
-                                    dim3(THREADS), args, 0,
-                                    static_cast<cudaStream_t>(stream));
-  if (err == cudaSuccess) err = cudaGetLastError();
-  if (err == cudaSuccess) ++*launched;
-  return static_cast<int>(err);
+// Ghost-BN forward of one [mix, coupling]* segment (no scale ops) over B
+// patches with BN groups of bt, as one cooperative launch on `stream`:
+// x [B,32,32,4] -> z [B,32,32,4], rows [B,3] whose first column is each
+// patch's ldj (the others are zero), bnmom [nc,16] (the group
+// moments averaged over the groups). rec [nc, REC] holds the records without
+// BN folded in. scratch_f4 and scratch_f as sized by nf_train_scratch (mode
+// 1). *launched and the return value as above.
+extern "C" int nf_segment_train_forward(const float* x, float* z, float* rows, float* bnmom,
+                                        const float* rec, const float* offs,
+                                        const float* mixes, float* scratch_f4,
+                                        float* scratch_f, int B, int bt, int nc, int nm,
+                                        const int* ops, int n_ops, void* stream,
+                                        int* launched) {
+  *launched = 0;
+  if (bad_sizes(B, bt, nc, nm) || check_ops(ops, n_ops, nc, nm, 0, false))
+    return static_cast<int>(cudaErrorInvalidValue);
+  StepArgs a = make_args(SEG_FWD, B, bt, 1, nc, nm, ops, n_ops, scratch_f4, scratch_f, nullptr);
+  a.x = reinterpret_cast<const float4*>(x);
+  a.rec = rec;
+  a.offs = reinterpret_cast<const float4*>(offs);
+  a.mixes = mixes;
+  a.cur = reinterpret_cast<float4*>(z);
+  a.rows = rows;
+  a.bnmom = bnmom;
+  return launch_train<SEG_FWD>(a, stream, launched);
+}
+
+// Backward of that forward from the cotangents gz [B,32,32,4] and gldj [B],
+// as one cooperative launch on `stream` that first recomputes the forward:
+// gx [B,32,32,4], grad_w [nc*REC + nm*16] (records, then mixes; the b1/b2
+// entries and every field the chain does not read are exactly zero), goffs
+// [nc,32,32,4]. scratch_f4, scratch_f, wpart as sized by nf_train_scratch
+// (mode 2), wpart zeroed. *launched and the return value as above.
+extern "C" int nf_segment_backward(const float* x, const float* gz, const float* gldj,
+                                   const float* rec, const float* offs, const float* mixes,
+                                   float* scratch_f4, float* scratch_f, float* wpart,
+                                   float* gx, float* grad_w, float* goffs, int B, int bt,
+                                   int nc, int nm, const int* ops, int n_ops, void* stream,
+                                   int* launched) {
+  *launched = 0;
+  if (bad_sizes(B, bt, nc, nm) || check_ops(ops, n_ops, nc, nm, 0, false))
+    return static_cast<int>(cudaErrorInvalidValue);
+  StepArgs a = make_args(SEG_BWD, B, bt, 1, nc, nm, ops, n_ops, scratch_f4, scratch_f, wpart);
+  a.x = reinterpret_cast<const float4*>(x);
+  a.gz = reinterpret_cast<const float4*>(gz);
+  a.gldj = gldj;
+  a.rec = rec;
+  a.offs = reinterpret_cast<const float4*>(offs);
+  a.mixes = mixes;
+  a.gcur = reinterpret_cast<float4*>(gx);
+  a.grad_w = grad_w;
+  a.goffs = goffs;
+  return launch_train<SEG_BWD>(a, stream, launched);
 }
 
 // Running-statistics forward of one [mix, coupling]* segment: x -> z and the

@@ -34,9 +34,13 @@ SIGNATURES = {
     "fused_train": {
         "nf_train_step": ([_P] * 16 + [_I] * 5 + [ctypes.c_float] * 2 + [ctypes.POINTER(_I),
                           _I, _P, ctypes.POINTER(_I)], _I),
-        "nf_train_step_scratch": ([_I] * 5 + [ctypes.POINTER(ctypes.c_longlong)], _I),
+        "nf_train_scratch": ([_I] * 6 + [ctypes.POINTER(ctypes.c_longlong)], _I),
         "nf_segment_forward": ([_P] * 6 + [_I] * 3 + [ctypes.POINTER(_I), _I, _P,
                                ctypes.POINTER(_I)], _I),
+        "nf_segment_train_forward": ([_P] * 9 + [_I] * 4 + [ctypes.POINTER(_I), _I, _P,
+                                     ctypes.POINTER(_I)], _I),
+        "nf_segment_backward": ([_P] * 12 + [_I] * 4 + [ctypes.POINTER(_I), _I, _P,
+                                ctypes.POINTER(_I)], _I),
     },
 }
 

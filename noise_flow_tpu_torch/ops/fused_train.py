@@ -1,6 +1,6 @@
 """Fused training step and fused eval forward: the NLL direction in kernels.
 
-Port of noise_flow_tpu.ops.pallas_train. Two kernels of
+Port of noise_flow_tpu.ops.pallas_train. The kernels of
 ``csrc/fused_train.cu`` serve the trainer's ``use_pallas=True`` path:
 
 - ``FusedTrainStep`` (one-shot train step): the mean-NLL forward of the
@@ -8,8 +8,12 @@ Port of noise_flow_tpu.ops.pallas_train. Two kernels of
   analytic seeds ``d(mean nll)/dz = z/B`` and ``d(mean nll)/d ldj_i = -1/B``.
   BatchNorm uses the moments of each group of ``bt`` consecutive patches
   (ghost BN; ``bt = B`` is exact batch BN), as the JAX kernel does.
-- ``FusedFlow`` (eval): each ``[mix, coupling]*`` segment through the
-  running-statistics forward kernel, the scale layers in PyTorch.
+- ``FusedFlow``: each ``[mix, coupling]*`` segment through a kernel, the
+  scale layers in PyTorch. Eval (``train=False``) runs the
+  running-statistics forward kernel. Train (the segment path) runs each
+  segment through ``SegmentFn``: the ghost-BN forward kernel, and a backward
+  kernel that recomputes that forward and takes any cotangents ``(gz,
+  gldj)``; plain autograd carries them through the scale layers between.
 
 The fold turns the flow's parameters into what the kernels take, in
 differentiable PyTorch so that autograd carries the kernel's gradients back
@@ -33,9 +37,11 @@ Scale layers (sdn*, gain*) reduce to per-example ``(a, b)`` with
 clean = 0 and 1; their log-dets through the layer's own ``inverse`` on a
 dummy input. Both stay in differentiable PyTorch.
 
-``train_step_reference`` and ``segment_forward_reference`` are the plain
-PyTorch versions of the kernels. ``fused_train_step`` and
-``fused_segment_forward`` launch the kernels for CUDA tensors and take the
+``train_step_reference``, ``segment_forward_reference``,
+``segment_train_forward_reference`` and ``segment_backward_reference`` are
+the plain PyTorch versions of the kernels. ``fused_train_step``,
+``fused_segment_forward``, ``fused_segment_train_forward`` and
+``fused_segment_backward`` launch the kernels for CUDA tensors and take the
 plain versions only for CPU tensors.
 """
 
@@ -57,6 +63,7 @@ from noise_flow_tpu_torch.ops.fused_sample import (
     OP_MIX,
     OP_SCALE,
     REC,
+    _REC_LAYOUT,
     _check,
     _field,
     launch_counts,
@@ -65,9 +72,10 @@ from noise_flow_tpu_torch.ops.nn import BN_DECAY, BN_EPS, LOGSCALE_FACTOR, conv2
 
 H, W, C = 32, 32, 4
 SUPPORTED_KINDS = {"coupling", "conv1x1", "perm_reverse"}
-SEGMENT_PATH_ITEM = "ROADMAP.md queue 2, 'the segment path'"
-BF16_ITEM = "ROADMAP.md queue 2, 'the bf16 train mode'"
+BF16_ITEM = "ROADMAP.md queue 2, 'the bf16 modes'"
 _CODE = {"mix": OP_MIX, "scale": OP_SCALE, "coup": OP_COUPLING}
+# what one launch of the train kernel computes (Mode in csrc/fused_train.cu)
+_STEP, _SEG_FWD, _SEG_BWD = 0, 1, 2
 
 
 class Segment(NamedTuple):
@@ -292,6 +300,42 @@ def segment_forward_reference(x, rec, offs, mixes, ops_code):
     return z, ldj
 
 
+def _segment_train_chain(x, rec, offs, mixes, ops_code, bt: int):
+    z = x
+    ldj = x.new_zeros((x.shape[0],))
+    moms = []
+    for code in ops_code:
+        kind, idx = code >> 8, code & 255
+        if kind == OP_MIX:
+            z = z @ mixes[idx]
+        else:
+            z, l, mom = _coupling_train(z, rec[idx], offs[idx], bt)
+            ldj = ldj + l
+            moms.append(mom)
+    bnmom = torch.stack(moms) if moms else x.new_zeros((rec.shape[0], 4, C))
+    return z, ldj, bnmom
+
+
+@torch.no_grad()
+def segment_train_forward_reference(x, rec, offs, mixes, ops_code, bt: int):
+    """Plain version of the ghost-BN segment kernel: one segment's forward
+    with BN over groups of bt patches, from un-folded records -> (z, ldj [B],
+    bnmom [nc, 4, 4]: m1, v1, m2, v2 of each coupling averaged over groups)."""
+    return _segment_train_chain(x, rec, offs, mixes, ops_code, bt)
+
+
+def segment_backward_reference(x, rec, offs, mixes, ops_code, bt: int, gz, gldj):
+    """Plain version of the segment backward kernel: ``torch.autograd.grad``
+    of the ghost-BN forward against the cotangents gz [B,32,32,4] and gldj
+    [B] -> (gx, grad_rec, grad_offs, grad_mixes). The b1/b2 entries of
+    grad_rec are autograd's near-zeros, where the kernel gives exact zeros."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, rec, offs, mixes)]
+        z, ldj, _ = _segment_train_chain(*leaves, ops_code, bt)
+        grads = torch.autograd.grad((z, ldj), leaves, (gz, gldj), allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g for g, t in zip(grads, leaves))
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -299,6 +343,47 @@ def segment_forward_reference(x, rec, offs, mixes, ops_code):
 def _same_device(*ts):
     if len({t.device for t in ts}) != 1:
         raise ValueError("fused_train inputs lie on different devices")
+
+
+def _scratch(lib, mode: int, b: int, bt: int, nc: int, nm: int, n_ops: int, dev):
+    """The train kernel's scratch for one launch in ``mode``: (float4
+    scratch, partial sums and moments, zeroed per-patch weight gradients)."""
+    sizes = (ctypes.c_longlong * 3)()
+    if lib.nf_train_scratch(mode, b, bt, nc, nm, n_ops, sizes):
+        raise ValueError(f"bad sizes: batch {b}, bt {bt}")
+    return (torch.empty(sizes[0], dtype=torch.float32, device=dev),
+            torch.empty(sizes[1], dtype=torch.float32, device=dev),
+            torch.zeros(sizes[2], dtype=torch.float32, device=dev))
+
+
+def _ops_array(ops_code):
+    return (ctypes.c_int * max(len(ops_code), 1))(*ops_code)
+
+
+def _launch(name: str, entry, dev, *args) -> None:
+    """Call the C entry ``entry`` with ``args``, then the current stream of
+    ``dev`` and the launch count it sets; add its launches to
+    ``launch_counts[name]``, and raise if the launch failed."""
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = entry(*args, torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched))
+    launch_counts[name] += launched.value
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _check_segment(x, rec, offs, mixes, ops_code, bt=None):
+    b, nc, nm = x.shape[0], rec.shape[0], mixes.shape[0]
+    _check("x", x, (b, H, W, C))
+    _check("rec", rec, (nc, REC))
+    _check("offs", offs, (nc, H, W, C))
+    _check("mixes", mixes, (nm, C, C))
+    _same_device(x, rec, offs, mixes)
+    if len(ops_code) > MAX_OPS or any(c >> 8 == OP_SCALE for c in ops_code):
+        raise ValueError("a segment holds at most 64 mix and coupling ops")
+    if bt is not None and (not 1 <= bt <= b or b % bt):
+        raise ValueError(f"bad sizes: batch {b}, bt {bt}")
+    return b, nc, nm
 
 
 def _launch_step(x, clean, sa, sb, rec, offs, mixes, ops_code, bt, ldj_seed=None):
@@ -316,31 +401,20 @@ def _launch_step(x, clean, sa, sb, rec, offs, mixes, ops_code, bt, ldj_seed=None
     if not 1 <= bt <= b or b % bt or len(ops_code) > MAX_OPS:
         raise ValueError(f"bad sizes: batch {b}, bt {bt}, {len(ops_code)} ops")
     lib = load_library("fused_train")
-    sizes = (ctypes.c_longlong * 3)()
-    if lib.nf_train_step_scratch(b, bt, nc, nm, len(ops_code), sizes):
-        raise ValueError(f"bad sizes: batch {b}, bt {bt}")
-    dev = x.device
-    empty = functools.partial(torch.empty, dtype=torch.float32, device=dev)
-    zeros = functools.partial(torch.zeros, dtype=torch.float32, device=dev)
-    scratch_f4, scratch_f, wpart = empty(sizes[0]), empty(sizes[1]), zeros(sizes[2])
+    scratch_f4, scratch_f, wpart = _scratch(lib, _STEP, b, bt, nc, nm, len(ops_code), x.device)
+    empty = functools.partial(torch.empty, dtype=torch.float32, device=x.device)
+    zeros = functools.partial(torch.zeros, dtype=torch.float32, device=x.device)
     out = {"rows": empty((b, 3)), "gsa": zeros((b, ns)), "gsb": zeros((b, ns)),
            "grad_w": empty((nc * REC + nm * C * C,)), "grad_offs": empty((nc, H, W, C)),
            "bnmom": empty((nc, 4, C))}
-    ops = (ctypes.c_int * len(ops_code))(*ops_code)
-    launched = ctypes.c_int(0)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.nf_train_step(
+    _launch("fused_train_step", lib.nf_train_step, x.device,
             x.data_ptr(), clean.data_ptr(), sa.data_ptr(), sb.data_ptr(),
             rec.data_ptr(), offs.data_ptr(), mixes.data_ptr(), scratch_f4.data_ptr(),
             scratch_f.data_ptr(), wpart.data_ptr(), out["rows"].data_ptr(),
             out["gsa"].data_ptr(), out["gsb"].data_ptr(), out["grad_w"].data_ptr(),
             out["grad_offs"].data_ptr(), out["bnmom"].data_ptr(), b, bt, ns, nc, nm,
-            1.0 / b, -1.0 / b if ldj_seed is None else ldj_seed, ops, len(ops_code),
-            stream, ctypes.byref(launched))
-    launch_counts["fused_train_step"] += launched.value
-    if err != 0:
-        raise RuntimeError(f"fused_train_step kernel launch failed: CUDA error {err}")
+            1.0 / b, -1.0 / b if ldj_seed is None else ldj_seed, _ops_array(ops_code),
+            len(ops_code))
     gw = out.pop("grad_w")
     out["grad_rec"] = gw[:nc * REC].view(nc, REC)
     out["grad_mixes"] = gw[nc * REC:].view(nm, C, C)
@@ -364,28 +438,13 @@ def fused_train_step(x, clean, sa, sb, rec, offs, mixes, ops_code, bt: int,
 def _launch_segment(x, rec, offs, mixes, ops_code):
     from noise_flow_tpu_torch.ops._build import load_library
 
-    b, nc, nm = x.shape[0], rec.shape[0], mixes.shape[0]
-    _check("x", x, (b, H, W, C))
-    _check("rec", rec, (nc, REC))
-    _check("offs", offs, (nc, H, W, C))
-    _check("mixes", mixes, (nm, C, C))
-    _same_device(x, rec, offs, mixes)
-    if len(ops_code) > MAX_OPS or any(c >> 8 == OP_SCALE for c in ops_code):
-        raise ValueError("a segment holds at most 64 mix and coupling ops")
+    b, nc, nm = _check_segment(x, rec, offs, mixes, ops_code)
     lib = load_library("fused_train")
     z = torch.empty_like(x)
     ldj = torch.empty((b,), dtype=torch.float32, device=x.device)
-    ops = (ctypes.c_int * max(len(ops_code), 1))(*ops_code)
-    launched = ctypes.c_int(0)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.nf_segment_forward(
+    _launch("fused_segment_forward", lib.nf_segment_forward, x.device,
             x.data_ptr(), z.data_ptr(), ldj.data_ptr(), rec.data_ptr(), offs.data_ptr(),
-            mixes.data_ptr(), b, nc, nm, ops, len(ops_code), stream,
-            ctypes.byref(launched))
-    launch_counts["fused_segment_forward"] += launched.value
-    if err != 0:
-        raise RuntimeError(f"fused_segment_forward kernel launch failed: CUDA error {err}")
+            mixes.data_ptr(), b, nc, nm, _ops_array(ops_code), len(ops_code))
     return z, ldj
 
 
@@ -398,6 +457,100 @@ def fused_segment_forward(x, rec, offs, mixes, ops_code):
     if x.device.type != "cuda":
         raise ValueError(f"fused_segment_forward runs on CUDA or CPU tensors, got {x.device}")
     return _launch_segment(x, rec, offs, mixes, ops_code)
+
+
+def fused_segment_train_forward(x, rec, offs, mixes, ops_code, bt: int):
+    """Ghost-BN forward of one segment: x [B,32,32,4] -> (z, ldj [B], bnmom
+    [nc, 4, 4]), BN over groups of bt. CUDA tensors go through the kernel
+    (or raise); CPU tensors through ``segment_train_forward_reference``."""
+    if x.device.type == "cpu":
+        return segment_train_forward_reference(x, rec, offs, mixes, ops_code, bt)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_segment_train_forward runs on CUDA or CPU tensors, "
+                         f"got {x.device}")
+    from noise_flow_tpu_torch.ops._build import load_library
+
+    b, nc, nm = _check_segment(x, rec, offs, mixes, ops_code, bt)
+    lib = load_library("fused_train")
+    scratch_f4, scratch_f, _ = _scratch(lib, _SEG_FWD, b, bt, nc, nm, len(ops_code), x.device)
+    z = torch.empty_like(x)
+    rows = torch.empty((b, 3), dtype=torch.float32, device=x.device)
+    bnmom = torch.empty((nc, 4, C), dtype=torch.float32, device=x.device)
+    _launch("fused_segment_train_forward", lib.nf_segment_train_forward, x.device,
+            x.data_ptr(), z.data_ptr(), rows.data_ptr(), bnmom.data_ptr(), rec.data_ptr(),
+            offs.data_ptr(), mixes.data_ptr(), scratch_f4.data_ptr(), scratch_f.data_ptr(),
+            b, bt, nc, nm, _ops_array(ops_code), len(ops_code))
+    return z, rows[:, 0], bnmom
+
+
+def fused_segment_backward(x, rec, offs, mixes, ops_code, bt: int, gz, gldj):
+    """Backward of ``fused_segment_train_forward`` from the cotangents gz
+    [B,32,32,4] and gldj [B] -> (gx, grad_rec, grad_offs, grad_mixes); the
+    kernel recomputes the forward. CUDA tensors go through the kernel (or
+    raise; b1/b2 of grad_rec exactly zero); CPU tensors through
+    ``segment_backward_reference``."""
+    if x.device.type == "cpu":
+        return segment_backward_reference(x, rec, offs, mixes, ops_code, bt, gz, gldj)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_segment_backward runs on CUDA or CPU tensors, got {x.device}")
+    from noise_flow_tpu_torch.ops._build import load_library
+
+    b, nc, nm = _check_segment(x, rec, offs, mixes, ops_code, bt)
+    _check("gz", gz, (b, H, W, C))
+    _check("gldj", gldj, (b,))
+    _same_device(x, gz, gldj)
+    lib = load_library("fused_train")
+    scratch_f4, scratch_f, wpart = _scratch(lib, _SEG_BWD, b, bt, nc, nm, len(ops_code),
+                                            x.device)
+    gx = torch.empty_like(x)
+    grad_w = torch.empty((nc * REC + nm * C * C,), dtype=torch.float32, device=x.device)
+    goffs = torch.empty((nc, H, W, C), dtype=torch.float32, device=x.device)
+    _launch("fused_segment_backward", lib.nf_segment_backward, x.device,
+            x.data_ptr(), gz.data_ptr(), gldj.data_ptr(), rec.data_ptr(), offs.data_ptr(),
+            mixes.data_ptr(), scratch_f4.data_ptr(), scratch_f.data_ptr(), wpart.data_ptr(),
+            gx.data_ptr(), grad_w.data_ptr(), goffs.data_ptr(), b, bt, nc, nm,
+            _ops_array(ops_code), len(ops_code))
+    return gx, grad_w[:nc * REC].view(nc, REC), goffs, grad_w[nc * REC:].view(nm, C, C)
+
+
+# the segment path's (forward, backward): the kernels, or their plain versions
+SEGMENT_KERNELS = (fused_segment_train_forward, fused_segment_backward)
+SEGMENT_PLAIN = (segment_train_forward_reference, segment_backward_reference)
+
+
+# ---------------------------------------------------------------------------
+# the segment path
+# ---------------------------------------------------------------------------
+
+class SegmentFn(torch.autograd.Function):
+    """One segment of the segment path as an autograd function, the
+    counterpart of the JAX ``make_segment_fn`` custom_vjp.
+
+    apply(x, rec, offs, mixes, ops_code, bt, fns) -> (z, ldj [B], bnmom [nc,
+    4, 4]), bnmom not differentiable. ``fns`` is (forward, backward):
+    ``SEGMENT_KERNELS``, or ``SEGMENT_PLAIN`` to run the plain versions on any
+    device. Only the inputs are saved; the backward recomputes the forward
+    and takes any cotangents (gz, gldj); a cotangent that autograd does not
+    supply arrives as zeros (materialised grads). The b1/b2 entries of the
+    records' gradient are exact zeros, as in JAX (BN removes the mean)."""
+
+    @staticmethod
+    def forward(ctx, x, rec, offs, mixes, ops_code, bt, fns):
+        z, ldj, bnmom = fns[0](x, rec, offs, mixes, ops_code, bt)
+        ctx.save_for_backward(x, rec, offs, mixes)
+        ctx.ops_code, ctx.bt, ctx.bwd = ops_code, bt, fns[1]
+        ctx.mark_non_differentiable(bnmom)
+        return z, ldj, bnmom
+
+    @staticmethod
+    def backward(ctx, gz, gldj, _g_bn):
+        x, rec, offs, mixes = ctx.saved_tensors
+        gx, grad_rec, grad_offs, grad_mixes = ctx.bwd(
+            x, rec, offs, mixes, ctx.ops_code, ctx.bt, gz.contiguous(), gldj.contiguous())
+        for name in ("b1", "b2"):
+            off, shape = _REC_LAYOUT[name]
+            grad_rec[:, off:off + shape[0]] = 0.0
+        return gx, grad_rec, grad_offs, grad_mixes, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -438,6 +591,20 @@ class FusedNLL(torch.autograd.Function):
         return tuple(t * g for t in ctx.saved_tensors) + (None,) * 5
 
 
+def _bn_state(flow, coup_idx, bnmom):
+    """New running statistics of the couplings at spec indices coup_idx from
+    their group moments averaged over groups, keyed as the flow's buffers."""
+    new = {}
+    wd = flow.cfg.width
+    for ci, i in enumerate(coup_idx):
+        nn_ = flow.layers[i].nn
+        for j, (bn, k) in enumerate((("bn1", "mean"), ("bn1", "var"),
+                                     ("bn2", "mean"), ("bn2", "var"))):
+            old = getattr(getattr(nn_, bn), k)
+            new[f"layers.{i}.nn.{bn}.{k}"] = (old - BN_DECAY * (old - bnmom[ci, j, :wd])).detach()
+    return new
+
+
 class _Fused:
     """Envelope check and plan shared by FusedTrainStep and FusedFlow."""
 
@@ -446,7 +613,6 @@ class _Fused:
         _check_dtype(mm_dtype)
         self.flow = flow
         self.bt = bt
-        self.width = flow.cfg.width
 
     def _cond4(self, cond, batch: int):
         dev = self.flow.device
@@ -488,9 +654,8 @@ class FusedTrainStep(_Fused):
                 ops.append(("mix", len(self.mix_idx)))
                 self.mix_idx.append(i)
         if len(self.scale_idx) > self.MAX_SCALE:
-            raise NotImplementedError(
-                f"the one-shot step takes at most {self.MAX_SCALE} scale layers; "
-                f"more need the segment path: {SEGMENT_PATH_ITEM}")
+            raise ValueError(f"the one-shot step takes at most {self.MAX_SCALE} scale "
+                             f"layers; more train through the segment path (FusedFlow)")
         if not self.coup_idx:
             raise ValueError("fused path needs at least one coupling")
         self.ops = tuple(ops)
@@ -532,18 +697,6 @@ class FusedTrainStep(_Fused):
         sb = torch.cat(sb_cols + [torch.ones((batch, 1), device=dev)] * pad, 1)
         return sa.contiguous(), sb.contiguous(), ildj
 
-    def _bn_state(self, bnmom):
-        """New running statistics from the averaged group moments."""
-        new = {}
-        wd = self.width
-        for ci, i in enumerate(self.coup_idx):
-            nn_ = self.flow.layers[i].nn
-            for j, (bn, k) in enumerate((("bn1", "mean"), ("bn1", "var"),
-                                         ("bn2", "mean"), ("bn2", "var"))):
-                old = getattr(getattr(nn_, bn), k)
-                new[f"layers.{i}.nn.{bn}.{k}"] = (old - BN_DECAY * (old - bnmom[ci, j, :wd])).detach()
-        return new
-
     def loss(self, x, cond, step_fn=fused_train_step):
         """(nll, sd_z, new_state); ``step_fn`` as in ``FusedNLL``."""
         batch = x.shape[0]
@@ -559,7 +712,7 @@ class FusedTrainStep(_Fused):
         knll, sd_z, bnmom = FusedNLL.apply(rec, offs, mixes, sa, sb, x, clean,
                                            self.ops_code, self.bt, step_fn)
         nll = knll - mix_logdet - torch.mean(ildj)
-        return nll, sd_z, self._bn_state(bnmom)
+        return nll, sd_z, _bn_state(self.flow, self.coup_idx, bnmom)
 
     def loss_and_grad(self, x, cond, step_fn=fused_train_step):
         """(nll, sd_z, new_state, grads) for the mean-NLL objective."""
@@ -572,10 +725,14 @@ class FusedTrainStep(_Fused):
 
 
 class FusedFlow(_Fused):
-    """Fused eval path over a NoiseFlow: ``loss(x, cond, train=False)``
-    mirrors ``NoiseFlow.loss`` with each [mix, coupling]* segment through the
-    running-statistics forward kernel and the scale layers in PyTorch.
-    ``train=True`` needs the segment path's kernels and raises."""
+    """Fused path over a NoiseFlow: ``loss(x, cond, train)`` mirrors
+    ``NoiseFlow.loss`` with each [mix, coupling]* segment through a kernel
+    and the scale layers in PyTorch. ``train=False`` (eval) folds the running
+    statistics into the records and runs the running-statistics forward
+    kernel. ``train=True`` is the segment path, as the JAX ``FusedFlow``: each
+    segment through ``SegmentFn`` with BN over groups of ``bt`` patches,
+    differentiable with respect to the flow's parameters; the state it
+    returns holds the new running statistics."""
 
     def __init__(self, flow, bt: int = 64, mm_dtype: str = "float32"):
         super().__init__(flow, bt, mm_dtype)
@@ -598,55 +755,67 @@ class FusedFlow(_Fused):
                 i += 1
             self.plan.append(("segment", Segment(tuple(ops), nm, nc), lo, i))
 
-    @torch.no_grad()
-    def _segment(self, z, lo: int, hi: int, seg: Segment):
+    def fold_segment(self, lo: int, hi: int, fold_bn: bool):
+        """(rec, offs, mixes, mix_logdet) of the segment of specs [lo, hi),
+        differentiable; with ``fold_bn`` the eval kernel's records."""
         flow = self.flow
         idx = range(lo, hi)
         coups = [flow.layers[i] for i in idx if flow.specs[i].kind == "coupling"]
         mix_i = [i for i in idx if flow.specs[i].kind != "coupling"]
-        dev = z.device
+        dev = flow.device
         if coups:
-            rec, offs = fold_couplings(coups, fold_bn=True)
+            rec, offs = fold_couplings(coups, fold_bn=fold_bn)
         else:
             rec = torch.zeros((1, REC), device=dev)
             offs = torch.zeros((1, H, W, C), device=dev)
         mixes, mix_logdet = fold_mixes([flow.specs[i] for i in mix_i],
                                        [flow.layers[i] for i in mix_i], dev)
-        z, ldj = fused_segment_forward(z.contiguous(), rec, offs, mixes, _ops_code(seg.ops))
-        return z, ldj + mix_logdet
+        return rec, offs, mixes, mix_logdet
 
-    @torch.no_grad()
-    def inverse(self, x, cond, train: bool):
-        """data -> latent: (z, objective [B], state). The state is the
-        couplings' running statistics, unchanged (eval)."""
-        if train:
-            raise NotImplementedError(
-                f"FusedFlow runs eval only; the train mode needs the segment "
-                f"path's kernels: {SEGMENT_PATH_ITEM}")
+    def inverse(self, x, cond, train: bool, seg_fns=SEGMENT_KERNELS):
+        """data -> latent: (z, objective [B], state). Eval: no gradients,
+        and the state is the couplings' running statistics, unchanged. Train:
+        ``seg_fns`` as ``fns`` of ``SegmentFn``; the state is the new running
+        statistics (``old - BN_DECAY * (old - group moments)``)."""
         flow = self.flow
         batch = x.shape[0]
+        if train and batch % self.bt:
+            raise ValueError(f"batch {batch} not a multiple of bt {self.bt}")
         shared = flow.shared_view()
-        z = x.reshape(batch, H, W, C).float()
         cond4 = self._cond4(cond, batch)
-        obj = z.new_zeros((batch,))
-        for item in self.plan:
-            if item[0] == "scale":
-                z, ildj = flow.layers[item[1]].inverse(z, cond4, False, shared)
-                obj = obj + ildj
-                continue
-            _, seg, lo, hi = item
-            z, ldj = self._segment(z, lo, hi, seg)
-            obj = obj + ldj
-        state = {k: v for k, v in flow.state_dict().items() if ".bn" in k}
+        state = {}
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+            z = x.reshape(batch, H, W, C).float()
+            obj = z.new_zeros((batch,))
+            for item in self.plan:
+                if item[0] == "scale":
+                    z, ildj = flow.layers[item[1]].inverse(z, cond4, train, shared)
+                    obj = obj + ildj
+                    continue
+                _, seg, lo, hi = item
+                rec, offs, mixes, mix_logdet = self.fold_segment(lo, hi, fold_bn=not train)
+                code = _ops_code(seg.ops)
+                if train:
+                    z, ldj, bnmom = SegmentFn.apply(z.contiguous(), rec, offs, mixes, code,
+                                                    self.bt, seg_fns)
+                    state.update(_bn_state(flow, [i for i in range(lo, hi)
+                                                  if flow.specs[i].kind == "coupling"], bnmom))
+                else:
+                    z, ldj = fused_segment_forward(z.contiguous(), rec, offs, mixes, code)
+                obj = obj + ldj + mix_logdet
+        if not train:
+            state = {k: v for k, v in flow.state_dict().items() if ".bn" in k}
         return z, obj, state
 
-    @torch.no_grad()
-    def loss(self, x, cond, train: bool = False):
-        """(mean NLL, sd_z, state), as ``NoiseFlow.loss``."""
+    def loss(self, x, cond, train: bool = False, seg_fns=SEGMENT_KERNELS):
+        """(mean NLL, sd_z, state), as ``NoiseFlow.loss``; the NLL is
+        differentiable in train mode."""
         c = cond if self.flow._is_cond else {"clean": None}
-        z, obj, state = self.inverse(x, c, train)
+        z, obj, state = self.inverse(x, c, train, seg_fns)
         n = H * W * C
         logp = -0.5 * (n * math.log(2.0 * math.pi) + torch.sum(z * z, dim=(1, 2, 3)))
         nll = -(obj + logp)
-        var_z = torch.var(z.reshape(z.shape[0], -1), dim=1, unbiased=False)
-        return torch.mean(nll), torch.mean(torch.sqrt(var_z)), state
+        with torch.no_grad():
+            var_z = torch.var(z.reshape(z.shape[0], -1), dim=1, unbiased=False)
+            sd_z = torch.mean(torch.sqrt(var_z))
+        return torch.mean(nll), sd_z, state

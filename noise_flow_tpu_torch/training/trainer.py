@@ -1,11 +1,14 @@
 """Training/eval/sampling orchestration.
 
 Port of noise_flow_tpu.training.trainer (ref:train_noise_flow.py:30-541).
-One eager train step a batch: the loss (the fused one-shot kernel with
-``cfg.use_pallas``, else plain autograd of ``NoiseFlow.loss``), one
-``backward``, one optimizer step, then the BatchNorm running statistics that
-the loss returned are written into the flow's buffers, as the JAX trainer
-threads its state from step to step.
+One eager train step a batch: the loss, one ``backward``, one optimizer
+step, then the BatchNorm running statistics that the loss returned are
+written into the flow's buffers, as the JAX trainer threads its state from
+step to step. The loss is, as in JAX: with ``cfg.use_pallas`` the fused
+one-shot kernel (``FusedTrainStep``), or the segment path
+(``FusedFlow.loss(train=True)``: segment kernels, autograd between them)
+when ``cfg.pallas_oneshot`` is False or the arch has more scale layers than
+the one-shot step takes; else plain autograd of ``NoiseFlow.loss``.
 
 Epoch schedule, TSV logs (train/test/sample.txt columns), best-model tracking,
 and the NLL_G/NLL_SDN baseline columns match the reference
@@ -28,12 +31,7 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
-from noise_flow_tpu_torch.ops.fused_train import (
-    SEGMENT_PATH_ITEM,
-    FusedFlow,
-    FusedTrainStep,
-    pick_block,
-)
+from noise_flow_tpu_torch.ops.fused_train import FusedFlow, FusedTrainStep, pick_block
 from noise_flow_tpu_torch.utils.checkpoint import (
     latest_checkpoint,
     load_checkpoint,
@@ -112,16 +110,17 @@ class Trainer:
                     "use_pallas requested but arch outside the fused "
                     "envelope (%s); falling back to the plain path", e)
             if self.use_fused:
-                if not getattr(cfg, "pallas_oneshot", True):
-                    raise NotImplementedError(
-                        "pallas_oneshot=False trains through the segment path, "
-                        f"which is not ported yet: {SEGMENT_PATH_ITEM}")
-                FusedTrainStep(flow, bt=8)  # raises beyond MAX_SCALE
-                self.use_oneshot = True
+                # the one-shot step; outside its envelope (more than
+                # MAX_SCALE scale layers) the segment path trains instead
+                try:
+                    FusedTrainStep(flow, bt=8)
+                    self.use_oneshot = getattr(cfg, "pallas_oneshot", True)
+                except ValueError:
+                    pass
                 if getattr(cfg, "pallas_train_dtype", "float32") != "float32":
                     logging.getLogger(__name__).warning(
                         "pallas_train_dtype=%r: the fused kernels run float32 only "
-                        "(ROADMAP.md queue 2, 'the bf16 train mode')",
+                        "(ROADMAP.md queue 2, 'the bf16 modes')",
                         cfg.pallas_train_dtype)
 
     # ------------------------------------------------------------ kernels
@@ -150,6 +149,9 @@ class Trainer:
         if self.use_oneshot:
             fs = self._step_for_batch(batch["_x"].shape[0])
             nll, sd_z, new_state = fs.loss(batch["_x"], batch_to_cond(batch))
+        elif self.use_fused:
+            ff = self._fused_for_batch(batch["_x"].shape[0])
+            nll, sd_z, new_state = ff.loss(batch["_x"], batch_to_cond(batch), train=True)
         else:
             nll, sd_z, new_state = flow.loss(batch["_x"], batch_to_cond(batch), train=True)
         self.optimizer.zero_grad(set_to_none=True)

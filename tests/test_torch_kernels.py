@@ -253,3 +253,166 @@ def test_trainer_launches_train_kernels_on_card(cuda_device):
     ev, _ = tr.eval_epoch([mb])
     assert dict(ft.launch_counts) == {"fused_train_step": 2, "fused_segment_forward": 2}
     assert np.isfinite(nll) and np.isfinite(ev)
+
+
+# ---------------------------------------------------------------------------
+# the segment path's kernels (csrc/fused_train.cu, train_kernel SEG_FWD and
+# SEG_BWD): kernel vs plain on both flagship segments; z elementwise on N(0,
+# 1) input, ldj relative, group moments absolute, gradients normwise (see
+# chip_smoke.py for the observed errors these are set from)
+# ---------------------------------------------------------------------------
+
+SEG_Z_TOL, SEG_LDJ_RTOL, SEG_BN_RTOL = dict(atol=5e-5, rtol=1e-5), 2e-6, 5e-6
+# the backward normwise: 6.5e-7 without a ReLU mask flip; one flip (float32
+# rounding on either side of a kink) moved the b = 300 case by up to 9.2e-5;
+# BN groups of bt/3 move it by 1.5e-3 or more
+SEG_GRAD_RTOL = 5e-4
+
+
+def _segments(flow, b, seed, device):
+    """[(rec, offs, mixes, ops_code)] of the flagship's two segments (records
+    without BN folded in), an N(0, 1) input and seeded cotangents (gz,
+    gldj) at the scale of the mean NLL's."""
+    ff = ft.FusedFlow(flow)
+    with torch.no_grad():
+        segs = [(*ff.fold_segment(lo, hi, fold_bn=False)[:3], ft._ops_code(seg.ops))
+                for _, seg, lo, hi in (it for it in ff.plan if it[0] == "segment")]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((b, 32, 32, 4), generator=g).to(device)
+    gz = (torch.randn((b, 32, 32, 4), generator=g) / b).to(device)
+    gldj = ((-1.0 + 0.5 * torch.randn((b,), generator=g)) / b).to(device)
+    return segs, x, gz, gldj
+
+
+def _rel(k, p):
+    return float((k - p).norm() / p.norm().clamp_min(1e-30))
+
+
+def _bwd_close(k, p):
+    return all(_rel(a, b) <= SEG_GRAD_RTOL for a, b in zip(k, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,bt", [(16, 8), (138, 69), (138, 138), (300, 60)])
+def test_segment_train_forward_kernel_matches_plain(cuda_device, b, bt):
+    segs, x, _, _ = _segments(_flagship(cuda_device), b, seed=b + bt, device=cuda_device)
+    for rec, offs, mixes, code in segs:
+        before = ft.launch_counts["fused_segment_train_forward"]
+        zk, lk, mk = ft.fused_segment_train_forward(x, rec, offs, mixes, code, bt)
+        assert ft.launch_counts["fused_segment_train_forward"] == before + 1
+        zp, lp, mp = ft.segment_train_forward_reference(x, rec, offs, mixes, code, bt)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(zk.cpu().numpy(), zp.cpu().numpy(), **SEG_Z_TOL)
+        np.testing.assert_allclose(lk.cpu().numpy(), lp.cpu().numpy(), rtol=SEG_LDJ_RTOL)
+        np.testing.assert_allclose(mk.cpu().numpy(), mp.cpu().numpy(), atol=BN_ATOL,
+                                   rtol=SEG_BN_RTOL)
+        x = zk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,bt", [(16, 8), (138, 69), (138, 138), (300, 60)])
+def test_segment_backward_kernel_matches_plain(cuda_device, b, bt):
+    segs, x, gz, gldj = _segments(_flagship(cuda_device), b, seed=b + bt, device=cuda_device)
+    for rec, offs, mixes, code in segs:
+        before = ft.launch_counts["fused_segment_backward"]
+        got = ft.fused_segment_backward(x, rec, offs, mixes, code, bt, gz, gldj)
+        assert ft.launch_counts["fused_segment_backward"] == before + 1
+        ref = ft.segment_backward_reference(x, rec, offs, mixes, code, bt, gz, gldj)
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(t).all()) for t in got)
+        assert _bwd_close(got, ref), [_rel(a, b) for a, b in zip(got, ref)]
+        for name in ("b1", "b2"):
+            off, shape = fs._REC_LAYOUT[name]
+            assert float(got[1][:, off:off + shape[0]].abs().max()) == 0.0
+        x = ft.segment_train_forward_reference(x, rec, offs, mixes, code, bt)[0]
+
+
+@pytest.mark.cuda
+def test_segment_kernels_are_deterministic(cuda_device):
+    segs, x, gz, gldj = _segments(_flagship(cuda_device), 138, seed=4, device=cuda_device)
+    rec, offs, mixes, code = segs[0]
+    a = ft.fused_segment_train_forward(x, rec, offs, mixes, code, 69)
+    b = ft.fused_segment_train_forward(x, rec, offs, mixes, code, 69)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    a = ft.fused_segment_backward(x, rec, offs, mixes, code, 69, gz, gldj)
+    b = ft.fused_segment_backward(x, rec, offs, mixes, code, 69, gz, gldj)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_segment_backward_tolerance_catches_planted_faults(cuda_device):
+    """BN groups of bt/3, gldj zeroed, one coupling's gradients left out:
+    each fails the comparison."""
+    segs, x, gz, gldj = _segments(_flagship(cuda_device), 138, seed=5, device=cuda_device)
+    rec, offs, mixes, code = segs[0]
+    ref = ft.segment_backward_reference(x, rec, offs, mixes, code, 69, gz, gldj)
+    left_out = [t.clone() for t in ft.fused_segment_backward(x, rec, offs, mixes, code, 69,
+                                                             gz, gldj)]
+    left_out[1][2] = 0.0
+    left_out[2][2] = 0.0
+    for wrong in (ft.fused_segment_backward(x, rec, offs, mixes, code, 23, gz, gldj),
+                  ft.fused_segment_backward(x, rec, offs, mixes, code, 69, gz,
+                                            torch.zeros_like(gldj)),
+                  left_out):
+        assert not _bwd_close(wrong, ref)
+
+
+@pytest.mark.cuda
+def test_segment_path_matches_oneshot_on_card(cuda_device):
+    """Two independent kernels, one function: FusedFlow.loss(train=True)
+    through the segment kernels against FusedTrainStep.loss through the step
+    kernel, at the same bt."""
+    flow = _flagship(cuda_device)
+    _, (x, clean, *_rest) = _step_inputs(flow, 138, 69, seed=6, device=cuda_device)
+    cond = {"clean": clean, "iso": torch.full((138,), 800.0, device=cuda_device),
+            "cam": torch.full((138,), 2.0, device=cuda_device),
+            "nlf0": torch.zeros(138, device=cuda_device),
+            "nlf1": torch.zeros(138, device=cuda_device)}
+    params = dict(flow.named_parameters())
+    nll, sd, st = ft.FusedFlow(flow, bt=69).loss(x, cond, train=True)
+    g = dict(zip(params, torch.autograd.grad(nll, list(params.values()), allow_unused=True)))
+    nll = nll.detach()
+    nll1, sd1, st1, g1 = ft.FusedTrainStep(flow, bt=69).loss_and_grad(x, cond)
+    torch.cuda.synchronize()
+    assert abs(float(nll) - float(nll1)) <= 1e-6 * abs(float(nll1))
+    assert abs(float(sd) - float(sd1)) <= 1e-6 * abs(float(sd1))
+    assert set(st) == set(st1)
+    assert max(float((st[k] - st1[k]).abs().max()) for k in st) <= BN_ATOL * 0.1
+    for k, v in g1.items():
+        if k.endswith(("l1_b", "l2_b")):
+            assert g[k] is None or float(g[k].abs().max()) == 0.0, k
+        elif g[k] is None:
+            assert float(v.abs().max()) == 0.0, k
+        else:
+            assert _rel(g[k], v) <= 1e-2, (k, _rel(g[k], v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", [None, "sdn|gain|sdn1|gain1|sdn2|unc"])
+def test_trainer_launches_segment_kernels_on_card(cuda_device, arch):
+    """Trainer(use_pallas=True) on the segment path (pallas_oneshot=False, or
+    more than four scale layers): one forward and one backward launch a
+    segment a train step, no step kernel."""
+    from noise_flow_tpu_torch.training.trainer import Trainer
+
+    cfg = load_hps(os.path.join(MODEL, "hps.txt"))
+    cfg.use_pallas, cfg.pallas_train_dtype = True, "float32"
+    if arch is None:
+        cfg.pallas_oneshot = False
+        flow = _flagship(cuda_device)
+    else:
+        cfg.arch = arch
+        flow = NoiseFlow((32, 32, 4), cfg, device=cuda_device)
+    tr = Trainer(flow, cfg)
+    assert tr.use_fused and not tr.use_oneshot
+    n_seg = sum(1 for it in ft.FusedFlow(flow).plan if it[0] == "segment")
+    rng = np.random.default_rng(0)
+    mb = {"_x": (0.02 * rng.standard_normal((16, 32, 32, 4))).astype(np.float32),
+          "_y": rng.uniform(0.01, 0.9, (16, 32, 32, 4)).astype(np.float32),
+          "nlf0": np.full(16, 5e-4, np.float32), "nlf1": np.full(16, 2e-6, np.float32),
+          "iso": np.full(16, 800.0, np.float32), "cam": np.full(16, 2.0, np.float32)}
+    ft.launch_counts.clear()
+    nll, _ = tr.train_epoch([mb, mb])
+    assert dict(ft.launch_counts) == {"fused_segment_train_forward": 2 * n_seg,
+                                      "fused_segment_backward": 2 * n_seg}
+    assert np.isfinite(nll)

@@ -206,12 +206,19 @@ def test_segment_reference_matches_flow_inverse():
 
 
 def test_envelope_and_unported_modes_raise():
+    """Outside the one-shot step's envelope (more than MAX_SCALE scale
+    layers) it raises ValueError, as JAX's does, and the segment path runs
+    the flow; the bf16 mode and flows outside the fused envelope raise."""
     flow = NoiseFlow((32, 32, 4), default_config(arch="sdn|gain|sdn1|gain1|sdn2|unc"),
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="segment path"):
+    with pytest.raises(ValueError, match="segment path"):
         ft.FusedTrainStep(flow)
-    with pytest.raises(NotImplementedError, match="segment path"):
-        ft.FusedFlow(flow).inverse(torch.zeros(2, 32, 32, 4), {}, train=True)
+    x, cond = _batch(2, seed=9)
+    z, obj, st = ft.FusedFlow(flow, bt=2).inverse(torch.as_tensor(x), _torch_cond(cond),
+                                                  train=True)
+    assert bool(torch.isfinite(z).all()) and bool(torch.isfinite(obj).all()) and len(st) == 4
+    with pytest.raises(ValueError, match="multiple of bt"):
+        ft.FusedFlow(flow, bt=4).inverse(torch.as_tensor(x), _torch_cond(cond), train=True)
     with pytest.raises(NotImplementedError, match="bf16"):
         ft.FusedFlow(flow, mm_dtype="bfloat16")
     small = NoiseFlow((16, 16, 4), default_config(arch="unc", patch_height=16), device="cpu")
@@ -225,7 +232,7 @@ def test_envelope_and_unported_modes_raise():
 
 @pytest.mark.parametrize("b,target,stretch,want", [
     (138, 64, 8, 69), (128, 64, 8, 64), (64, 64, 8, 64), (2048, 64, 8, 64),
-    (138, 64, 0, 46), (138, 128, 0, 69), (16, 64, 8, 16),
+    (138, 64, 0, 46), (138, 128, 0, 69), (16, 64, 8, 16), (128, 128, 0, 128),
 ])
 def test_pick_block_matches_jax(b, target, stretch, want):
     from noise_flow_tpu.training.trainer import _pick_block
