@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive noise_flow_tpu_torch's sampling and training paths on one NVIDIA GPU.
+"""Drive noise_flow_tpu_torch's sampling, training and DnCNN paths on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one CUDA
 card and the CUDA toolkit (nvcc); it imports neither JAX nor noise_flow_tpu.
@@ -61,8 +61,35 @@ Phases, each of which fails the run if it fails:
    versions, as phase 10;
 17. time the segment kernels, their plain versions and their bounds;
 18. break a segment-path train step down, as phase 11;
-19. print the ``{"kernels": [...]}`` line, one entry a TPU kernel function
-   (the segment forward with its running and ghost modes).
+19. the sampler's in-kernel RNG mode: the normals its kernel draws
+   (``nf_rng_normals``, the same ``draw_normals`` as the chain's) against
+   ``rng_normals_reference`` at b = 128 and 8192, within 1e-6 absolute;
+   mean, sd and a KS test against N(0, 1) over the 33.5M values of 8192;
+20. the RNG mode against the plain chain on ``rng_normals_reference(seed) *
+   temp`` with the flagship weights: batch BN at b = 128 with one group (the
+   DnCNN_NF step) and at 2961 (groups of 141), running BN at 8192
+   (``make_sampler``'s steady state); one seed twice gives the same bits,
+   two seeds differ;
+21. plant faults (the seed ignored, the sin half dropped with the cos half
+   reused, the temperature not applied) that phase 19 or 20 must report;
+22. ``make_sampler`` at b = 8192, temperature 0.6, running BN, bt 64: one
+   launch a call, no eps allocated, ms a call and patches/s;
+23. train a DnCNN through ``cli.train_dncnn.main`` (``DnCNN_NF``, the
+   flagship flow as its noise source, depth 9, 32 filters, batch 128, 2
+   epochs of 9 steps on synthetic data): exactly 40 sampler launches a
+   step, all in RNG mode, a finite and falling loss, ``log.csv`` and the
+   checkpoints; then ``cli.test_dncnn.main --synthetic`` on the last
+   checkpoint, a finite PSNR and SSIM;
+24. 3 DnCNN_NF Adam steps with the noise through the kernel and 3 through
+   the plain versions, from the same weights and seeds: each step's noise
+   within TOL, a rerun bit for bit, the parameters and losses within
+   tolerances set from the trajectory's own response to a noise moved by
+   one float32 rounding (run beside them, and printed);
+25. time the RNG and eps modes, their plain versions and bounds at b = 128
+   and 8192, and break a DnCNN_NF train step down on the host clock;
+26. print the ``{"kernels": [...]}`` line, one entry a TPU kernel function
+   (the segment forward with its running and ghost modes, the sampler with
+   its eps and RNG modes).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; it is printed
 only if every phase passed. Exit code 0 then, non-zero otherwise.
@@ -136,6 +163,30 @@ PATH_LOSS_RTOL = 1e-6
 FIVE_SCALE_ARCH = "sdn|gain|sdn1|gain1|sdn2|unc"   # beyond the one-shot step's 4 scale layers
 TRAIN_B, TRAIN_BTS = 138, (69, 138)
 TRAIN_EPOCHS, TRAIN_IMAGES, TEST_IMAGES = 2, 17, 3    # 512x512: 256 patches each
+# The in-kernel RNG mode. The kernel's normals against the plain version's
+# (both on the card): logf, sqrtf and sincosf at full precision on both
+# sides, values up to 5.9, so within 1e-6 absolute; the chain from them
+# within TOL. Shapes: the DnCNN_NF step (b = 128, one BN group), the frame
+# batch (2961, groups of 141), make_sampler's steady state (8192, running).
+RNG_SEED = 1234
+RNG_ATOL = 1e-6
+RNG_STATS_B = 8192                # 33.5M normals for the statistics
+RNG_SHAPES = (("batch", 128, 128), ("batch", 2961, 141), ("running", 8192, 8192))
+SAMPLER_B, SAMPLER_BT = 8192, 64
+# DnCNN_NF at the reference's full width (train_dncnn_noiseflow.py:77-105):
+# 80 synthetic 256x256 images, 16 patches each, less the CLI's held-out
+# tenth: 9 steps an epoch
+DNCNN_DEPTH, DNCNN_FILTERS, DNCNN_B, DNCNN_EPOCHS, DNCNN_IMAGES = 9, 32, 128, 2, 80
+# 3 Adam steps kernel vs plain from the same weights and seeds. Each step's
+# noise is held within TOL. The trajectory then carries those last-bit
+# differences: Adam's first steps are lr * g / |g|, and a DnCNN trained
+# with a sum loss turns a noise changed by one float32 rounding (x (1 +
+# 2^-23)) into parameters 8.2e-3 apart normwise after 3 steps and losses
+# 8.8e-5 apart (the plain path alone, run beside them here; observed with
+# this script on an H100 80GB HBM3 at 700 W, where kernel against plain read
+# 4.2e-3 and 3.4e-5), so the parameters and BN state are held normwise per
+# leaf within 2e-2 and the losses within 3e-4 relative.
+DNCNN_TRAJ_RTOL, DNCNN_LOSS_RTOL = 2e-2, 3e-4
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
@@ -163,31 +214,41 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _inputs(program, b, seed):
-    """Clean patches, per-example (iso, cam) on the grid, eps * TEMP."""
+def _cond(b, seed):
+    """Clean patches and per-example (iso, cam) on the grid, on the card;
+    and the generator that drew them."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     clean = 0.01 + 0.89 * torch.rand((b, 32, 32, 4), generator=g, device="cuda")
     iso = torch.tensor([GRID[i % 5][0] for i in range(b)], device="cuda")
     cam = torch.tensor([GRID[(i // 5) % 5][1] for i in range(b)], device="cuda")
-    cond = {"clean": clean, "iso": iso, "cam": cam,
+    return {"clean": clean.contiguous(), "iso": iso, "cam": cam,
             "nlf0": torch.zeros(b, device="cuda"),
-            "nlf1": torch.zeros(b, device="cuda")}
+            "nlf1": torch.zeros(b, device="cuda")}, g
+
+
+def _inputs(program, b, seed):
+    """Clean patches, per-example (iso, cam) on the grid, eps * TEMP."""
+    import torch
+    cond, g = _cond(b, seed)
     sa, sb = program.scale_ab(cond, b)
     x = (torch.randn((b, 32, 32, 4), generator=g, device="cuda") * TEMP).contiguous()
-    return x, clean.contiguous(), sa, sb
+    return x, cond["clean"], sa, sb
 
 
-def _work(program, b):
+def _work(program, b, rng=False):
     """(FLOPs, bytes) the chain needs for b patches: multiply-adds of the
-    convolutions and mixes at 2 FLOPs each; eps and clean read once, the
-    noise written once, sa/sb and the weights read once."""
+    convolutions and mixes at 2 FLOPs each; eps (not in the RNG mode) and
+    clean read once, the noise written once, sa/sb and the weights read
+    once. The RNG mode's Philox (integer) and Box-Muller operations are
+    left out: both modes are bound by the chain's float32 FMAs alone, by
+    one rule."""
     from noise_flow_tpu_torch.ops.fused_sample import OP_COUPLING, OP_MIX
     n_c = sum(1 for k, _ in program.ops if k == OP_COUPLING)
     n_mix = sum(1 for k, _ in program.ops if k == OP_MIX)
     mac_per_px = n_c * (9 * 2 * 4 + 4 * 4 + 9 * 4 * 4) + n_mix * 16
     flops = 2.0 * mac_per_px * 32 * 32 * b
-    nbytes = 4.0 * (3 * b * 32 * 32 * 4 + 2 * b * max(program.n_scale, 1)
+    nbytes = 4.0 * ((2 if rng else 3) * b * 32 * 32 * 4 + 2 * b * max(program.n_scale, 1)
                     + program.coup.numel() + program.mixes.numel())
     return flops, nbytes
 
@@ -804,6 +865,331 @@ def _training_phases(phase, agree):
     return out
 
 
+def _rng_dncnn_phases(phase, agree, programs, nf):
+    """Phases 19-25 (see the module docstring): the sampler's in-kernel RNG
+    mode and the DnCNN path. Returns the RNG mode's errors, launches and
+    times, and the eps mode's times at the same shapes, for the kernels
+    line."""
+    import numpy as np
+    import torch
+    from scipy.stats import kstwobign
+    from noise_flow_tpu_torch.cli import test_dncnn, train_dncnn
+    from noise_flow_tpu_torch.data.dncnn_data import synthetic_dncnn_data
+    from noise_flow_tpu_torch.ops import fused_sample as fs
+    from noise_flow_tpu_torch.training.dncnn_trainer import DnCNNTrainer
+
+    out = {"errs": {}, "timings": {}, "launches": None}
+    errs, timings = out["errs"], out["timings"]
+    dev = torch.device("cuda")
+
+    def plain_rng_chain(prog, seed, temp, clean, sa, sb, bt):
+        x = fs.rng_normals_reference(seed, clean.shape[0], device=dev) * temp
+        return fs.sample_chain_reference(prog, x, clean, sa, sb, bt)
+
+    def normals():
+        for b in (128, RNG_STATS_B):
+            k = fs.rng_normals(RNG_SEED, b, dev)
+            p = fs.rng_normals_reference(RNG_SEED, b, device=dev)
+            ok, errs[("normals", b)] = agree(f"rng normals b={b} (abs)", k, p, (RNG_ATOL, 0.0))
+            if not ok:
+                raise AssertionError(f"the kernel's normals disagree with plain at b={b}")
+        v = k.double().reshape(-1)
+        n = v.numel()
+        mean, sd = float(v.mean()), float(v.std())
+        cdf = torch.special.ndtr(torch.sort(v).values)
+        i = torch.arange(n, device=dev, dtype=torch.float64)
+        d = max(float(((i + 1) / n - cdf).max()), float((cdf - i / n).max()))
+        p_ks = float(kstwobign.sf(d * np.sqrt(n)))
+        lim_m, lim_s = 5 / np.sqrt(n), 5 * np.sqrt(0.5 / n)
+        print(f"rng normals b={RNG_STATS_B}: {n} values, mean {mean:.3e} (|.| < {lim_m:.1e}), "
+              f"sd {sd:.6f} (|sd - 1| < {lim_s:.1e}), KS D {d:.3e} p {p_ks:.3f} (> 1e-3)")
+        if not (abs(mean) < lim_m and abs(sd - 1) < lim_s and p_ks > 1e-3):
+            raise AssertionError("the kernel's normals fail the N(0, 1) checks")
+    phase("rng normals on the card", normals)
+
+    def rng_vs_plain(mode, b, bt):
+        prog = programs[mode]
+        _, clean, sa, sb = _inputs(prog, b, seed=b)
+        k = fs.fused_sample_chain_rng(prog, RNG_SEED, TEMP, clean, sa, sb, bt)
+        p = plain_rng_chain(prog, RNG_SEED, TEMP, clean, sa, sb, bt)
+        ok, errs[(mode, b)] = agree(f"rng mode bn={mode} b={b} bt={bt}", k, p)
+        again = fs.fused_sample_chain_rng(prog, RNG_SEED, TEMP, clean, sa, sb, bt)
+        other = fs.fused_sample_chain_rng(prog, RNG_SEED + 1, TEMP, clean, sa, sb, bt)
+        same, differ = bool(torch.equal(k, again)), not bool(torch.equal(k, other))
+        print(f"  rng mode b={b}: one seed twice bit for bit {same}; seed + 1 differs {differ}")
+        if not (ok and same and differ):
+            raise AssertionError(f"rng mode disagrees with plain, or repeats wrongly, at b={b}")
+    for mode, b, bt in RNG_SHAPES:
+        phase(f"rng mode vs plain bn={mode} b={b} bt={bt}",
+              lambda m=mode, b=b, bt=bt: rng_vs_plain(m, b, bt))
+
+    def planted_faults():
+        """Each must fail the comparison of phase 19 or 20."""
+        mode, b, bt = RNG_SHAPES[0]
+        prog = programs[mode]
+        _, clean, sa, sb = _inputs(prog, b, seed=b)
+        right_n = fs.rng_normals_reference(RNG_SEED, b, device=dev)
+        right = plain_rng_chain(prog, RNG_SEED, TEMP, clean, sa, sb, bt)
+        k_n = fs.rng_normals(RNG_SEED, b, dev)
+        cos_reused = torch.cat([k_n[:, :16], k_n[:, :16]], 1).contiguous()
+        faults = (
+            ("seed ignored (normals)", fs.rng_normals(0, b, dev), right_n, (RNG_ATOL, 0.0)),
+            ("seed ignored (chain)",
+             fs.fused_sample_chain_rng(prog, 0, TEMP, clean, sa, sb, bt), right, TOL),
+            ("sin half dropped, cos reused (normals)", cos_reused, right_n, (RNG_ATOL, 0.0)),
+            ("sin half dropped, cos reused (chain)",
+             fs.fused_sample_chain(prog, cos_reused * TEMP, clean, sa, sb, bt), right, TOL),
+            ("temperature not applied",
+             fs.fused_sample_chain_rng(prog, RNG_SEED, 1.0, clean, sa, sb, bt), right, TOL),
+        )
+        for name, wrong, ref, tol in faults:
+            ok, _ = agree(f"planted fault ({name}) b={b}", wrong, ref, tol)
+            if ok:
+                raise AssertionError(f"the comparison missed a planted fault: {name}")
+    phase("rng planted faults are caught", planted_faults)
+
+    def sampler():
+        prog = programs["running"]
+        b = SAMPLER_B
+        cond, _ = _cond(b, seed=3)
+        smp = fs.make_sampler(prog, cond, temp=TEMP, bt=SAMPLER_BT, mm_dtype=torch.float32)
+        seeds = itertools.count(100)
+        smp(next(seeds))
+        torch.cuda.synchronize()
+        fs.launch_counts.clear()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tile = smp(next(seeds))
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        counts = dict(fs.launch_counts)
+        out_bytes = tile.numel() * 4
+        ms = _time_ms(lambda: smp(next(seeds)), 20)
+        n = 20
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            smp(next(seeds))
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / n * 1e3
+        timings["make_sampler"] = {"ms": ms, "host_ms": host_ms,
+                                   "patches_per_s": b / (ms / 1e3)}
+        print(f"make_sampler b={b} bt={SAMPLER_BT} temp {TEMP} running BN: launches a call "
+              f"{counts} (want one of each); memory allocated during a call {extra} bytes, the "
+              f"output {out_bytes} (no eps: {extra < out_bytes * 1.05}); tile {tuple(tile.shape)}; "
+              f"{ms:.4f} ms a call (CUDA events), {host_ms:.4f} ms (host clock, back to back), "
+              f"{b / (ms / 1e3):.4e} patches/s")
+        if counts != {"fused_sample": 1, "fused_sample_rng": 1} or extra >= out_bytes * 1.05 \
+                or tuple(tile.shape) != (b, 32, 128):
+            raise AssertionError("make_sampler: launches, memory or shape wrong")
+    phase("make_sampler on the card", sampler)
+
+    rows = train_dncnn.cam_iso_rows_from_table(os.path.join(ROOT, "cam_iso_nlf.txt"))
+
+    def dncnn_train():
+        save = os.path.join(ROOT, "build", "chip_smoke_dncnn")          # gitignored
+        results = os.path.join(ROOT, "build", "chip_smoke_dncnn_results")
+        for d in (save, results):
+            shutil.rmtree(d, ignore_errors=True)
+        clean, _, _ = synthetic_dncnn_data(n_images=DNCNN_IMAGES, batch_size=DNCNN_B)
+        n_val = min(len(clean) // 10, 512) or 1     # the CLI's held-out split
+        steps = (len(clean) - n_val) // DNCNN_B
+        fs.launch_counts.clear()
+        t0 = time.time()
+        rc = train_dncnn.main([
+            "--model", "DnCNN_NF", "--noise_flow_path", MODEL, "--device", "cuda",
+            "--depth", str(DNCNN_DEPTH), "--filters", str(DNCNN_FILTERS),
+            "--batch_size", str(DNCNN_B), "--max_epoch", str(DNCNN_EPOCHS),
+            "--synthetic_data", str(DNCNN_IMAGES), "--save_dir", save,
+            "--cam_iso_nlf", os.path.join(ROOT, "cam_iso_nlf.txt")])
+        torch.cuda.synchronize()
+        t_fit = time.time() - t0
+        counts = dict(fs.launch_counts)
+        out["launches"] = counts.get("fused_sample_rng", 0)
+        want = DNCNN_EPOCHS * steps * BATCH_BN_LAUNCHES
+        with open(os.path.join(save, "log.csv")) as f:
+            log = [r.split(",") for r in f.read().splitlines()]
+        losses = [float(r[1]) for r in log]
+        print(f"dncnn: train_dncnn DnCNN_NF depth {DNCNN_DEPTH}, {DNCNN_FILTERS} filters, b="
+              f"{DNCNN_B}, {DNCNN_EPOCHS} epochs of {steps} steps in {t_fit:.2f} s (rc {rc}); "
+              f"launches {counts} (want {want} of fused_sample, all in RNG mode); log.csv {log}")
+        if rc != 0 or counts.get("fused_sample", 0) != want or \
+                counts.get("fused_sample_rng", 0) != want:
+            raise AssertionError(f"DnCNN_NF: rc {rc}, sampler launches {counts}, not {want}")
+        if len(losses) != DNCNN_EPOCHS or not np.isfinite(losses).all() or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"DnCNN_NF loss not finite or not falling: {losses}")
+        ckpts = sorted(f for f in os.listdir(save) if f.startswith("model.ckpt-"))
+        if ckpts != [f"model.ckpt-{e:03d}.npz" for e in range(1, DNCNN_EPOCHS + 1)]:
+            raise AssertionError(f"checkpoints written: {ckpts}")
+        t0 = time.time()
+        rc = test_dncnn.main(["--model_name", "DnCNN_NF", "--model_dir", save,
+                              "--result_dir", results, "--synthetic", "--device", "cuda",
+                              "--depth", str(DNCNN_DEPTH), "--filters", str(DNCNN_FILTERS)])
+        sidd = os.path.join(results, "DnCNN_NF", "SIDD")
+        psnr = float(np.loadtxt(os.path.join(sidd, "psnr.txt")))
+        ssim = float(np.loadtxt(os.path.join(sidd, "ssim.txt")))
+        with open(os.path.join(sidd, "epc_psnr.txt")) as f:
+            epc = f.read().split()
+        print(f"dncnn: test_dncnn --synthetic in {time.time() - t0:.2f} s (rc {rc}): PSNR "
+              f"{psnr:.4f} dB, SSIM {ssim:.4f}, epc_psnr {epc}; files {sorted(os.listdir(sidd))}")
+        if rc != 0 or not (np.isfinite(psnr) and np.isfinite(ssim)) or \
+                not os.path.exists(os.path.join(sidd, "psnrs.mat")):
+            raise AssertionError("test_dncnn: no finite PSNR/SSIM")
+        for d in (save, results):
+            shutil.rmtree(d, ignore_errors=True)
+    phase("train and test DnCNN_NF on the card (CLIs)", dncnn_train)
+
+    clean_np, _, _ = synthetic_dncnn_data(n_images=8, batch_size=DNCNN_B)
+    clean_b = torch.as_tensor(clean_np[:DNCNN_B], device=dev)
+
+    def plain_nf_noise(t, clean, p, gen):
+        """The trainer's NF noise through the plain versions: the seed's
+        normals and the plain chain, one BN group of the batch."""
+        b = clean.shape[0]
+        cam, iso = p["row"][0], p["row"][1]
+        cond = {"clean": clean, "nlf0": torch.zeros(b, device=dev),
+                "nlf1": torch.zeros(b, device=dev), "iso": torch.full((b,), iso, device=dev),
+                "cam": torch.full((b,), cam, device=dev)}
+        sa, sb = t.program.scale_ab(cond, b)
+        return plain_rng_chain(t.program, p["seed"], 1.0, clean, sa, sb, b)
+
+    def nf_trainer():
+        return DnCNNTrainer(depth=DNCNN_DEPTH, filters=DNCNN_FILTERS, noise_source="nf",
+                            noise_flow=nf.flow, cam_iso_rows=rows, device="cuda", seed=0)
+
+    def dncnn_trajectory():
+        """Kernel, kernel again, plain, and plain with its noise moved by one
+        float32 rounding: each 3 Adam steps from the same weights, data and
+        seeds. cuDNN is held to deterministic algorithms here, so that a
+        rerun repeats bit for bit and what differs is the noise path."""
+        runs = {}
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for name in ("kernel", "kernel again", "plain", "plain, one rounding"):
+                t = nf_trainer()
+                if name.startswith("plain"):
+                    scale = 1.0 + 2.0 ** -23 if name.endswith("rounding") else 1.0
+                    make = (lambda clean, p, gen, t=t, scale=scale:
+                            plain_nf_noise(t, clean, p, gen) * scale)
+                else:
+                    make = t._make_noise
+                noises = []
+                t._make_noise = lambda clean, p, gen, make=make, noises=noises: \
+                    noises.append(make(clean, p, gen)) or noises[-1]
+                rng, gen = np.random.default_rng(5), torch.Generator(device=dev).manual_seed(6)
+                fs.launch_counts.clear()
+                losses = []
+                for _ in range(3):
+                    p = dict(t._noise_params(rng), gauss=False)   # the NF face of the coin
+                    losses.append(float(t.train_step(clean_b, None, p, gen)))
+                runs[name] = (t, losses, dict(fs.launch_counts), noises)
+        finally:
+            torch.backends.cudnn.deterministic = det
+
+        def rel(a, b):
+            """(worst normwise difference of parameters and BN state, its
+            leaf, largest relative loss difference) between two runs."""
+            sa, sb = runs[a][0].model.state_dict(), runs[b][0].model.state_dict()
+            rels = {k: float((sa[k] - sb[k]).norm() / sb[k].norm().clamp_min(1e-30)) for k in sb}
+            worst = max(rels, key=rels.get)
+            e_loss = max(abs(x - y) / abs(y) for x, y in zip(runs[a][1], runs[b][1]))
+            return rels[worst], worst, e_loss
+        ok_noise = True
+        for i, (a, b) in enumerate(zip(runs["kernel"][3], runs["plain"][3])):
+            ok, _ = agree(f"dncnn step {i} noise kernel vs plain", a, b)
+            ok_noise = ok_noise and ok
+        kp, kk, pr = rel("kernel", "plain"), rel("kernel", "kernel again"), \
+            rel("plain, one rounding", "plain")
+        ck, cp = runs["kernel"][2], runs["plain"][2]
+        print(f"dncnn trajectory: 3 Adam steps of DnCNN_NF at b={DNCNN_B}: losses kernel "
+              f"{runs['kernel'][1]}, plain {runs['plain'][1]}; kernel vs plain: parameters "
+              f"and BN state normwise worst {kp[0]:.3e} ({kp[1]}), losses max rel {kp[2]:.3e} "
+              f"(tol {DNCNN_TRAJ_RTOL}, {DNCNN_LOSS_RTOL}); kernel vs kernel again {kk[0]:.3e}, "
+              f"{kk[2]:.3e}; plain vs its noise moved by one rounding {pr[0]:.3e} ({pr[1]}), "
+              f"{pr[2]:.3e}; launches kernel {ck}, plain {cp}")
+        if not (ok_noise and kp[0] <= DNCNN_TRAJ_RTOL and kp[2] <= DNCNN_LOSS_RTOL
+                and kk[0] == 0.0) or ck.get("fused_sample_rng", 0) != 3 * BATCH_BN_LAUNCHES or cp:
+            raise AssertionError("DnCNN_NF trajectories disagree, or launches wrong")
+    phase("dncnn trajectory: 3 steps kernel vs plain", dncnn_trajectory)
+
+    def rng_timing():
+        for mode, b, bt in (RNG_SHAPES[0], ("running", SAMPLER_B, SAMPLER_B)):
+            prog = programs[mode]
+            x, clean, sa, sb = _inputs(prog, b, seed=17 + b)
+            iters = 20 if b <= 138 else 5
+            fns = {"eps": (lambda: fs.fused_sample_chain(prog, x, clean, sa, sb, bt),
+                           lambda: fs.sample_chain_reference(prog, x, clean, sa, sb, bt)),
+                   "rng": (lambda: fs.fused_sample_chain_rng(prog, RNG_SEED, TEMP, clean, sa, sb,
+                                                             bt),
+                           lambda: plain_rng_chain(prog, RNG_SEED, TEMP, clean, sa, sb, bt))}
+            ms = {k: [] for k in fns}
+            for kind in ("eps", "rng", "rng", "eps") * 3:   # in turns, one card
+                ms[kind].append(_time_ms(fns[kind][0], iters))
+            for kind, (_, plain) in fns.items():
+                k_ms, p_ms = float(np.median(ms[kind])), _time_ms(plain, max(2, iters // 4))
+                flops, nbytes = _work(prog, b, rng=kind == "rng")
+                t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+                timings[(kind, b)] = {"ms": k_ms, "plain_ms": p_ms,
+                                      "bound_ms": max(t_ops, t_bytes) * 1e3,
+                                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                                      "library_ms": None}
+                print(f"time {kind} mode bn={mode} b={b} bt={bt}: kernel {k_ms:.4f} ms (median of turns "
+                      f"{', '.join(f'{v:.4f}' for v in ms[kind])}), plain {p_ms:.4f} ms, bound "
+                      f"{timings[(kind, b)]['bound_ms']:.4f} ms ({timings[(kind, b)]['bound_by']}; "
+                      f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
+
+        t = nf_trainer()
+        rng, gen = np.random.default_rng(7), torch.Generator(device=dev).manual_seed(8)
+        b = DNCNN_B
+        parts = {k: 0.0 for k in ("step", "noise", "scale_ab", "kernel", "forward+backward",
+                                  "adam")}
+        n = 10
+
+        def clock(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            parts[name] += (time.perf_counter() - t0) * 1e3 / n
+            return r
+        for _ in range(3):
+            t.train_step(clean_b, None, dict(t._noise_params(rng), gauss=False), gen)
+        for _ in range(n):
+            p = dict(t._noise_params(rng), gauss=False)
+            clock("step", lambda: t.train_step(clean_b, None, p, gen))
+            noise = clock("noise", lambda: t._make_noise(clean_b, p, gen))
+            cond = {"clean": clean_b, "nlf0": torch.zeros(b, device=dev),
+                    "nlf1": torch.zeros(b, device=dev),
+                    "iso": torch.full((b,), p["row"][1], device=dev),
+                    "cam": torch.full((b,), p["row"][0], device=dev)}
+            sa, sb = clock("scale_ab", lambda: t.program.scale_ab(cond, b))
+            clock("kernel", lambda: fs.fused_sample_chain_rng(t.program, p["seed"], 1.0,
+                                                              clean_b, sa, sb, b))
+            x_noisy = torch.clamp(clean_b + noise, 0.0, 1.0)
+
+            def fwd_bwd():
+                out_, _ = t.model(x_noisy, train=True)
+                t.optimizer.zero_grad(set_to_none=True)
+                (torch.sum(torch.square(out_ - clean_b)) / 2.0).backward()
+            clock("forward+backward", fwd_bwd)
+            clock("adam", t.optimizer.step)
+        timings["dncnn_step"] = parts
+        # the convolutions' FLOPs: forward, weight gradients, and data
+        # gradients of all but the first (its input needs none)
+        macs = [2.0 * kh * kw * ci * co * b * 32 * 32 for kh, kw, ci, co in
+                (tuple(w.shape) for w in t.model.convs)]
+        conv_flops = 2 * sum(macs) + sum(macs[1:])
+        print(f"breakdown DnCNN_NF train step b={b}, depth {DNCNN_DEPTH}, {DNCNN_FILTERS} "
+              f"filters (host clock, ms, each part alone between synchronisations, means of "
+              f"{n}): " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) +
+              f"; the convolutions {conv_flops / 1e9:.2f} GFLOP a step, "
+              f"{conv_flops / parts['forward+backward'] / 1e9:.2f} TFLOP/s over forward+backward")
+    phase("rng and dncnn timing", rng_timing)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1023,25 +1409,42 @@ def main() -> int:
     phase("request breakdown", breakdown)
 
     train_out = _training_phases(phase, agree)
+    rng_out = _rng_dncnn_phases(phase, agree, programs, nf)
 
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
         return 1
 
     main_t = timings[("batch", 138)]
+    rng_errs, rng_t = rng_out["errs"], rng_out["timings"]
+    chain_errs = {k: v for k, v in rng_errs.items() if k[0] != "normals"}
+    rng_mode = dict(
+        rng_t[("rng", 128)], launches=rng_out["launches"],
+        max_abs_err=max(chain_errs.values()),
+        shape="b=128, bt=128, batch BN (the DnCNN_NF step; launches: its 2-epoch fit)",
+        normals_max_abs_err=max(v for k, v in rng_errs.items() if k[0] == "normals"),
+        by_shape={f"b={b},bn={m}": dict(rng_t.get(("rng", b), {}), max_abs_err=e)
+                  for (m, b), e in chain_errs.items()},
+        make_sampler=rng_t["make_sampler"])
+    eps_mode = dict(
+        main_t, launches=launches, max_abs_err=max(errs.values()), library_ms=None,
+        shape="b=138, bn=batch (the wrapper's default; launches: the serve phase)",
+        by_shape=dict({f"b={b},bn={m}": dict(v, max_abs_err=errs[(m, b)])
+                       for (m, b), v in timings.items()},
+                      **{f"b={b},bn={m}": rng_t[("eps", b)]
+                         for m, b, _ in (RNG_SHAPES[0], ("running", SAMPLER_B, 0))}))
     entry = {
         "name": "fused_sample",
         "route": "cuda",
         "source": "noise_flow_tpu_torch/csrc/fused_sample.cu",
         "replaces": "noise_flow_tpu/ops/pallas_sample.py:374",
-        "launches": launches,
-        "max_abs_err": max(errs.values()),
+        "launches": launches + rng_out["launches"],
+        "max_abs_err": max(max(errs.values()), rng_mode["max_abs_err"]),
         "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
         "library_ms": None,
-        "shape": "b=138, bn=batch (the wrapper's default)",
-        "by_shape": {f"b={b},bn={m}": dict(v, max_abs_err=errs[(m, b)])
-                     for (m, b), v in timings.items()},
+        "shape": "b=138, bn=batch, eps mode (the wrapper's default)",
+        "by_mode": {"eps": eps_mode, "rng": rng_mode},
     }
     print(json.dumps({"kernels": [entry] + train_out["entries"]}))
     print(json.dumps({"ok": True, "device": {

@@ -36,6 +36,23 @@
 // order (no float atomics: results are the same from run to run). The chain
 // state between launches lives in `out`. Patches past the end of the batch
 // do not exist here, so nothing but real patches enters a group's moments.
+//
+// In-kernel RNG mode (the TPU kernel's use_prng branch, pallas_sample.py
+// `_make_kernel` with `_box_muller`): the chain input is drawn in registers
+// as normals(seed) * temp, in place of the read of eps, so device memory sees
+// 32 KiB a patch (clean in, noise out) in running-BN mode. The bits come from
+// a counter-based Philox-4x32-10 and are a pure function of (seed, patch,
+// row, channel), so every launch that starts from the chain input (the first
+// coupling's five batch-BN launches) draws the same numbers again, at 4
+// Philox calls and 8 Box-Muller pairs a thread, with no buffer for them.
+// Counter and key, shared with rng_normals_reference in ops/fused_sample.py:
+//   key     = (seed, 0)
+//   counter = (32 * h + w, patch, j, 0),  h in [0, 16), w in [0, 32), j in {0, 1}
+// Output word c of j = 0 is bits1 and of j = 1 is bits2 for channel c at
+// (h, w). Box-Muller as JAX's `_box_muller`: u1 = (bits1 >> 8) * 2^-24 +
+// 2^-25, u2 = (bits2 >> 8) * 2^-24, r = sqrt(-2 log u1), th = 2 pi u2; row h
+// takes r cos th, row h + 16 takes r sin th. The patch is the index in the
+// batch and the seed is the key, so seed s + 1 shares no stream with seed s.
 
 #include <cuda_runtime.h>
 
@@ -56,7 +73,10 @@ enum Stage { APPLY = 0, MEAN1 = 1, VAR1 = 2, MEAN2 = 3, VAR2 = 4 };
 enum OpKind { OP_MIX = 0, OP_SCALE = 1, OP_COUPLING = 2 };
 
 struct Args {
-  const float* src;      // [B, NPIX, 4] chain state at op_begin (may alias out)
+  const float* src;      // [B, NPIX, 4] chain state at op_begin (may alias out);
+                         // null: draw it, normals(seed) * temp
+  unsigned seed;
+  float temp;
   float* out;            // [B, NPIX, 4] chain state after op_end
   const float* clean;    // [B, NPIX, 4]
   const float* sa;       // [B, n_scale]
@@ -102,6 +122,57 @@ __device__ __forceinline__ float4 bn4(float4 h, float4 mean, float4 var) {
   float4 d = h - mean;
   return make_float4(d.x / sqrtf(var.x + BN_EPS), d.y / sqrtf(var.y + BN_EPS),
                      d.z / sqrtf(var.z + BN_EPS), d.w / sqrtf(var.w + BN_EPS));
+}
+
+// Philox-4x32-10 (Salmon et al., SC '11; Random123's philox4x32 with 10
+// rounds): the key is bumped between rounds.
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const unsigned hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+    k.x += 0x9E3779B9u;
+    k.y += 0xBB67AE85u;
+  }
+  return c;
+}
+
+// Box-Muller on the 24 high bits of each word; full-precision logf, sqrtf and
+// sincosf (no fast-math intrinsics).
+__device__ __forceinline__ void box_muller(unsigned bits1, unsigned bits2,
+                                           float& n_cos, float& n_sin) {
+  constexpr float TWO_M24 = 5.9604644775390625e-08f;   // 2^-24
+  constexpr float TWO_M25 = 2.98023223876953125e-08f;  // 2^-25
+  constexpr float TWO_PI = 6.283185307179586f;
+  const float u1 = static_cast<float>(bits1 >> 8) * TWO_M24 + TWO_M25;
+  const float u2 = static_cast<float>(bits2 >> 8) * TWO_M24;
+  const float r = sqrtf(-2.0f * logf(u1));
+  float s, c;
+  sincosf(TWO_PI * u2, &s, &c);
+  n_cos = r * c;
+  n_sin = r * s;
+}
+
+// The thread's PPT pixels (column c, rows r0 + ROWS_PER_PASS * k) of the
+// normals of `seed` times temp. Rows r0 + 8k and r0 + 8k + 16 (k = 0, 1) are
+// one Box-Muller pair, so both lie in this thread.
+__device__ __forceinline__ void draw_normals(unsigned seed, int patch, int r0,
+                                             int c, float temp, float4 (&x)[PPT]) {
+  const uint2 key = make_uint2(seed, 0u);
+#pragma unroll
+  for (int k = 0; k < PPT / 2; ++k) {
+    const unsigned hw = static_cast<unsigned>((r0 + ROWS_PER_PASS * k) * W + c);
+    const uint4 b1 = philox4x32_10(make_uint4(hw, static_cast<unsigned>(patch), 0u, 0u), key);
+    const uint4 b2 = philox4x32_10(make_uint4(hw, static_cast<unsigned>(patch), 1u, 0u), key);
+    float4 lo, hi;
+    box_muller(b1.x, b2.x, lo.x, hi.x);
+    box_muller(b1.y, b2.y, lo.y, hi.y);
+    box_muller(b1.z, b2.z, lo.z, hi.z);
+    box_muller(b1.w, b2.w, lo.w, hi.w);
+    x[k] = scale4(lo, temp);
+    x[k + PPT / 2] = scale4(hi, temp);
+  }
 }
 
 // Sum of one float4 per thread over the block, in a fixed order; every
@@ -206,10 +277,14 @@ sample_kernel(const Args a) {
   const size_t base = static_cast<size_t>(patch) * NPIX * 4;
 
   float4 x[PPT];
+  if (a.src == nullptr) {
+    draw_normals(a.seed, patch, r0, c, a.temp, x);
+  } else {
 #pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    const int p = tid + THREADS * k;
-    x[k] = reinterpret_cast<const float4*>(a.src + base)[p];
+    for (int k = 0; k < PPT; ++k) {
+      const int p = tid + THREADS * k;
+      x[k] = reinterpret_cast<const float4*>(a.src + base)[p];
+    }
   }
 
   // BatchNorm moments of this patch's group (batch mode, coupling stages).
@@ -332,25 +407,52 @@ sample_kernel(const Args a) {
     reinterpret_cast<float4*>(a.out + base)[tid + THREADS * k] = x[k];
 }
 
+// The normals of `seed` times temp, as sample_kernel draws its chain input.
+__global__ void __launch_bounds__(THREADS)
+rng_kernel(float* out, unsigned seed, float temp) {
+  const int tid = threadIdx.x;
+  float4 x[PPT];
+  draw_normals(seed, blockIdx.x, tid / W, tid % W, temp, x);
+  float4* o = reinterpret_cast<float4*>(out + static_cast<size_t>(blockIdx.x) * NPIX * 4);
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) o[tid + THREADS * k] = x[k];
+}
+
 }  // namespace
 
-// Runs the whole chain: eps (already scaled by the temperature) -> out.
-// Running-BN mode is one launch. Batch-BN mode (batch_bn != 0) runs, for
-// each coupling, four statistics launches and one apply launch, with BN
-// groups of `bt` consecutive patches. `part` is scratch of 2*B*4 floats,
-// `mom` of ceil(B/bt)*12 floats. Enqueues on `stream` without
-// synchronising; sets `*launched` to the number of kernel launches it issued
-// and returns the first launch error (cudaError_t), 0 if none.
+// Writes normals(seed) * temp, [B, 32, 32, 4], in one launch: the numbers the
+// RNG mode of nf_fused_sample starts its chain from. Returns the launch error.
+extern "C" int nf_rng_normals(float* out, int B, unsigned seed, float temp,
+                              void* stream) {
+  if (B <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  rng_kernel<<<B, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(out, seed, temp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Runs the whole chain: eps (already scaled by the temperature) -> out; with
+// use_rng != 0 the chain input is drawn in the kernel instead, normals(seed)
+// * temp, and eps is not read (it may be null). Running-BN mode is one
+// launch. Batch-BN mode (batch_bn != 0) runs, for each coupling, four
+// statistics launches and one apply launch, with BN groups of `bt`
+// consecutive patches. `part` is scratch of 2*B*4 floats, `mom` of
+// ceil(B/bt)*12 floats. Enqueues on `stream` without synchronising; sets
+// `*launched` to the number of kernel launches it issued and returns the
+// first launch error (cudaError_t), 0 if none.
 extern "C" int nf_fused_sample(const float* eps, float* out, const float* clean,
                                const float* sa, const float* sb,
                                const float* mixes, const float* coup,
                                float* part, float* mom, int B, int n_scale,
                                int bt, int batch_bn, const int* ops, int n_ops,
+                               int use_rng, unsigned seed, float temp,
                                void* stream, int* launched) {
   *launched = 0;
-  if (B <= 0 || bt <= 0 || n_scale <= 0 || n_ops < 0 || n_ops > MAX_OPS)
+  if (B <= 0 || bt <= 0 || n_scale <= 0 || n_ops < 0 || n_ops > MAX_OPS ||
+      (!use_rng && eps == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (use_rng) eps = nullptr;  // every launch that starts the chain draws it
   Args a{};
+  a.seed = seed;
+  a.temp = temp;
   a.out = out;
   a.clean = clean;
   a.sa = sa;

@@ -28,8 +28,9 @@ _I = ctypes.c_int
 # ctypes signature of each kernel's C entry point: name -> (argtypes, restype)
 SIGNATURES = {
     "fused_sample": {
-        "nf_fused_sample": ([_P] * 9 + [_I] * 4 + [ctypes.POINTER(_I), _I, _P,
-                             ctypes.POINTER(_I)], _I),
+        "nf_fused_sample": ([_P] * 9 + [_I] * 4 + [ctypes.POINTER(_I), _I, _I, ctypes.c_uint,
+                             ctypes.c_float, _P, ctypes.POINTER(_I)], _I),
+        "nf_rng_normals": ([_P, _I, ctypes.c_uint, ctypes.c_float, _P], _I),
     },
     "fused_train": {
         "nf_train_step": ([_P] * 16 + [_I] * 5 + [ctypes.c_float] * 2 + [ctypes.POINTER(_I),

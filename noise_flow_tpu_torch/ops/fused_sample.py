@@ -25,15 +25,23 @@ The program build folds a ``NoiseFlow`` into what the kernel takes:
 Scale layers reduce to per-example ``(a, b)``, found by running each layer's
 own forward at clean = 0 and clean = 1 (``SampleProgram.scale_ab``).
 
+The chain input is eps * temp, read from device memory, or, in the in-kernel
+RNG mode (the JAX kernel's ``use_prng``), drawn inside the kernel from a seed:
+Philox-4x32-10 bits through JAX's ``_box_muller``. ``rng_normals_reference``
+is that draw in plain PyTorch; the counter and key it assigns are written
+down once, at the top of ``csrc/fused_sample.cu``.
+
 ``sample_chain_reference`` is the plain PyTorch version of the kernel's
-function. ``fused_sample_chain`` launches the kernel for CUDA tensors and
-takes the plain version only for CPU tensors.
+function. ``fused_sample_chain`` (eps) and ``fused_sample_chain_rng`` (seed)
+launch the kernel for CUDA tensors and take the plain version only for CPU
+tensors.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import logging
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -211,6 +219,73 @@ def bn_block(b: int) -> int:
 # plain PyTorch version
 # ---------------------------------------------------------------------------
 
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+SEED_MOD = 2 ** 31 - 1
+
+
+def rng_seed(seed) -> int:
+    """An int seed as the kernel takes it: ``int(seed) % (2**31 - 1)``, as
+    JAX's ``make_sampler`` and ``pallas_sample`` reduce it."""
+    return int(seed) % SEED_MOD
+
+
+def _mulhilo(a, m: int):
+    """(hi, lo) 32-bit words of a * m, for an int64 tensor ``a`` of 32-bit
+    values and a 32-bit constant ``m``, in 16-bit halves of ``m`` so that no
+    product leaves int64."""
+    t_lo = a * (m & 0xFFFF)
+    t_hi = a * (m >> 16)
+    return (t_hi + (t_lo >> 16)) >> 16, (((t_hi & 0xFFFF) << 16) + t_lo) & _MASK32
+
+
+def philox4x32_10(counter, key):
+    """Philox-4x32-10 on int64 tensors holding 32-bit words: counter
+    [..., 4], key [..., 2] (broadcast) -> [..., 4], as the kernel's
+    ``philox4x32_10``."""
+    c0, c1, c2, c3 = counter.unbind(-1)
+    k0, k1 = key.unbind(-1)
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W[0]) & _MASK32, (k1 + _PHILOX_W[1]) & _MASK32
+    return torch.stack([c0, c1, c2, c3], -1)
+
+
+def box_muller(bits1, bits2):
+    """JAX's ``_box_muller``: 32-bit words (int64 tensors) [..., S, L] ->
+    float32 normals [..., 2S, L], the cos half in rows [0, S) and the sin
+    half in rows [S, 2S)."""
+    u1 = (bits1 >> 8).to(torch.float32) * 2.0 ** -24 + 2.0 ** -25
+    u2 = (bits2 >> 8).to(torch.float32) * 2.0 ** -24
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    th = (2.0 * math.pi) * u2
+    return torch.cat([r * torch.cos(th), r * torch.sin(th)], dim=-2)
+
+
+def rng_normals_reference(seed, b: int, device="cpu"):
+    """The normals [b,32,32,4] that the kernel's RNG mode draws for ``seed``
+    (before the temperature): a pure function of (seed, patch, row, channel),
+    with the counter and key of ``csrc/fused_sample.cu`` (key (seed, 0),
+    counter (32 h + w, patch, j, 0)). Box-Muller pairs row h with row h + 16
+    at the same (w, c), as JAX's kernel pairs the rows of its [32, W*C]
+    tile."""
+    i64 = dict(dtype=torch.int64, device=device)
+    n_hw = (H // 2) * W
+    shape = (b, n_hw, 2)
+    counter = torch.stack([
+        torch.arange(n_hw, **i64)[None, :, None].expand(shape),
+        torch.arange(b, **i64)[:, None, None].expand(shape),
+        torch.arange(2, **i64)[None, None, :].expand(shape),
+        torch.zeros(shape, **i64)], -1)
+    bits = philox4x32_10(counter, torch.tensor([rng_seed(seed), 0], **i64))
+    tile = (b, H // 2, W * C)   # lane w * C + c of row h, as the JAX tile
+    out = box_muller(bits[:, :, 0].reshape(tile), bits[:, :, 1].reshape(tile))
+    return out.reshape(b, H, W, C)
+
+
 def _group_bn(h, bt: int):
     """Normalise with two-pass biased moments of each group of ``bt``
     consecutive patches (the last group may be smaller); no padding enters."""
@@ -264,41 +339,58 @@ def _check(name, t, shape):
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _launch_kernel(program: SampleProgram, x, clean, sa, sb, bt: int):
+def _launch_kernel(program: SampleProgram, x, clean, sa, sb, bt: int,
+                   seed: Optional[int] = None, temp: float = 1.0):
+    """Launch the chain on x (eps * temp), or with ``seed`` (x None) on
+    normals(seed) * temp drawn in the kernel."""
     from noise_flow_tpu_torch.ops._build import load_library
 
-    b = x.shape[0]
+    b = clean.shape[0]
     ns = sa.shape[1]
-    _check("x", x, (b, H, W, C))
+    if seed is None:
+        _check("x", x, (b, H, W, C))
     _check("clean", clean, (b, H, W, C))
     _check("sa", sa, (b, ns))
     _check("sb", sb, (b, ns))
     _check("mixes", program.mixes, program.mixes.shape)
     _check("coup", program.coup, program.coup.shape)
-    if len({x.device, clean.device, sa.device, sb.device,
-            program.mixes.device}) != 1:
+    devices = {clean.device, sa.device, sb.device, program.mixes.device}
+    if len(devices | ({x.device} if seed is None else set())) != 1:
         raise ValueError("fused_sample inputs and program lie on different devices")
     if ns < max(program.n_scale, 1) or not 1 <= bt or b < 1:
         raise ValueError(f"bad sizes: batch {b}, bt {bt}, n_scale {ns}")
     lib = load_library("fused_sample")
-    out = torch.empty_like(x)
-    part = torch.empty((2, b, 4), dtype=torch.float32, device=x.device)
-    mom = torch.empty((-(-b // bt), 12), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(clean)
+    part = torch.empty((2, b, 4), dtype=torch.float32, device=clean.device)
+    mom = torch.empty((-(-b // bt), 12), dtype=torch.float32, device=clean.device)
     ops = (ctypes.c_int * len(program.ops_code))(*program.ops_code)
     launched = ctypes.c_int(0)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(clean.device):
+        stream = torch.cuda.current_stream(clean.device).cuda_stream
         err = lib.nf_fused_sample(
-            x.data_ptr(), out.data_ptr(), clean.data_ptr(), sa.data_ptr(),
-            sb.data_ptr(), program.mixes.data_ptr(), program.coup.data_ptr(),
+            x.data_ptr() if seed is None else None, out.data_ptr(), clean.data_ptr(),
+            sa.data_ptr(), sb.data_ptr(), program.mixes.data_ptr(), program.coup.data_ptr(),
             part.data_ptr(), mom.data_ptr(), b, ns, bt,
-            int(program.bn_mode == "batch"), ops, len(program.ops_code), stream,
+            int(program.bn_mode == "batch"), ops, len(program.ops_code),
+            int(seed is not None), 0 if seed is None else seed, float(temp), stream,
             ctypes.byref(launched))
     # one per kernel launch: the C entry runs the batch-BN chain stage by stage
     launch_counts["fused_sample"] += launched.value
+    if seed is not None:
+        launch_counts["fused_sample_rng"] += launched.value
     if err != 0:
         raise RuntimeError(f"fused_sample kernel launch failed: CUDA error {err}")
     return out
+
+
+def _default_bt(program: SampleProgram, b: int, bt: Optional[int]) -> int:
+    return bt or (bn_block(b) if program.bn_mode == "batch" else b)
+
+
+def _device_kind(t) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_sample runs on CUDA or CPU tensors, got {t.device}")
+    return t.device.type
 
 
 def fused_sample_chain(program: SampleProgram, x, clean, sa, sb,
@@ -308,29 +400,107 @@ def fused_sample_chain(program: SampleProgram, x, clean, sa, sb,
     CUDA tensors go through the kernel (or raise); CPU tensors through
     ``sample_chain_reference``. ``bt`` is the BatchNorm group size in batch
     mode (default ``bn_block(B)``) and is ignored in running mode."""
-    b = x.shape[0]
-    bt = bt or (bn_block(b) if program.bn_mode == "batch" else b)
-    if x.device.type == "cpu":
+    bt = _default_bt(program, x.shape[0], bt)
+    if _device_kind(x) == "cpu":
         return sample_chain_reference(program, x, clean, sa, sb, bt)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_sample runs on CUDA or CPU tensors, got {x.device}")
     return _launch_kernel(program, x, clean, sa, sb, bt)
+
+
+def fused_sample_chain_rng(program: SampleProgram, seed, temp: float, clean, sa, sb,
+                           bt: Optional[int] = None):
+    """Run the sampling chain on normals(seed) * temp, drawn in the kernel
+    (the JAX kernel's in-kernel RNG mode): no eps tensor exists on the card.
+    CPU tensors go through ``sample_chain_reference`` on
+    ``rng_normals_reference(seed, B) * temp``. ``bt`` as in
+    ``fused_sample_chain``."""
+    b = clean.shape[0]
+    bt = _default_bt(program, b, bt)
+    if _device_kind(clean) == "cpu":
+        x = rng_normals_reference(seed, b) * temp
+        return sample_chain_reference(program, x, clean, sa, sb, bt)
+    return _launch_kernel(program, None, clean, sa, sb, bt, seed=rng_seed(seed), temp=temp)
+
+
+def rng_normals(seed, b: int, device, temp: float = 1.0):
+    """normals(seed) * temp [b,32,32,4], drawn by the kernel's own
+    ``draw_normals`` on a CUDA device (one launch of ``nf_rng_normals``), or
+    by ``rng_normals_reference`` on the CPU."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return rng_normals_reference(seed, b) * temp
+    if device.type != "cuda" or b < 1:
+        raise ValueError(f"rng_normals takes b >= 1 on CUDA or the CPU, got {b} on {device}")
+    from noise_flow_tpu_torch.ops._build import load_library
+
+    out = torch.empty((b, H, W, C), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = load_library("fused_sample").nf_rng_normals(
+            out.data_ptr(), b, rng_seed(seed), float(temp),
+            torch.cuda.current_stream(device).cuda_stream)
+    launch_counts["rng_normals"] += 1
+    if err != 0:
+        raise RuntimeError(f"rng_normals kernel launch failed: CUDA error {err}")
+    return out
 
 
 @torch.no_grad()
 def fused_sample(program: SampleProgram, cond, temp: float = 1.0, eps=None,
                  generator: Optional[torch.Generator] = None,
-                 bt: Optional[int] = None):
+                 bt: Optional[int] = None, seed=None):
     """Sample noise for cond {'clean':[B,32,32,4], 'nlf0','nlf1','iso','cam'}.
 
     eps (optional): standard normals [B,32,32,4] for parity tests, else drawn
-    from ``generator`` on the program's device. ``bt`` as in
+    from ``generator`` on the program's device. With ``seed`` (an int; the
+    counterpart of ``pallas_sample(..., in_kernel_rng=True)``) the normals
+    are drawn in the kernel instead and no eps tensor is made. ``bt`` as in
     ``fused_sample_chain``. Returns [B,32,32,4]."""
     dev = program.device
-    clean = torch.as_tensor(cond["clean"], dtype=torch.float32, device=dev)
+    clean = torch.as_tensor(cond["clean"], dtype=torch.float32, device=dev).contiguous()
     b = clean.shape[0]
     sa, sb = program.scale_ab(cond, b)
+    if seed is not None:
+        if eps is not None:
+            raise ValueError("fused_sample takes eps or seed, not both")
+        return fused_sample_chain_rng(program, seed, temp, clean, sa, sb, bt)
     if eps is None:
         eps = torch.randn((b, H, W, C), generator=generator, device=dev)
     x = (torch.as_tensor(eps, dtype=torch.float32, device=dev) * temp).contiguous()
-    return fused_sample_chain(program, x, clean.contiguous(), sa, sb, bt)
+    return fused_sample_chain(program, x, clean, sa, sb, bt)
+
+
+def precompute_scale_ab(program: SampleProgram, cond, batch: Optional[int] = None):
+    """The per-example scale coefficients (sa, sb) of ``cond``: they depend
+    on (nlf0, nlf1, iso, cam), not on clean, so a sampling loop with fixed
+    conditioning computes them once (JAX's ``precompute_scale_ab``)."""
+    return program.scale_ab(cond, batch or cond["clean"].shape[0])
+
+
+BF16_ITEM = "ROADMAP.md queue 2, 'the bf16 modes'"
+
+
+def make_sampler(program: SampleProgram, cond, temp: float = 1.0, bt: int = 64,
+                 mm_dtype=torch.bfloat16, tile_out: bool = True):
+    """The leanest per-call sampling closure for FIXED conditioning (JAX's
+    ``make_sampler``): scale coefficients computed once, normals drawn in the
+    kernel from an int seed, one launch a call in running-BN mode. Returns
+    ``sample(seed) -> noise``, [B, 32, 32*4] (a view of the NHWC result) with
+    ``tile_out``, else [B, 32, 32, 4]. ``bt`` is the BatchNorm group in batch
+    mode and must divide B, as JAX requires. ``mm_dtype`` other than float32
+    (JAX's default is bfloat16) warns and runs float32."""
+    if mm_dtype != torch.float32:
+        logging.getLogger(__name__).warning(
+            "make_sampler mm_dtype=%s: the fused sampler runs float32 only (%s)",
+            mm_dtype, BF16_ITEM)
+    dev = program.device
+    clean = torch.as_tensor(cond["clean"], dtype=torch.float32, device=dev).contiguous()
+    batch = clean.shape[0]
+    if batch % bt:
+        raise ValueError(f"batch {batch} must be a multiple of bt {bt}")
+    with torch.no_grad():
+        sa, sb = precompute_scale_ab(program, cond, batch)
+
+    def sample(seed):
+        out = fused_sample_chain_rng(program, seed, temp, clean, sa, sb, bt)
+        return out.view(batch, H, W * C) if tile_out else out
+
+    return sample

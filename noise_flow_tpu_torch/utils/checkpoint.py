@@ -5,8 +5,10 @@ The format (noise_flow_tpu.utils.checkpoint) is a flat npz whose keys are
 ``state|['layers']/[0]/[1]/['frozen']/['p']``, ``opt|...`` and
 ``__epoch__``. The port's ``state_dict`` key of a leaf is its key path with
 the level index after ``layers`` dropped (single-level flows):
-``layers.2.nn.l1_w``. Parameters come from the ``params`` group, buffers
-from ``state``, so both packages read each other's weights.
+``layers.2.nn.l1_w``. Any other tree keeps its key path as its name (the
+DnCNN's ``['convs']/[0]`` is ``convs.0``). Parameters come from the
+``params`` group, buffers from ``state``, so both packages read each other's
+weights, the flow's and the DnCNN's.
 
 The ``opt`` group holds the optimizer state in the port's own layout,
 ``opt|torch/<parameter name>/<slot>`` (``exp_avg``, ``exp_avg_sq``, ``step``
@@ -77,7 +79,11 @@ def _walk(tree, prefix=()) -> Iterator[Tuple[Tuple, np.ndarray]]:
 def from_numpy_tree(params, state) -> Dict[str, torch.Tensor]:
     """The JAX package's parameter and state trees (leaves as numpy arrays)
     -> a ``state_dict`` for the port's ``NoiseFlow``, so both packages can
-    hold the same weights: ``flow.load_state_dict(from_numpy_tree(p, s))``."""
+    hold the same weights: ``flow.load_state_dict(from_numpy_tree(p, s))``.
+
+    The JAX DnCNN's ``(params, state)`` trees carry over the same way into
+    the port's ``DnCNN``: their key paths are its names (``convs.0``,
+    ``biases.first``, ``bn_scale.0``, ``bn.0.mean``)."""
     out = {}
     for tree in (params, state):
         for path, leaf in _walk(tree):

@@ -416,3 +416,99 @@ def test_trainer_launches_segment_kernels_on_card(cuda_device, arch):
     assert dict(ft.launch_counts) == {"fused_segment_train_forward": 2 * n_seg,
                                       "fused_segment_backward": 2 * n_seg}
     assert np.isfinite(nll)
+
+
+# ---------------------------------------------------------------------------
+# the sampler's in-kernel RNG mode (csrc/fused_sample.cu draw_normals): the
+# normals the kernel draws against rng_normals_reference, run on the card;
+# the chain from those normals against the plain chain within TOL
+# ---------------------------------------------------------------------------
+
+# the kernel's normals against the plain version's: logf, sqrtf, sincosf at
+# full precision on both sides, |n| <= 5.9
+RNG_ATOL = 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [16, 128])
+def test_rng_normals_kernel_matches_plain(cuda_device, b):
+    before = fs.launch_counts["rng_normals"]
+    got = fs.rng_normals(2024, b, cuda_device, temp=0.6)
+    assert fs.launch_counts["rng_normals"] == before + 1
+    ref = fs.rng_normals_reference(2024, b, device=cuda_device) * 0.6
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=RNG_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["running", "batch"])
+@pytest.mark.parametrize("b", [16, 128])
+def test_rng_mode_kernel_matches_plain(cuda_device, mode, b):
+    nf = NoiseFlowWrapper(MODEL, bn_batch_stats=mode == "batch", device=cuda_device)
+    prog = nf._program
+    _, clean, sa, sb = _inputs(prog, b, seed=b, device=cuda_device)
+    before = dict(fs.launch_counts)
+    got = fs.fused_sample_chain_rng(prog, 99, 0.6, clean, sa, sb, b)
+    n = 40 if mode == "batch" else 1
+    assert fs.launch_counts["fused_sample_rng"] == before.get("fused_sample_rng", 0) + n
+    assert fs.launch_counts["fused_sample"] == before.get("fused_sample", 0) + n
+    x = fs.rng_normals_reference(99, b, device=cuda_device) * 0.6
+    ref = fs.sample_chain_reference(prog, x, clean, sa, sb, b)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+def test_rng_mode_repeats_and_seeds_differ(cuda_device):
+    nf = NoiseFlowWrapper(MODEL, device=cuda_device)
+    _, clean, sa, sb = _inputs(nf._program, 64, seed=1, device=cuda_device)
+    a = fs.fused_sample_chain_rng(nf._program, 5, 1.0, clean, sa, sb)
+    assert torch.equal(a, fs.fused_sample_chain_rng(nf._program, 5, 1.0, clean, sa, sb))
+    assert not torch.equal(a, fs.fused_sample_chain_rng(nf._program, 6, 1.0, clean, sa, sb))
+    assert torch.equal(fs.rng_normals(5, 64, cuda_device), fs.rng_normals(5, 64, cuda_device))
+
+
+@pytest.mark.cuda
+def test_make_sampler_on_card(cuda_device):
+    nf = NoiseFlowWrapper(MODEL, bn_batch_stats=False, device=cuda_device)
+    _, clean, sa, sb = _inputs(nf._program, 128, seed=2, device=cuda_device)
+    cond = {"clean": clean, "iso": torch.full((128,), 800.0, device=cuda_device),
+            "cam": torch.full((128,), 2.0, device=cuda_device),
+            "nlf0": torch.zeros(128, device=cuda_device),
+            "nlf1": torch.zeros(128, device=cuda_device)}
+    sampler = fs.make_sampler(nf._program, cond, temp=0.6, bt=64, mm_dtype=torch.float32)
+    before = fs.launch_counts["fused_sample_rng"]
+    tile = sampler(11)
+    assert fs.launch_counts["fused_sample_rng"] == before + 1
+    ref = fs.fused_sample(nf._program, cond, temp=0.6, seed=11)
+    assert tuple(tile.shape) == (128, 32, 128)
+    assert torch.equal(tile.reshape(128, 32, 32, 4), ref)
+
+
+@pytest.mark.cuda
+def test_dncnn_nf_noise_matches_plain(cuda_device):
+    """One DnCNN_NF step's noise: the fused sampler's RNG mode, 40 launches,
+    against the plain chain on the seed's normals."""
+    from noise_flow_tpu_torch.training.dncnn_trainer import DnCNNTrainer
+
+    nf = NoiseFlowWrapper(MODEL, device=cuda_device)
+    t = DnCNNTrainer(depth=4, filters=8, noise_source="nf", noise_flow=nf.flow,
+                     cam_iso_rows=[(3, 1600.0, 0.008211, 2e-6)], device=cuda_device)
+    p = t._noise_params(np.random.default_rng(0))
+    p["gauss"] = False
+    clean = 0.01 + 0.89 * torch.rand((128, 32, 32, 4), generator=torch.Generator().manual_seed(3))
+    clean = clean.to(cuda_device)
+    before = fs.launch_counts["fused_sample_rng"]
+    got = t._make_noise(clean, p, torch.Generator(device=cuda_device).manual_seed(0))
+    assert fs.launch_counts["fused_sample_rng"] == before + 40
+    cond = {"clean": clean, "iso": torch.full((128,), 1600.0, device=cuda_device),
+            "cam": torch.full((128,), 3.0, device=cuda_device),
+            "nlf0": torch.zeros(128, device=cuda_device),
+            "nlf1": torch.zeros(128, device=cuda_device)}
+    sa, sb = t.program.scale_ab(cond, 128)
+    ref = fs.sample_chain_reference(
+        t.program, fs.rng_normals_reference(p["seed"], 128, device=cuda_device), clean, sa, sb,
+        128)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), **TOL)
