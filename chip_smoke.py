@@ -87,9 +87,31 @@ Phases, each of which fails the run if it fails:
    one float32 rounding (run beside them, and printed);
 25. time the RNG and eps modes, their plain versions and bounds at b = 128
    and 8192, and break a DnCNN_NF train step down on the host clock;
-26. print the ``{"kernels": [...]}`` line, one entry a TPU kernel function
+26. the bfloat16 modes (the TPU kernels' ``mm_dtype=bf16``: ``make_sampler``'s
+   default, the trainer's default ``pallas_train_dtype``): each bf16 kernel
+   against its plain bf16 version on the card, normwise, beside the float32
+   kernel's distance to the same plain output, which must exceed the
+   tolerance: the sampler's eps mode at b = 138 (batch BN) and 2961 (groups
+   of 141), its RNG mode at b = 128 and 8192 (running); the train step at
+   b = 138, bt 69 and 138 (raw outputs, loss, parameter gradients); the
+   running-BN eval forward and the ghost forward and backward on both
+   segments;
+27. plant one fault of each rounding class (the zero-conv's input unrounded,
+   the mix weights unrounded, the train step's moment sums unrounded) in the
+   plain version; the kernel against it must disagree;
+28. train through ``cli.train.main --use_pallas`` at the default dtype, 2
+   epochs on synthetic data, on the one-shot path and on the segment path:
+   exact launch counts, every launch in bf16 mode, the NLL finite and
+   falling;
+29. ``make_sampler`` at its defaults (bf16) at b = 8192: one launch a call,
+   in bf16 mode, ms a call;
+30. time each bf16 kernel beside its float32 mode in turns, its plain
+   version and its bf16 bound (useful FMAs over 989 TFLOP/s, bytes over 3.35
+   TB/s);
+31. print the ``{"kernels": [...]}`` line, one entry a TPU kernel function
    (the segment forward with its running and ghost modes, the sampler with
-   its eps and RNG modes).
+   its eps and RNG modes; every entry with its bf16 modes under
+   ``by_mode``).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; it is printed
 only if every phase passed. Exit code 0 then, non-zero otherwise.
@@ -187,8 +209,35 @@ DNCNN_DEPTH, DNCNN_FILTERS, DNCNN_B, DNCNN_EPOCHS, DNCNN_IMAGES = 9, 32, 128, 2,
 # 4.2e-3 and 3.4e-5), so the parameters and BN state are held normwise per
 # leaf within 2e-2 and the losses within 3e-4 relative.
 DNCNN_TRAJ_RTOL, DNCNN_LOSS_RTOL = 2e-2, 3e-4
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3
+# The bfloat16 modes, bf16 kernel vs plain bf16 version (both on the card).
+# A value within a float32 ulp of a bfloat16 rounding boundary rounds either
+# way under another summation order, and an operand flipped in an early
+# coupling carries on through the chain (a few noise values move by up to 5%
+# of its sd), so every output is held normwise, ||kernel - plain|| <= tol *
+# ||plain||; the float32 kernel on the same inputs must exceed the tolerance
+# (the group moments: absolute). Observed in the first two runs on an H100
+# 80GB HBM3 at 700 W, bf16 kernel / float32 kernel, each against the plain
+# bf16: noise 3.3e-5 to 9.8e-5 / 9.7e-3; the step's rows up to 1.1e-5 /
+# 1.2e-3, group moments up to 1.4e-5 / 2.7e-4 abs, raw gradients (of the
+# records, offset maps, mixes, scale coefficients) up to 8.8e-4, 6.0e-3,
+# 4.9e-5, 6.7e-5 / at least 1.0e-2, 3.8e-2, 1.7e-2, 3.7e-3; the eval
+# forward's z 3.7e-5 / 5.1e-3; the ghost forward's z 2.1e-5 / 4.8e-3, its
+# moments equal / 1.9e-3 abs; the backward up to 7.7e-4 / 2.3e-3.
+BF16_SAMPLE_RTOL = 3e-4
+BF16_BN_ATOL = 5e-5
+BF16_STEP_RTOL = {"rows": 5e-5, "grad_rec": 4e-3, "grad_offs": 1.5e-2, "grad_mixes": 1e-3,
+                  "gsa": 1e-3, "gsb": 1e-3}
+# parameter gradients after the fold, normwise over all leaves (observed 1.0e-4
+# at bt = 69, 3.9e-6 at bt = 138; the float32 kernel 4.6e-3 and 4.7e-3)
+BF16_LEAF_RTOL = 1e-3
+BF16_Z_RTOL, BF16_LDJ_RTOL, BF16_BWD_RTOL = 3e-4, 1e-5, 1.5e-3
+# the CLI fits: 90 synthetic 128x128 images a split, 16 patches each: 10
+# train and 10 test batches of 138 an epoch
+BF16_FIT_IMAGES = 90
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, dense
+# bfloat16 in the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -1190,6 +1239,395 @@ def _rng_dncnn_phases(phase, agree, programs, nf):
     return out
 
 
+def _bf16_phases(phase, programs):
+    """Phases 26-30 (see the module docstring): the bfloat16 modes. Returns
+    name -> {mode: entry} for the kernels line's ``by_mode``."""
+    import numpy as np
+    import torch
+    from noise_flow_tpu_torch.cli import train as train_cli
+    from noise_flow_tpu_torch.config import load_hps
+    from noise_flow_tpu_torch.models.flow import NoiseFlow
+    from noise_flow_tpu_torch.ops import fused_sample as fs
+    from noise_flow_tpu_torch.ops import fused_train as ft
+    from noise_flow_tpu_torch.utils.checkpoint import load_checkpoint
+
+    BF, F32 = "bfloat16", "float32"
+    errs, timings, launches = {}, {}, {}
+    dev = torch.device("cuda")
+
+    def norm_rel(k, p):
+        return float((k - p).norm() / p.norm().clamp_min(1e-30))
+
+    def hold(label, k, p, k32, tol):
+        """The bf16 kernel's output k and the float32 kernel's k32 against
+        the plain bf16 output p, normwise; (agrees, max abs error)."""
+        torch.cuda.synchronize()
+        e, e32 = norm_rel(k, p), norm_rel(k32, p)
+        max_abs = float((k - p).abs().max())
+        ok = bool(torch.isfinite(k).all()) and e <= tol < e32
+        print(f"compare bf16 {label}: normwise {e:.3e} max_abs {max_abs:.3e} (tol {tol}); "
+              f"float32 kernel {e32:.3e} {'ok' if ok else 'DISAGREES'}")
+        return ok, max_abs
+
+    def plain_rng(prog, clean, sa, sb, bt, temp=TEMP):
+        x = fs.rng_normals_reference(RNG_SEED, clean.shape[0], device=dev) * temp
+        return fs.sample_chain_reference(prog, x, clean, sa, sb, bt, BF)
+
+    def sampler_vs_plain(kind, mode, b, bt):
+        prog = programs[mode]
+        x, clean, sa, sb = _inputs(prog, b, seed=b)
+        if kind == "eps":
+            k, k32 = (fs.fused_sample_chain(prog, x, clean, sa, sb, bt, m) for m in (BF, F32))
+            p = fs.sample_chain_reference(prog, x, clean, sa, sb, bt, BF)
+        else:
+            k, k32 = (fs.fused_sample_chain_rng(prog, RNG_SEED, TEMP, clean, sa, sb, bt, m)
+                      for m in (BF, F32))
+            p = plain_rng(prog, clean, sa, sb, bt)
+        ok, errs[(kind, b)] = hold(f"sampler {kind} mode bn={mode} b={b} bt={bt}", k, p, k32,
+                                   BF16_SAMPLE_RTOL)
+        if not ok:
+            raise AssertionError(f"bf16 sampler disagrees with plain ({kind}, b={b})")
+    for kind, mode, b, bt in (("eps", "batch", 138, 138), ("eps", "batch", 2961, 141),
+                              ("rng", "batch", 128, 128), ("rng", "running", 8192, 8192)):
+        phase(f"bf16 sampler {kind} mode vs plain bn={mode} b={b}",
+              lambda k=kind, m=mode, b=b, bt=bt: sampler_vs_plain(k, m, b, bt))
+
+    cfg = load_hps(os.path.join(MODEL, "hps.txt"))
+    flow = NoiseFlow((32, 32, 4), cfg, device="cuda")
+    load_checkpoint(os.path.join(MODEL, "ckpt", "model.ckpt-best.npz"), flow)
+    b = TRAIN_B
+    x, cond = _train_batch(b, seed=11)
+
+    def step_args(bt):
+        step = ft.FusedTrainStep(flow, bt=bt, mm_dtype=BF)
+        with torch.no_grad():
+            rec, offs, mixes, _ = step.fold()
+            sa, sb, _ = step._prep(cond, b)
+        return step, (x, cond["clean"], sa, sb, rec, offs, mixes, step.ops_code, bt)
+
+    def raw_agree(label, k, k32, p):
+        ok, worst = True, 0.0
+        for key in p:
+            if key == "bnmom":
+                e, e32 = (float((a - p[key]).abs().max()) for a in (k[key], k32[key]))
+                tol = BF16_BN_ATOL
+            else:
+                e, e32 = norm_rel(k[key], p[key]), norm_rel(k32[key], p[key])
+                tol = BF16_STEP_RTOL[key]
+            good = e <= tol < e32 and bool(torch.isfinite(k[key]).all())
+            ok = ok and good
+            worst = max(worst, float((k[key] - p[key]).abs().max()))
+            print(f"  {label} {key}: {'abs' if key == 'bnmom' else 'normwise'} {e:.3e} (tol "
+                  f"{tol}); float32 kernel {e32:.3e} {'ok' if good else 'DISAGREES'}")
+        print(f"compare bf16 {label}: {'ok' if ok else 'DISAGREES'}")
+        return ok, worst
+
+    def step_vs_plain(bt):
+        step, args = step_args(bt)
+        k = ft.fused_train_step(*args, mm_dtype=BF)
+        k32 = ft.fused_train_step(*args, mm_dtype=F32)
+        p = ft.train_step_reference(*args, mm_dtype=BF)
+        torch.cuda.synchronize()
+        ok, worst = raw_agree(f"train step raw b={b} bt={bt}", k, k32, p)
+        for name in ("b1", "b2"):
+            off, shape = fs._REC_LAYOUT[name]
+            ok = ok and float(k["grad_rec"][:, off:off + shape[0]].abs().max()) == 0.0
+        nk, _, _, gk = step.loss_and_grad(x, cond)
+        _, _, _, g32 = ft.FusedTrainStep(flow, bt=bt, mm_dtype=F32).loss_and_grad(x, cond)
+        npl, _, _, gp = step.loss_and_grad(x, cond, step_fn=ft.train_step_reference)
+        torch.cuda.synchronize()
+        e_loss = abs(float(nk) - float(npl)) / abs(float(npl))
+        leaves = [n for n in gp if not n.endswith(("l1_b", "l2_b"))]
+
+        def all_leaves(g):
+            return float(torch.sqrt(sum(((g[n] - gp[n]) ** 2).sum() for n in leaves)
+                                    / sum((gp[n] ** 2).sum() for n in leaves)))
+        e_g, e_g32 = all_leaves(gk), all_leaves(g32)
+        rels = {n: norm_rel(gk[n], gp[n]) for n in leaves}
+        worst_leaf = max(rels, key=rels.get)
+        ok = ok and e_loss <= LOSS_RTOL and e_g <= BF16_LEAF_RTOL < e_g32
+        print(f"compare bf16 train step b={b} bt={bt}: loss {float(nk):.4f} vs {float(npl):.4f} "
+              f"(rel {e_loss:.2e}, tol {LOSS_RTOL}); parameter gradients normwise over all "
+              f"leaves {e_g:.3e} (tol {BF16_LEAF_RTOL}; float32 kernel {e_g32:.3e}), worst leaf "
+              f"{rels[worst_leaf]:.3e} ({worst_leaf}); b1/b2 exactly zero; "
+              f"{'ok' if ok else 'DISAGREES'}")
+        errs[("step", bt)] = worst
+        if not ok:
+            raise AssertionError(f"bf16 train step kernel disagrees with plain at bt={bt}")
+    for bt in TRAIN_BTS:
+        phase(f"bf16 train step kernel vs plain b={b} bt={bt}", lambda bt=bt: step_vs_plain(bt))
+
+    ff = ft.FusedFlow(flow, bt=b, mm_dtype=BF)
+    with torch.no_grad():
+        segs = [(*ff.fold_segment(lo, hi, fold_bn=False)[:3], ft._ops_code(seg.ops),
+                 ff.running_moments(lo, hi)) for _, seg, lo, hi in
+                (it for it in ff.plan if it[0] == "segment")]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    z_in = torch.randn((b, 32, 32, 4), generator=gen, device="cuda")
+    gz = torch.randn((b, 32, 32, 4), generator=gen, device="cuda") / b
+    gldj = (-1.0 + 0.5 * torch.randn((b,), generator=gen, device="cuda")) / b
+
+    def eval_vs_plain():
+        worst, ok = 0.0, True
+        for n, (rec, offs, mixes, code, bnrun) in enumerate(segs):
+            zk, lk = ft.fused_segment_forward(z_in, rec, offs, mixes, code, BF, bnrun)
+            zk32, _ = ft.fused_segment_forward(z_in, rec, offs, mixes, code, F32, bnrun)
+            zp, lp = ft.segment_forward_reference(z_in, rec, offs, mixes, code, BF, bnrun)
+            good, e = hold(f"eval forward segment {n} z b={b}", zk, zp, zk32, BF16_Z_RTOL)
+            e_l = norm_rel(lk, lp)
+            print(f"  eval forward segment {n} ldj: normwise {e_l:.3e} (tol {BF16_LDJ_RTOL})")
+            ok = ok and good and e_l <= BF16_LDJ_RTOL
+            worst = max(worst, e, float((lk - lp).abs().max()))
+        errs["eval"] = worst
+        if not ok:
+            raise AssertionError("bf16 eval forward kernel disagrees with plain")
+    phase(f"bf16 eval forward kernel vs plain b={b}", eval_vs_plain)
+
+    def ghost_and_backward_vs_plain(bt):
+        worst_f, worst_b, ok = 0.0, 0.0, True
+        for n, (rec, offs, mixes, code, _) in enumerate(segs):
+            k = ft.fused_segment_train_forward(z_in, rec, offs, mixes, code, bt, BF)
+            k32 = ft.fused_segment_train_forward(z_in, rec, offs, mixes, code, bt, F32)
+            p = ft.segment_train_forward_reference(z_in, rec, offs, mixes, code, bt, BF)
+            good, e = hold(f"ghost forward segment {n} z b={b} bt={bt}", k[0], p[0], k32[0],
+                           BF16_Z_RTOL)
+            e_l, e_m = norm_rel(k[1], p[1]), float((k[2] - p[2]).abs().max())
+            e_m32 = float((k32[2] - p[2]).abs().max())
+            print(f"  ghost forward segment {n} ldj normwise {e_l:.3e} (tol {BF16_LDJ_RTOL}); "
+                  f"group moments abs {e_m:.3e} (tol {BF16_BN_ATOL}; float32 kernel {e_m32:.3e})")
+            ok = ok and good and e_l <= BF16_LDJ_RTOL and e_m <= BF16_BN_ATOL < e_m32
+            worst_f = max(worst_f, e, float((k[1] - p[1]).abs().max()), e_m)
+            k = ft.fused_segment_backward(z_in, rec, offs, mixes, code, bt, gz, gldj, BF)
+            k32 = ft.fused_segment_backward(z_in, rec, offs, mixes, code, bt, gz, gldj, F32)
+            p = ft.segment_backward_reference(z_in, rec, offs, mixes, code, bt, gz, gldj, BF)
+            for name, a, a32, r in zip(("gx", "grad_rec", "grad_offs", "grad_mixes"), k, k32, p):
+                good, e = hold(f"segment {n} backward {name} b={b} bt={bt}", a, r, a32,
+                               BF16_BWD_RTOL)
+                ok = ok and good
+                worst_b = max(worst_b, e)
+            for field in ("b1", "b2"):
+                off, shape = fs._REC_LAYOUT[field]
+                ok = ok and float(k[1][:, off:off + shape[0]].abs().max()) == 0.0
+        errs[("ghost", bt)], errs[("bwd", bt)] = worst_f, worst_b
+        if not ok:
+            raise AssertionError(f"bf16 segment kernels disagree with plain at bt={bt}")
+    for bt in TRAIN_BTS:
+        phase(f"bf16 ghost forward and backward kernels vs plain b={b} bt={bt}",
+              lambda bt=bt: ghost_and_backward_vs_plain(bt))
+
+    def planted_faults():
+        """One fault of each rounding class, planted in the plain version;
+        the kernel held against it must disagree."""
+        prog = programs["batch"]
+        xs, clean, sa, sb = _inputs(prog, 138, seed=138)
+        k = fs.fused_sample_chain(prog, xs, clean, sa, sb, 138, BF)
+        k32 = fs.fused_sample_chain(prog, xs, clean, sa, sb, 138, F32)
+        zero_conv, rnd = fs._zero_conv, fs.bf16_round
+        mix_store = prog.mixes.untyped_storage().data_ptr()
+        faults = {}
+        try:
+            # the zero-conv's input (relu of the hidden map) left unrounded
+            fs._zero_conv = lambda h, rec, r: zero_conv(h, rec, lambda t: t if t is h else r(t))
+            faults["sampler: zero-conv input unrounded"] = fs.sample_chain_reference(
+                prog, xs, clean, sa, sb, 138, BF)
+            fs._zero_conv = zero_conv
+            # the mix weights (views of program.mixes) left unrounded
+            fs.bf16_round = lambda t: (t if t.untyped_storage().data_ptr() == mix_store
+                                       else rnd(t))
+            faults["sampler: mix weights unrounded"] = fs.sample_chain_reference(
+                prog, xs, clean, sa, sb, 138, BF)
+        finally:
+            fs._zero_conv, fs.bf16_round = zero_conv, rnd
+        for name, wrong in faults.items():
+            ok, _ = hold(f"planted fault ({name})", k, wrong, k32, BF16_SAMPLE_RTOL)
+            if ok:
+                raise AssertionError(f"the comparison missed a planted fault: {name}")
+        _, args = step_args(69)
+        ks = ft.fused_train_step(*args, mm_dtype=BF)
+        k32s = ft.fused_train_step(*args, mm_dtype=F32)
+        cmean = ft._bf16_cmean
+        try:
+            ft._bf16_cmean = lambda v, bt: (v.sum(dim=(1, 2, 3)) * (1.0 / (bt * 1024)))[
+                :, None, None, None, :]
+            wrong = ft.train_step_reference(*args, mm_dtype=BF)
+        finally:
+            ft._bf16_cmean = cmean
+        ok, _ = raw_agree("planted fault (train step: moment sums unrounded)", ks, k32s, wrong)
+        if ok:
+            raise AssertionError("the comparison missed a planted fault: moment sums unrounded")
+    phase("bf16 planted faults are caught", planted_faults)
+
+    def cli_fit(oneshot):
+        """2 epochs through cli.train.main --use_pallas at the default
+        pallas_train_dtype; the segment path by pallas_oneshot=False, which
+        the CLI (as JAX's) takes from the config."""
+        logdir = os.path.join(ROOT, "build", "chip_smoke_bf16_fit")   # gitignored
+        shutil.rmtree(logdir, ignore_errors=True)
+        argv = ["--synthetic_data", str(BF16_FIT_IMAGES), "--use_pallas", "--device", "cuda",
+                "--epochs", str(TRAIN_EPOCHS), "--logdir", logdir, "--n_batch_train", str(b),
+                "--n_batch_test", str(b)]
+        parse = train_cli.parse_config
+
+        def parse_path(a):
+            args, c = parse(a)
+            c.pallas_oneshot = oneshot
+            return args, c
+        args, c = parse_path(argv)
+        if c.pallas_train_dtype != BF:
+            raise AssertionError(f"default pallas_train_dtype is {c.pallas_train_dtype!r}")
+        steps = len(train_cli.load_split(args, c, "train")) // b
+        test_steps = len(train_cli.load_split(args, c, "test")) // b
+        n_seg = sum(1 for it in ft.FusedFlow(flow).plan if it[0] == "segment")
+        fs.launch_counts.clear()
+        train_cli.parse_config = parse_path
+        t0 = time.time()
+        try:
+            rc = train_cli.main(argv)
+        finally:
+            train_cli.parse_config = parse
+        torch.cuda.synchronize()
+        t_fit = time.time() - t0
+        counts = dict(fs.launch_counts)
+        n_train = TRAIN_EPOCHS * steps * (1 if oneshot else n_seg)
+        want = {"fused_segment_forward": TRAIN_EPOCHS * test_steps * n_seg}
+        for name in (("fused_train_step",) if oneshot else
+                     ("fused_segment_train_forward", "fused_segment_backward")):
+            want[name] = n_train
+        want.update({f"{k}_bf16": v for k, v in want.items()})
+        with open(os.path.join(logdir, "train.txt")) as f:
+            rows = [r.split("\t") for r in f.read().splitlines()]
+        nll = np.asarray([float(r[1]) for r in rows[1:]])
+        print(f"train bf16 via cli.train ({'one-shot' if oneshot else 'segment path'}): {steps} "
+              f"train and {test_steps} test batches of {b} an epoch, {TRAIN_EPOCHS} epochs in "
+              f"{t_fit:.2f} s (rc {rc}); launches {counts} (expected {want}); epoch NLL {nll}")
+        if rc != 0 or counts != want:
+            raise AssertionError(f"launches {counts}, not {want} (rc {rc})")
+        if len(nll) != TRAIN_EPOCHS or not np.isfinite(nll).all() or not nll[-1] < nll[0]:
+            raise AssertionError(f"train NLL not finite or not falling: {nll}")
+        shutil.rmtree(logdir, ignore_errors=True)
+        launches["oneshot" if oneshot else "segment"] = counts
+    phase("train bf16 through cli.train (one-shot)", lambda: cli_fit(True))
+    phase("train bf16 through cli.train (segment path)", lambda: cli_fit(False))
+
+    def sampler_default():
+        prog = programs["running"]
+        c, _ = _cond(SAMPLER_B, seed=3)
+        smp = fs.make_sampler(prog, c, temp=TEMP, bt=SAMPLER_BT)
+        seeds = itertools.count(200)
+        smp(next(seeds))
+        torch.cuda.synchronize()
+        fs.launch_counts.clear()
+        n = 5
+        tiles = [smp(next(seeds)) for _ in range(n)]
+        torch.cuda.synchronize()
+        counts = dict(fs.launch_counts)
+        launches["make_sampler"] = counts
+        ms = _time_ms(lambda: smp(next(seeds)), 20)
+        timings["make_sampler"] = {"ms": ms, "patches_per_s": SAMPLER_B / (ms / 1e3)}
+        want = {"fused_sample": n, "fused_sample_rng": n, "fused_sample_bf16": n}
+        print(f"make_sampler defaults (bf16) b={SAMPLER_B} bt={SAMPLER_BT}: {n} calls, launches "
+              f"{counts} (want {want}); {ms:.4f} ms a call, {SAMPLER_B / (ms / 1e3):.4e} patches/s")
+        if counts != want or not all(bool(torch.isfinite(t).all()) for t in tiles):
+            raise AssertionError("make_sampler at its defaults: launches or values wrong")
+    phase("make_sampler at its defaults (bf16) on the card", sampler_default)
+
+    def timing():
+        """Each bf16 kernel beside its float32 mode, in turns (bf16, f32,
+        f32, bf16), the median; its plain bf16 version; its bf16 bound."""
+        def turns(key, fn, plain, iters, flops, nbytes):
+            ms = {BF: [], F32: []}
+            for m in (BF, F32, F32, BF):
+                ms[m].append(_time_ms(lambda: fn(m), iters))
+            t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+            timings[key] = {"ms": float(np.median(ms[BF])), "f32_ms": float(np.median(ms[F32])),
+                            "plain_ms": _time_ms(plain, 3), "bound_ms": max(t_ops, t_bytes) * 1e3,
+                            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                            "library_ms": None}
+            t = timings[key]
+            print(f"time bf16 {key}: kernel {t['ms']:.4f} ms (float32 mode {t['f32_ms']:.4f}), "
+                  f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}; "
+                  f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
+        prog = programs["batch"]
+        xs, clean, sa, sb = _inputs(prog, 138, seed=145)
+        turns("eps b=138", lambda m: fs.fused_sample_chain(prog, xs, clean, sa, sb, 138, m),
+              lambda: fs.sample_chain_reference(prog, xs, clean, sa, sb, 138, BF), 20,
+              *_work(prog, 138))
+        prog = programs["running"]
+        _, clean, sa, sb = _inputs(prog, SAMPLER_B, seed=146)
+        turns(f"rng b={SAMPLER_B}",
+              lambda m: fs.fused_sample_chain_rng(prog, RNG_SEED, TEMP, clean, sa, sb,
+                                                  SAMPLER_B, m),
+              lambda: plain_rng(prog, clean, sa, sb, SAMPLER_B), 5,
+              *_work(prog, SAMPLER_B, rng=True))
+        _, args = step_args(69)
+        rec, offs, mixes = args[4:7]
+        turns("step b=138 bt=69", lambda m: ft.fused_train_step(*args, mm_dtype=m),
+              lambda: ft.train_step_reference(*args, mm_dtype=BF), 20,
+              *_train_work((rec, offs, mixes, args[2]), b, "step"))
+
+        def all_segs(kind):
+            w = [_train_work(sg[:3], b, kind) for sg in segs]
+            return sum(v[0] for v in w), sum(v[1] for v in w)
+        turns("eval forward b=138",
+              lambda m: [ft.fused_segment_forward(z_in, *sg[:4], m, sg[4]) for sg in segs],
+              lambda: [ft.segment_forward_reference(z_in, *sg[:4], BF, sg[4]) for sg in segs],
+              20, *all_segs("forward"))
+        turns("ghost forward b=138 bt=69",
+              lambda m: [ft.fused_segment_train_forward(z_in, *sg[:4], 69, m) for sg in segs],
+              lambda: [ft.segment_train_forward_reference(z_in, *sg[:4], 69, BF) for sg in segs],
+              20, *all_segs("ghost"))
+        turns("backward b=138 bt=69",
+              lambda m: [ft.fused_segment_backward(z_in, *sg[:4], 69, gz, gldj, m) for sg in segs],
+              lambda: [ft.segment_backward_reference(z_in, *sg[:4], 69, gz, gldj, BF)
+                       for sg in segs], 20, *all_segs("backward"))
+    phase("bf16 timing", timing)
+
+    need = [("eps", 138), ("eps", 2961), ("rng", 128), ("rng", SAMPLER_B), ("step", 69),
+            ("step", 138), "eval", ("ghost", 69), ("ghost", 138), ("bwd", 69), ("bwd", 138)]
+    need_t = ["eps b=138", f"rng b={SAMPLER_B}", "step b=138 bt=69", "eval forward b=138",
+              "ghost forward b=138 bt=69", "backward b=138 bt=69", "make_sampler"]
+    if not (all(k in errs for k in need) and all(k in timings for k in need_t)
+            and {"oneshot", "segment", "make_sampler"} <= set(launches)):
+        return {}
+    one, seg, smp = launches["oneshot"], launches["segment"], launches["make_sampler"]
+    return {
+        "fused_sample": {
+            "eps_bf16": dict(timings["eps b=138"], launches=0,
+                             max_abs_err=max(errs[("eps", 138)], errs[("eps", 2961)]),
+                             shape="b=138, bn=batch (no main path runs it: NoiseFlowWrapper "
+                                   "samples in float32, as JAX's)"),
+            "rng_bf16": dict(timings[f"rng b={SAMPLER_B}"],
+                             launches=smp.get("fused_sample_bf16", 0),
+                             max_abs_err=max(errs[("rng", 128)], errs[("rng", SAMPLER_B)]),
+                             make_sampler=timings["make_sampler"],
+                             shape=f"b={SAMPLER_B}, running BN (make_sampler's defaults; "
+                                   f"launches: 5 calls)")},
+        "fused_train_step": {
+            "bf16": dict(timings["step b=138 bt=69"],
+                         launches=one.get("fused_train_step_bf16", 0),
+                         max_abs_err=max(errs[("step", 69)], errs[("step", 138)]),
+                         shape="b=138, bt=69 (launches: the one-shot cli.train fit)")},
+        "fused_segment_forward": {
+            "running_bf16": dict(timings["eval forward b=138"],
+                                 launches=one.get("fused_segment_forward_bf16", 0)
+                                 + seg.get("fused_segment_forward_bf16", 0),
+                                 max_abs_err=errs["eval"],
+                                 shape="b=138, both segments of one eval step (launches: "
+                                       "both cli.train fits)"),
+            "ghost_bf16": dict(timings["ghost forward b=138 bt=69"],
+                               launches=seg.get("fused_segment_train_forward_bf16", 0),
+                               max_abs_err=max(errs[("ghost", 69)], errs[("ghost", 138)]),
+                               shape="b=138, bt=69, both segments of one train step "
+                                     "(launches: the segment-path cli.train fit)")},
+        "fused_segment_backward": {
+            "bf16": dict(timings["backward b=138 bt=69"],
+                         launches=seg.get("fused_segment_backward_bf16", 0),
+                         max_abs_err=max(errs[("bwd", 69)], errs[("bwd", 138)]),
+                         shape="b=138, bt=69, both segments of one train step (launches: the "
+                               "segment-path cli.train fit)")},
+    }
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1410,6 +1848,7 @@ def main() -> int:
 
     train_out = _training_phases(phase, agree)
     rng_out = _rng_dncnn_phases(phase, agree, programs, nf)
+    bf16_modes = _bf16_phases(phase, programs)
 
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
@@ -1446,7 +1885,13 @@ def main() -> int:
         "shape": "b=138, bn=batch, eps mode (the wrapper's default)",
         "by_mode": {"eps": eps_mode, "rng": rng_mode},
     }
-    print(json.dumps({"kernels": [entry] + train_out["entries"]}))
+    kernels = [entry] + train_out["entries"]
+    for k in kernels:   # the bf16 modes beside each kernel's float32 ones
+        k.setdefault("by_mode", {}).update(bf16_modes.get(k["name"], {}))
+    if {k["name"] for k in kernels} - set(bf16_modes):
+        print("chip_smoke: a kernel has no bf16 mode in the kernels line", file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -94,8 +94,10 @@ class Config:
     # matmuls and DnCNN convs (f32 accumulation in both).
     dtype: str = "float32"
     use_pallas: bool = False             # fused Pallas flow kernels for the hot path
-    # matmul dtype inside the fused TRAINING kernels (the JAX package's
-    # option; the port's kernels run float32 only and warn on "bfloat16")
+    # matmul dtype inside the fused TRAINING kernels, as the JAX package's:
+    # "bfloat16" rounds the operands of every product in the one-shot step,
+    # the segment kernels and the eval forward (float32 accumulation);
+    # "float32" keeps them whole
     pallas_train_dtype: str = "bfloat16"
     # one-shot train step: loss AND grads in a single kernel pass (forward
     # once per block, analytic NLL cotangents, in-kernel backward — see

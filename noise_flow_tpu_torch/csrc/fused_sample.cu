@@ -53,7 +53,19 @@
 // 2^-25, u2 = (bits2 >> 8) * 2^-24, r = sqrt(-2 log u1), th = 2 pi u2; row h
 // takes r cos th, row h + 16 takes r sin th. The patch is the index in the
 // batch and the seed is the key, so seed s + 1 shares no stream with seed s.
+//
+// bfloat16 mode (the TPU kernel's mm_dtype=bf16, make_sampler's default):
+// every product of a mix or a convolution takes both operands rounded to
+// bfloat16 (round to nearest even) and keeps the FMA in float32. A product of
+// two bfloat16 values is exact in float32, so this is the TPU kernel's
+// arithmetic (bf16 operands, float32 accumulation) in another summation
+// order. The rounded operands are the chain state at a mix and at conv1, the
+// hidden maps at conv2 and the zero-conv, and the weights (BN-folded in
+// running mode); biases, the indicator taps, the batch-BN moments (float32 in
+// the TPU kernel too) and the coupling update stay float32. It is a
+// compile-time parameter of sample_kernel.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -113,6 +125,20 @@ __device__ __forceinline__ float4 relu4(float4 a) {
 }
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
+}
+// v rounded to bfloat16 and back (nearest even) when BF, else v
+template <bool BF>
+__device__ __forceinline__ float rnd(float v) {
+  return BF ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+template <bool BF>
+__device__ __forceinline__ float4 rnd4(float4 v) {
+  return make_float4(rnd<BF>(v.x), rnd<BF>(v.y), rnd<BF>(v.z), rnd<BF>(v.w));
+}
+// a weight as a product's operand
+template <bool BF>
+__device__ __forceinline__ float4 wld4(const float* p) {
+  return rnd4<BF>(ldg4(p));
 }
 __device__ __forceinline__ float get4(float4 v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
@@ -195,7 +221,9 @@ __device__ float4 block_sum4(float4 v, float4* red) {
 }
 
 // conv 3x3 (SAME, zero fill) of x channels {0,1} -> 4 hidden channels, + b1,
-// for the thread's PPT pixels (column c, rows r0 + ROWS_PER_PASS * k).
+// for the thread's PPT pixels (column c, rows r0 + ROWS_PER_PASS * k). xs
+// holds the operand as the mode takes it (rounded in bfloat16 mode).
+template <bool BF>
 __device__ __forceinline__ void conv1(const float2* xs, const float* rec,
                                       int r0, int c, float4 (&h)[PPT]) {
   const float4 b1 = ldg4(rec + OFF_B1);
@@ -207,8 +235,8 @@ __device__ __forceinline__ void conv1(const float2* xs, const float* rec,
     for (int dw = 0; dw < 3; ++dw) {
       const int cc = c + dw - 1;
       if (cc < 0 || cc >= W) continue;
-      const float4 w0 = ldg4(rec + OFF_W1 + ((dh * 3 + dw) * 2 + 0) * 4);
-      const float4 w1 = ldg4(rec + OFF_W1 + ((dh * 3 + dw) * 2 + 1) * 4);
+      const float4 w0 = wld4<BF>(rec + OFF_W1 + ((dh * 3 + dw) * 2 + 0) * 4);
+      const float4 w1 = wld4<BF>(rec + OFF_W1 + ((dh * 3 + dw) * 2 + 1) * 4);
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
         const int rr = r0 + ROWS_PER_PASS * k + dh - 1;
@@ -221,49 +249,65 @@ __device__ __forceinline__ void conv1(const float2* xs, const float* rec,
 }
 
 // 1x1 conv 4 -> 4, + b2
+template <bool BF>
 __device__ __forceinline__ float4 conv2(float4 h, const float* rec) {
+  h = rnd4<BF>(h);
   float4 o = ldg4(rec + OFF_B2);
-  o = fma4(h.x, ldg4(rec + OFF_W2 + 0), o);
-  o = fma4(h.y, ldg4(rec + OFF_W2 + 4), o);
-  o = fma4(h.z, ldg4(rec + OFF_W2 + 8), o);
-  o = fma4(h.w, ldg4(rec + OFF_W2 + 12), o);
+  o = fma4(h.x, wld4<BF>(rec + OFF_W2 + 0), o);
+  o = fma4(h.y, wld4<BF>(rec + OFF_W2 + 4), o);
+  o = fma4(h.z, wld4<BF>(rec + OFF_W2 + 8), o);
+  o = fma4(h.w, wld4<BF>(rec + OFF_W2 + 12), o);
   return o;
+}
+
+// One row of taps (dh) of the zero-conv below.
+template <bool BF>
+__device__ __forceinline__ void conv3_row(const float4* hs, const float* rec, int r0, int c,
+                                          int dh, float4 (&t)[PPT]) {
+#pragma unroll
+  for (int dw = 0; dw < 3; ++dw) {
+    const int tap = dh * 3 + dw;
+    const int cc = c + dw - 1;
+    const bool col_in = cc >= 0 && cc < W;
+    const float4 wi = ldg4(rec + OFF_WIND + tap * 4);
+    const float4 w0 = wld4<BF>(rec + OFF_W3 + (tap * 4 + 0) * 4);
+    const float4 w1 = wld4<BF>(rec + OFF_W3 + (tap * 4 + 1) * 4);
+    const float4 w2 = wld4<BF>(rec + OFF_W3 + (tap * 4 + 2) * 4);
+    const float4 w3 = wld4<BF>(rec + OFF_W3 + (tap * 4 + 3) * 4);
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      const int rr = r0 + ROWS_PER_PASS * k + dh - 1;
+      if (!col_in || rr < 0 || rr >= H) {
+        t[k] = t[k] + wi;
+        continue;
+      }
+      const float4 v = hs[rr * W + cc];
+      t[k] = fma4(v.w, w3, fma4(v.z, w2, fma4(v.y, w1, fma4(v.x, w0, t[k]))));
+    }
+  }
 }
 
 // zero-conv 3x3 of the hidden map: taps inside the patch read hs, taps
 // outside add the indicator channel's weights; + bias. Outputs {0,1} are the
-// shift and {2,3} the raw log-scale of channels {2,3}.
+// shift and {2,3} the raw log-scale of channels {2,3}. hs holds the operand
+// as the mode takes it.
+template <bool BF>
 __device__ __forceinline__ void conv3(const float4* hs, const float* rec,
                                       int r0, int c, float4 (&t)[PPT]) {
   const float4 bz = ldg4(rec + OFF_BZ);
 #pragma unroll
   for (int k = 0; k < PPT; ++k) t[k] = bz;
+  if constexpr (BF) {
+    // rows not unrolled: unrolled, the rounded weights of three rows spill
+#pragma unroll 1
+    for (int dh = 0; dh < 3; ++dh) conv3_row<BF>(hs, rec, r0, c, dh, t);
+  } else {
 #pragma unroll
-  for (int dh = 0; dh < 3; ++dh) {
-#pragma unroll
-    for (int dw = 0; dw < 3; ++dw) {
-      const int tap = dh * 3 + dw;
-      const int cc = c + dw - 1;
-      const bool col_in = cc >= 0 && cc < W;
-      const float4 wi = ldg4(rec + OFF_WIND + tap * 4);
-      const float4 w0 = ldg4(rec + OFF_W3 + (tap * 4 + 0) * 4);
-      const float4 w1 = ldg4(rec + OFF_W3 + (tap * 4 + 1) * 4);
-      const float4 w2 = ldg4(rec + OFF_W3 + (tap * 4 + 2) * 4);
-      const float4 w3 = ldg4(rec + OFF_W3 + (tap * 4 + 3) * 4);
-#pragma unroll
-      for (int k = 0; k < PPT; ++k) {
-        const int rr = r0 + ROWS_PER_PASS * k + dh - 1;
-        if (!col_in || rr < 0 || rr >= H) {
-          t[k] = t[k] + wi;
-          continue;
-        }
-        const float4 v = hs[rr * W + cc];
-        t[k] = fma4(v.w, w3, fma4(v.z, w2, fma4(v.y, w1, fma4(v.x, w0, t[k]))));
-      }
-    }
+    for (int dh = 0; dh < 3; ++dh) conv3_row<BF>(hs, rec, r0, c, dh, t);
   }
 }
 
+template <bool BF>
 __global__ void __launch_bounds__(THREADS)
 sample_kernel(const Args a) {
   __shared__ float2 xs[NPIX];   // x channels {0,1}: conv1 input
@@ -331,15 +375,16 @@ sample_kernel(const Args a) {
     // deviation from the group mean (variance stages)
     const float* rec = a.coup + (size_t)(first & 255) * REC;
 #pragma unroll
-    for (int k = 0; k < PPT; ++k) xs[tid + THREADS * k] = make_float2(x[k].x, x[k].y);
+    for (int k = 0; k < PPT; ++k)
+      xs[tid + THREADS * k] = make_float2(rnd<BF>(x[k].x), rnd<BF>(x[k].y));
     __syncthreads();
     float4 h[PPT];
-    conv1(xs, rec, r0, c, h);
+    conv1<BF>(xs, rec, r0, c, h);
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int k = 0; k < PPT; ++k) {
       float4 v = h[k];
-      if (a.stage >= MEAN2) v = conv2(relu4(bn4(v, mean1, var1)), rec);
+      if (a.stage >= MEAN2) v = conv2<BF>(relu4(bn4(v, mean1, var1)), rec);
       if (a.stage == VAR1 || a.stage == VAR2) {
         const float4 d = v - (a.stage == VAR1 ? mean1 : mean2);
         v = d * d;
@@ -355,10 +400,11 @@ sample_kernel(const Args a) {
     const int kind = a.ops[i] >> 8, idx = a.ops[i] & 255;
     if (kind == OP_MIX) {
       const float* m = a.mixes + idx * 16;
-      const float4 m0 = ldg4(m), m1 = ldg4(m + 4), m2 = ldg4(m + 8), m3 = ldg4(m + 12);
+      const float4 m0 = wld4<BF>(m), m1 = wld4<BF>(m + 4), m2 = wld4<BF>(m + 8),
+                   m3 = wld4<BF>(m + 12);
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
-        const float4 v = x[k];
+        const float4 v = rnd4<BF>(x[k]);
         x[k] = fma4(v.w, m3, fma4(v.z, m2, fma4(v.y, m1, scale4(m0, v.x))));
       }
     } else if (kind == OP_SCALE) {
@@ -376,21 +422,22 @@ sample_kernel(const Args a) {
       const float* rec = a.coup + (size_t)idx * REC;
       __syncthreads();  // the previous coupling is done reading xs and hs
 #pragma unroll
-      for (int k = 0; k < PPT; ++k) xs[tid + THREADS * k] = make_float2(x[k].x, x[k].y);
+      for (int k = 0; k < PPT; ++k)
+        xs[tid + THREADS * k] = make_float2(rnd<BF>(x[k].x), rnd<BF>(x[k].y));
       __syncthreads();
       float4 h[PPT];
-      conv1(xs, rec, r0, c, h);
+      conv1<BF>(xs, rec, r0, c, h);
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
         float4 v = h[k];
         if (a.batch_bn) v = bn4(v, mean1, var1);
-        v = conv2(relu4(v), rec);
+        v = conv2<BF>(relu4(v), rec);
         if (a.batch_bn) v = bn4(v, mean2, var2);
-        hs[tid + THREADS * k] = relu4(v);
+        hs[tid + THREADS * k] = rnd4<BF>(relu4(v));
       }
       __syncthreads();
       float4 t[PPT];
-      conv3(hs, rec, r0, c, t);
+      conv3<BF>(hs, rec, r0, c, t);
       const float rescale = __ldg(rec + OFF_RESCALE);
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
@@ -431,7 +478,8 @@ extern "C" int nf_rng_normals(float* out, int B, unsigned seed, float temp,
 
 // Runs the whole chain: eps (already scaled by the temperature) -> out; with
 // use_rng != 0 the chain input is drawn in the kernel instead, normals(seed)
-// * temp, and eps is not read (it may be null). Running-BN mode is one
+// * temp, and eps is not read (it may be null). bf16 != 0 runs the bfloat16
+// mode (see the top of this file), 0 the float32 one. Running-BN mode is one
 // launch. Batch-BN mode (batch_bn != 0) runs, for each coupling, four
 // statistics launches and one apply launch, with BN groups of `bt`
 // consecutive patches. `part` is scratch of 2*B*4 floats, `mom` of
@@ -443,7 +491,7 @@ extern "C" int nf_fused_sample(const float* eps, float* out, const float* clean,
                                const float* mixes, const float* coup,
                                float* part, float* mom, int B, int n_scale,
                                int bt, int batch_bn, const int* ops, int n_ops,
-                               int use_rng, unsigned seed, float temp,
+                               int use_rng, unsigned seed, float temp, int bf16,
                                void* stream, int* launched) {
   *launched = 0;
   if (B <= 0 || bt <= 0 || n_scale <= 0 || n_ops < 0 || n_ops > MAX_OPS ||
@@ -475,7 +523,10 @@ extern "C" int nf_fused_sample(const float* eps, float* out, const float* clean,
     a.src = src;
     a.part_in = part_in;
     a.part_out = part_out;
-    sample_kernel<<<B, THREADS, 0, s>>>(a);
+    if (bf16)
+      sample_kernel<true><<<B, THREADS, 0, s>>>(a);
+    else
+      sample_kernel<false><<<B, THREADS, 0, s>>>(a);
     const int err = static_cast<int>(cudaGetLastError());
     if (err == 0) ++*launched;
     return err;

@@ -76,8 +76,32 @@
 // leaves gx in the chain-state gradient. At the flagship's segments (4
 // couplings, 4 mixes) the backward does about 3x the forward's multiply-adds,
 // and both are bound by operations, not bytes.
+//
+// bfloat16 mode (the TPU kernels' mm_dtype=bf16, the trainer's default
+// pallas_train_dtype): a compile-time parameter BF of every kernel. Where the
+// TPU kernel computes a matmul `mm(a, b)`, both operands are rounded to
+// bfloat16 (round to nearest even) and the FMAs stay float32; a product of
+// two bfloat16 values is exact in float32, so this is the TPU kernel's
+// arithmetic in another summation order. Forward: the chain state at a mix
+// and at conv1, relu(n1) at conv2, relu(n2) at conv3, and the weights.
+// Backward: each data gradient mm(g, w^T) rounds g and w, each weight
+// gradient mm(a^T, g) rounds a and g; the elementwise uses of the same
+// residuals (x_in * exp(ls), the ReLU masks, the BN backward) stay float32,
+// so the residuals are kept in float32 and rounded where a product reads
+// them. The BN moments of the TPU kernel are a matmul too,
+// mm(sum_rows(v), csel): the sum of each lane (one column and channel, over
+// the group's bt * 32 rows) is rounded to bfloat16 before the 32 lanes of a
+// channel are added in float32. So in this mode the per-patch partials are
+// per lane (NPART floats a patch: two quantities x 32 columns x 4 channels),
+// each group's lane sums are reduced in a fixed order, rounded, and then
+// summed over the columns in a fixed order: both forward moments and the two
+// means of the BN backward. The running-statistics segment forward in this
+// mode takes the records without BN folded in and normalises with the
+// running moments after each conv, as the TPU kernel's ghost_bn=False does;
+// rounding BN-folded weights would be another function.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -94,7 +118,10 @@ constexpr int REC = 288;
 constexpr int OFF_W1 = 0, OFF_B1 = 72, OFF_W2 = 76, OFF_B2 = 92, OFF_W3 = 96,
               OFF_RESCALE = 280;
 constexpr int MAX_OPS = 64;
-constexpr int NPART = 8;  // partial sums per patch per stage
+// floats of partial sums per patch per stage: two float4 sums (float32
+// mode), or two quantities of W lanes of 4 channels (bfloat16 mode)
+constexpr int NPART = 2 * W * 4;
+static_assert(W == 32, "a warp's lanes are a row's columns");
 constexpr float BN_EPS = 1e-4f;
 
 enum OpKind { OP_MIX = 0, OP_SCALE = 1, OP_COUPLING = 2 };
@@ -138,6 +165,21 @@ __device__ __forceinline__ float4 ldg4(const float* p) {
 __device__ __forceinline__ float get4(float4 v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
+// v rounded to bfloat16 and back (nearest even) when BF, else v: an operand
+// of a product
+template <bool BF>
+__device__ __forceinline__ float rnd(float v) {
+  return BF ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+template <bool BF>
+__device__ __forceinline__ float4 rnd4(float4 v) {
+  return make_float4(rnd<BF>(v.x), rnd<BF>(v.y), rnd<BF>(v.z), rnd<BF>(v.w));
+}
+// a weight as a product's operand
+template <bool BF>
+__device__ __forceinline__ float4 wld4(const float* p) {
+  return rnd4<BF>(ldg4(p));
+}
 __device__ __forceinline__ float4 inv_sd4(float4 var) {
   return make_float4(1.f / sqrtf(var.x + BN_EPS), 1.f / sqrtf(var.y + BN_EPS),
                      1.f / sqrtf(var.z + BN_EPS), 1.f / sqrtf(var.w + BN_EPS));
@@ -165,10 +207,13 @@ __device__ float4 block_sum4(float4 v, float4* red) {
 __device__ __forceinline__ int pix(int k) { return threadIdx.x + THREADS * k; }
 
 // ---------------------------------------------------------------------------
-// convolutions over the thread's PPT pixels (column c, rows r0 + 8k)
+// convolutions over the thread's PPT pixels (column c, rows r0 + 8k); the
+// shared-memory operands (xs, gs, hs) hold what the mode's product takes
+// (rounded in bfloat16 mode), the weights are rounded here
 // ---------------------------------------------------------------------------
 
 // h = conv3x3(x[..., 0:2], w1) + b1, SAME zero fill; xs holds the patch.
+template <bool BF>
 __device__ __forceinline__ void conv1_fwd(const float4* xs, const float* rec,
                                           int r0, int c, float4 (&h)[PPT]) {
   const float4 b1 = ldg4(rec + OFF_B1);
@@ -180,8 +225,8 @@ __device__ __forceinline__ void conv1_fwd(const float4* xs, const float* rec,
     for (int dw = 0; dw < 3; ++dw) {
       const int cc = c + dw - 1;
       if (cc < 0 || cc >= W) continue;
-      const float4 w0 = ldg4(rec + OFF_W1 + ((dh * 3 + dw) * 2 + 0) * 4);
-      const float4 w1 = ldg4(rec + OFF_W1 + ((dh * 3 + dw) * 2 + 1) * 4);
+      const float4 w0 = wld4<BF>(rec + OFF_W1 + ((dh * 3 + dw) * 2 + 0) * 4);
+      const float4 w1 = wld4<BF>(rec + OFF_W1 + ((dh * 3 + dw) * 2 + 1) * 4);
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
         const int rr = r0 + ROWS_PER_PASS * k + dh - 1;
@@ -194,6 +239,7 @@ __device__ __forceinline__ void conv1_fwd(const float4* xs, const float* rec,
 }
 
 // x[..., 0:2] gradient of conv1: sum over taps of gh[p - off] . w1[tap][ci]
+template <bool BF>
 __device__ __forceinline__ void conv1_bwd(const float4* gs, const float* rec,
                                           int r0, int c, float2 (&gx)[PPT]) {
 #pragma unroll
@@ -204,8 +250,8 @@ __device__ __forceinline__ void conv1_bwd(const float4* gs, const float* rec,
     for (int dw = 0; dw < 3; ++dw) {
       const int cc = c - (dw - 1);
       if (cc < 0 || cc >= W) continue;
-      const float4 w0 = ldg4(rec + OFF_W1 + ((dh * 3 + dw) * 2 + 0) * 4);
-      const float4 w1 = ldg4(rec + OFF_W1 + ((dh * 3 + dw) * 2 + 1) * 4);
+      const float4 w0 = wld4<BF>(rec + OFF_W1 + ((dh * 3 + dw) * 2 + 0) * 4);
+      const float4 w1 = wld4<BF>(rec + OFF_W1 + ((dh * 3 + dw) * 2 + 1) * 4);
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
         const int rr = r0 + ROWS_PER_PASS * k - (dh - 1);
@@ -219,21 +265,26 @@ __device__ __forceinline__ void conv1_bwd(const float4* gs, const float* rec,
 }
 
 // 1x1 conv 4 -> 4, + b2
+template <bool BF>
 __device__ __forceinline__ float4 conv2_fwd(float4 h, const float* rec) {
+  h = rnd4<BF>(h);
   float4 o = ldg4(rec + OFF_B2);
-  o = fma4(h.x, ldg4(rec + OFF_W2 + 0), o);
-  o = fma4(h.y, ldg4(rec + OFF_W2 + 4), o);
-  o = fma4(h.z, ldg4(rec + OFF_W2 + 8), o);
-  o = fma4(h.w, ldg4(rec + OFF_W2 + 12), o);
+  o = fma4(h.x, wld4<BF>(rec + OFF_W2 + 0), o);
+  o = fma4(h.y, wld4<BF>(rec + OFF_W2 + 4), o);
+  o = fma4(h.z, wld4<BF>(rec + OFF_W2 + 8), o);
+  o = fma4(h.w, wld4<BF>(rec + OFF_W2 + 12), o);
   return o;
 }
 
+template <bool BF>
 __device__ __forceinline__ float4 conv2_bwd(float4 g, const float* rec) {
-  return make_float4(dot4(ldg4(rec + OFF_W2 + 0), g), dot4(ldg4(rec + OFF_W2 + 4), g),
-                     dot4(ldg4(rec + OFF_W2 + 8), g), dot4(ldg4(rec + OFF_W2 + 12), g));
+  g = rnd4<BF>(g);
+  return make_float4(dot4(wld4<BF>(rec + OFF_W2 + 0), g), dot4(wld4<BF>(rec + OFF_W2 + 4), g),
+                     dot4(wld4<BF>(rec + OFF_W2 + 8), g), dot4(wld4<BF>(rec + OFF_W2 + 12), g));
 }
 
 // t = conv3x3(hs, w3) + offs, SAME zero fill (the indicator taps are in offs)
+template <bool BF>
 __device__ __forceinline__ void conv3_fwd(const float4* hs, const float* rec,
                                           const float4* offs, int r0, int c,
                                           float4 (&t)[PPT]) {
@@ -246,10 +297,10 @@ __device__ __forceinline__ void conv3_fwd(const float4* hs, const float* rec,
       const int tap = dh * 3 + dw;
       const int cc = c + dw - 1;
       if (cc < 0 || cc >= W) continue;
-      const float4 w0 = ldg4(rec + OFF_W3 + (tap * 4 + 0) * 4);
-      const float4 w1 = ldg4(rec + OFF_W3 + (tap * 4 + 1) * 4);
-      const float4 w2 = ldg4(rec + OFF_W3 + (tap * 4 + 2) * 4);
-      const float4 w3 = ldg4(rec + OFF_W3 + (tap * 4 + 3) * 4);
+      const float4 w0 = wld4<BF>(rec + OFF_W3 + (tap * 4 + 0) * 4);
+      const float4 w1 = wld4<BF>(rec + OFF_W3 + (tap * 4 + 1) * 4);
+      const float4 w2 = wld4<BF>(rec + OFF_W3 + (tap * 4 + 2) * 4);
+      const float4 w3 = wld4<BF>(rec + OFF_W3 + (tap * 4 + 3) * 4);
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
         const int rr = r0 + ROWS_PER_PASS * k + dh - 1;
@@ -262,6 +313,7 @@ __device__ __forceinline__ void conv3_fwd(const float4* hs, const float* rec,
 }
 
 // gradient of conv3 with respect to its input
+template <bool BF>
 __device__ __forceinline__ void conv3_bwd(const float4* gs, const float* rec,
                                           int r0, int c, float4 (&gh)[PPT]) {
 #pragma unroll
@@ -273,10 +325,10 @@ __device__ __forceinline__ void conv3_bwd(const float4* gs, const float* rec,
       const int tap = dh * 3 + dw;
       const int cc = c - (dw - 1);
       if (cc < 0 || cc >= W) continue;
-      const float4 w0 = ldg4(rec + OFF_W3 + (tap * 4 + 0) * 4);
-      const float4 w1 = ldg4(rec + OFF_W3 + (tap * 4 + 1) * 4);
-      const float4 w2 = ldg4(rec + OFF_W3 + (tap * 4 + 2) * 4);
-      const float4 w3 = ldg4(rec + OFF_W3 + (tap * 4 + 3) * 4);
+      const float4 w0 = wld4<BF>(rec + OFF_W3 + (tap * 4 + 0) * 4);
+      const float4 w1 = wld4<BF>(rec + OFF_W3 + (tap * 4 + 1) * 4);
+      const float4 w2 = wld4<BF>(rec + OFF_W3 + (tap * 4 + 2) * 4);
+      const float4 w3 = wld4<BF>(rec + OFF_W3 + (tap * 4 + 3) * 4);
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
         const int rr = r0 + ROWS_PER_PASS * k - (dh - 1);
@@ -324,8 +376,11 @@ __device__ void wgrad(const float4* as, const float4* gs, int ntaps, int cin,
       }
     }
     if (lane < cin * 4) {
+      // acc by a select, not acc[ci]: a lane-dependent index would put the
+      // array in local memory
       const int ci = lane >> 2, co = lane & 3;
-      out[(tap * cin + ci) * 4 + co] = get4(acc[ci], co);
+      const float4 v = ci == 0 ? acc[0] : ci == 1 ? acc[1] : ci == 2 ? acc[2] : acc[3];
+      out[(tap * cin + ci) * 4 + co] = get4(v, co);
     }
   }
   __syncthreads();
@@ -393,6 +448,82 @@ __device__ __forceinline__ void put_part(float* part, int patch, float4 s1, floa
   }
 }
 
+// bfloat16 mode: the patch's per-lane partial sums of two quantities, given
+// one float4 of each a thread (over the pixels of its column): the 8 threads
+// of a column (lane `column` of every warp) summed in warp order, into
+// part[patch] as [2][W] float4.
+__device__ void put_lanes(float* part, int patch, float4 s1, float4 s2, float4* lred) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();  // lred may still be read from a previous call
+  lred[warp * W + lane] = s1;
+  lred[(WARPS + warp) * W + lane] = s2;
+  __syncthreads();
+  if (threadIdx.x < 2 * W) {
+    const int q = threadIdx.x / W, col = threadIdx.x % W;
+    float4 t = lred[q * WARPS * W + col];
+    for (int j = 1; j < WARPS; ++j) t = t + lred[(q * WARPS + j) * W + col];
+    reinterpret_cast<float4*>(part + static_cast<size_t>(patch) * NPART)[q * W + col] = t;
+  }
+}
+
+// bfloat16 mode: the group's two sums as the TPU kernel's bf16 moment
+// matmul forms them: each lane summed over the group's bt patches in a fixed
+// order, rounded to bfloat16, then the W lanes of each channel summed in
+// float32 in a fixed order.
+__device__ void group_lane_sums(const StepArgs& a, const float* part, int patch, float4* lred,
+                                float4* red, float4& s1, float4& s2) {
+  constexpr int SPLIT = THREADS / (2 * W);  // threads that share a lane
+  const int g0 = patch / a.bt * a.bt;
+  const int col = threadIdx.x % W, q = (threadIdx.x / W) % 2, j = threadIdx.x / (2 * W);
+  float4 t = zero4();
+  for (int i = j; i < a.bt; i += SPLIT)
+    t = t + reinterpret_cast<const float4*>(part + static_cast<size_t>(g0 + i) * NPART)[q * W + col];
+  __syncthreads();  // lred may still be read from a previous call
+  lred[threadIdx.x] = t;
+  __syncthreads();
+  if (threadIdx.x < 2 * W) {  // warp q sums quantity q
+    float4 v = lred[threadIdx.x];
+    for (int jj = 1; jj < SPLIT; ++jj) v = v + lred[jj * 2 * W + threadIdx.x];
+    v = rnd4<true>(v);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      v.x += __shfl_down_sync(0xffffffffu, v.x, o);
+      v.y += __shfl_down_sync(0xffffffffu, v.y, o);
+      v.z += __shfl_down_sync(0xffffffffu, v.z, o);
+      v.w += __shfl_down_sync(0xffffffffu, v.w, o);
+    }
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  }
+  __syncthreads();
+  s1 = red[0];
+  s2 = red[1];
+}
+
+// The partial sums of two quantities, one float4 each a thread, in the
+// mode's layout. Ends with the whole block synchronised since its last
+// shared-memory write.
+template <bool BF>
+__device__ __forceinline__ void put_sums(float* part, int patch, float4 s1, float4 s2,
+                                         float4* red, float4* lred) {
+  if constexpr (BF) {
+    put_lanes(part, patch, s1, s2, lred);
+  } else {
+    s1 = block_sum4(s1, red);
+    s2 = block_sum4(s2, red);
+    put_part(part, patch, s1, s2);
+  }
+}
+
+// The group's two sums, from the partials of put_sums.
+template <bool BF>
+__device__ __forceinline__ void get_sums(const StepArgs& a, const float* part, int patch,
+                                         float4* red, float4* lred, float4& s1, float4& s2) {
+  if constexpr (BF)
+    group_lane_sums(a, part, patch, lred, red, s1, s2);
+  else
+    group_sums(a, part, patch, red, s1, s2);
+}
+
 // After the last grid sync: each BN's group moments averaged over the groups,
 // summed in group order.
 __device__ void put_bnmom(const StepArgs& a) {
@@ -407,13 +538,14 @@ __device__ void put_bnmom(const StepArgs& a) {
 
 // at most 128 registers a thread, so that two CTAs fit on an SM: the grid
 // must be co-resident, and B = 138 patches on 132 SMs need two an SM
-template <int MODE>
+template <int MODE, bool BF>
 __global__ void __launch_bounds__(THREADS, 2)
 train_kernel(const StepArgs a) {
   cg::grid_group grid = cg::this_grid();
   __shared__ float4 sA[NPIX];
   __shared__ float4 sB[NPIX];
   __shared__ float4 red[WARPS];
+  __shared__ float4 lred[BF ? 2 * WARPS * W : 1];  // put_lanes, group_lane_sums
 
   const int tid = threadIdx.x;
   const int c = tid % W, r0 = tid / W;
@@ -441,14 +573,16 @@ train_kernel(const StepArgs a) {
     float4* xin = KEEP ? a.xin + i * BP : nullptr;
     if (kind == OP_MIX) {
       const float* m = a.mixes + idx * 16;
-      const float4 m0 = ldg4(m), m1 = ldg4(m + 4), m2 = ldg4(m + 8), m3 = ldg4(m + 12);
+      const float4 m0 = wld4<BF>(m), m1 = wld4<BF>(m + 4), m2 = wld4<BF>(m + 8),
+                   m3 = wld4<BF>(m + 12);
       for (int patch = blockIdx.x; patch < a.B; patch += gridDim.x) {
 #pragma unroll
         for (int k = 0; k < PPT; ++k) {
           const size_t q = slot(patch) + pix(k);
           const float4 v = a.cur[q];
           if (KEEP) xin[q] = v;
-          a.cur[q] = fma4(v.w, m3, fma4(v.z, m2, fma4(v.y, m1, scale4(m0, v.x))));
+          const float4 vr = rnd4<BF>(v);
+          a.cur[q] = fma4(vr.w, m3, fma4(vr.z, m2, fma4(vr.y, m1, scale4(m0, vr.x))));
         }
       }
       continue;
@@ -482,25 +616,25 @@ train_kernel(const StepArgs a) {
         const size_t q = slot(patch) + pix(k);
         const float4 v = a.cur[q];
         if (KEEP) xin[q] = v;
-        sA[pix(k)] = v;
+        sA[pix(k)] = rnd4<BF>(v);
       }
       __syncthreads();
       float4 h[PPT];
-      conv1_fwd(sA, rec, r0, c, h);
+      conv1_fwd<BF>(sA, rec, r0, c, h);
       float4 s = zero4();
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
         n1s[slot(patch) + pix(k)] = h[k];
         s = s + h[k];
       }
-      put_part(part_w, patch, block_sum4(s, red), zero4());
+      put_sums<BF>(part_w, patch, s, zero4(), red, lred);
     }
     grid.sync();
     flip();
     // F2: group mean m1; partial sum (h1 - m1)^2
     for (int patch = blockIdx.x; patch < a.B; patch += gridDim.x) {
       float4 s1, s2;
-      group_sums(a, part_r, patch, red, s1, s2);
+      get_sums<BF>(a, part_r, patch, red, lred, s1, s2);
       const float4 m1 = scale4(s1, cnt_inv);
       if (patch % a.bt == 0 && tid < 4) mom[(patch / a.bt) * 16 + tid] = get4(m1, tid);
       float4 s = zero4();
@@ -509,14 +643,14 @@ train_kernel(const StepArgs a) {
         const float4 d = n1s[slot(patch) + pix(k)] - m1;
         s = s + d * d;
       }
-      put_part(part_w, patch, block_sum4(s, red), zero4());
+      put_sums<BF>(part_w, patch, s, zero4(), red, lred);
     }
     grid.sync();
     flip();
     // F3: v1; n1 = (h1 - m1) / sd1; h2 = relu(n1) @ w2 + b2; partial sum h2
     for (int patch = blockIdx.x; patch < a.B; patch += gridDim.x) {
       float4 s1, s2;
-      group_sums(a, part_r, patch, red, s1, s2);
+      get_sums<BF>(a, part_r, patch, red, lred, s1, s2);
       const float4 v1 = scale4(s1, cnt_inv);
       const float* mg = mom + (patch / a.bt) * 16;
       if (patch % a.bt == 0 && tid < 4) mom[(patch / a.bt) * 16 + 4 + tid] = get4(v1, tid);
@@ -528,18 +662,18 @@ train_kernel(const StepArgs a) {
         const size_t q = slot(patch) + pix(k);
         const float4 n1 = (n1s[q] - m1) * is1;
         n1s[q] = n1;
-        const float4 h2 = conv2_fwd(relu4(n1), rec);
+        const float4 h2 = conv2_fwd<BF>(relu4(n1), rec);
         h2s[q] = h2;
         s = s + h2;
       }
-      put_part(part_w, patch, block_sum4(s, red), zero4());
+      put_sums<BF>(part_w, patch, s, zero4(), red, lred);
     }
     grid.sync();
     flip();
     // F4: group mean m2; partial sum (h2 - m2)^2
     for (int patch = blockIdx.x; patch < a.B; patch += gridDim.x) {
       float4 s1, s2;
-      group_sums(a, part_r, patch, red, s1, s2);
+      get_sums<BF>(a, part_r, patch, red, lred, s1, s2);
       const float4 m2 = scale4(s1, cnt_inv);
       if (patch % a.bt == 0 && tid < 4) mom[(patch / a.bt) * 16 + 8 + tid] = get4(m2, tid);
       float4 s = zero4();
@@ -548,7 +682,7 @@ train_kernel(const StepArgs a) {
         const float4 d = h2s[slot(patch) + pix(k)] - m2;
         s = s + d * d;
       }
-      put_part(part_w, patch, block_sum4(s, red), zero4());
+      put_sums<BF>(part_w, patch, s, zero4(), red, lred);
     }
     grid.sync();
     flip();
@@ -556,7 +690,7 @@ train_kernel(const StepArgs a) {
     const float rescale = __ldg(rec + OFF_RESCALE);
     for (int patch = blockIdx.x; patch < a.B; patch += gridDim.x) {
       float4 s1, s2;
-      group_sums(a, part_r, patch, red, s1, s2);
+      get_sums<BF>(a, part_r, patch, red, lred, s1, s2);
       const float4 v2 = scale4(s1, cnt_inv);
       const float* mg = mom + (patch / a.bt) * 16;
       if (patch % a.bt == 0 && tid < 4) mom[(patch / a.bt) * 16 + 12 + tid] = get4(v2, tid);
@@ -567,11 +701,11 @@ train_kernel(const StepArgs a) {
         const size_t q = slot(patch) + pix(k);
         const float4 n2 = (h2s[q] - m2) * is2;
         h2s[q] = n2;
-        sA[pix(k)] = relu4(n2);
+        sA[pix(k)] = rnd4<BF>(relu4(n2));
       }
       __syncthreads();
       float4 t[PPT];
-      conv3_fwd(sA, rec, a.offs + static_cast<size_t>(idx) * NPIX, r0, c, t);
+      conv3_fwd<BF>(sA, rec, a.offs + static_cast<size_t>(idx) * NPIX, r0, c, t);
       float lsum = 0.f;
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
@@ -630,14 +764,15 @@ train_kernel(const StepArgs a) {
     const float4* xin = a.xin + i * BP;
     if (kind == OP_MIX) {
       const float* m = a.mixes + idx * 16;
-      const float4 m0 = ldg4(m), m1 = ldg4(m + 4), m2 = ldg4(m + 8), m3 = ldg4(m + 12);
+      const float4 m0 = wld4<BF>(m), m1 = wld4<BF>(m + 4), m2 = wld4<BF>(m + 8),
+                   m3 = wld4<BF>(m + 12);
       for (int patch = blockIdx.x; patch < a.B; patch += gridDim.x) {
         __syncthreads();
 #pragma unroll
         for (int k = 0; k < PPT; ++k) {
           const size_t q = slot(patch) + pix(k);
-          const float4 g = a.gcur[q];
-          sA[pix(k)] = xin[q];
+          const float4 g = rnd4<BF>(a.gcur[q]);
+          sA[pix(k)] = rnd4<BF>(xin[q]);
           sB[pix(k)] = g;
           a.gcur[q] = make_float4(dot4(m0, g), dot4(m1, g), dot4(m2, g), dot4(m3, g));
         }
@@ -693,8 +828,8 @@ train_kernel(const StepArgs a) {
                                        gls3 * rescale * (1.f - th3 * th3));
         grs += gls2 * th2 + gls3 * th3;
         gts[q] = gtv;
-        sB[pix(k)] = gtv;
-        sA[pix(k)] = relu4(n2s[q]);
+        sB[pix(k)] = rnd4<BF>(gtv);
+        sA[pix(k)] = rnd4<BF>(relu4(n2s[q]));
         a.gcur[q] = make_float4(g.x, g.y, g.z * e2, g.w * e3);
       }
       const float4 s = block_sum4(make_float4(grs, 0.f, 0.f, 0.f), red);  // syncs sA, sB
@@ -702,7 +837,7 @@ train_kernel(const StepArgs a) {
       if (tid == 0) wp[OFF_RESCALE] = s.x;
       wgrad(sA, sB, 9, 4, wp + OFF_W3);
       float4 gr2[PPT];
-      conv3_bwd(sB, rec, r0, c, gr2);
+      conv3_bwd<BF>(sB, rec, r0, c, gr2);
       float4 p1 = zero4(), p2 = zero4();
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
@@ -713,16 +848,14 @@ train_kernel(const StepArgs a) {
         p1 = p1 + gn2;
         p2 = p2 + gn2 * n2;
       }
-      p1 = block_sum4(p1, red);
-      p2 = block_sum4(p2, red);
-      put_part(part_w, patch, p1, p2);
+      put_sums<BF>(part_w, patch, p1, p2, red, lred);
     }
     grid.sync();
     flip();
     // Q2: gh2 = BN2 backward; gradient of w2; gn1 = (gh2 @ w2^T) * [n1 > 0]
     for (int patch = blockIdx.x; patch < a.B; patch += gridDim.x) {
       float4 s1, s2;
-      group_sums(a, part_r, patch, red, s1, s2);
+      get_sums<BF>(a, part_r, patch, red, lred, s1, s2);
       const float4 mg = scale4(s1, cnt_inv), mgn = scale4(s2, cnt_inv);
       const float4 is2 = inv_sd4(*reinterpret_cast<const float4*>(mom + (patch / a.bt) * 16 + 12));
       float4 p1 = zero4(), p2 = zero4();
@@ -730,17 +863,15 @@ train_kernel(const StepArgs a) {
       for (int k = 0; k < PPT; ++k) {
         const size_t q = slot(patch) + pix(k);
         const float4 n2 = n2s[q], n1 = n1s[q];
-        const float4 gh2 = is2 * (ts[q] - mg - n2 * mgn);
-        sA[pix(k)] = relu4(n1);
+        const float4 gh2 = rnd4<BF>(is2 * (ts[q] - mg - n2 * mgn));
+        sA[pix(k)] = rnd4<BF>(relu4(n1));
         sB[pix(k)] = gh2;
-        const float4 gn1 = conv2_bwd(gh2, rec) * pos4(n1);
+        const float4 gn1 = conv2_bwd<BF>(gh2, rec) * pos4(n1);
         n2s[q] = gn1;
         p1 = p1 + gn1;
         p2 = p2 + gn1 * n1;
       }
-      p1 = block_sum4(p1, red);  // also syncs sA, sB
-      p2 = block_sum4(p2, red);
-      put_part(part_w, patch, p1, p2);
+      put_sums<BF>(part_w, patch, p1, p2, red, lred);  // also syncs sA, sB
       wgrad(sA, sB, 1, 4, a.wpart + static_cast<size_t>(patch) * a.nw +
                               static_cast<size_t>(idx) * REC + OFF_W2);
     }
@@ -749,22 +880,22 @@ train_kernel(const StepArgs a) {
     // Q3: gh1 = BN1 backward; gradient of w1; x[..., 0:2] += conv1^T(gh1)
     for (int patch = blockIdx.x; patch < a.B; patch += gridDim.x) {
       float4 s1, s2;
-      group_sums(a, part_r, patch, red, s1, s2);
+      get_sums<BF>(a, part_r, patch, red, lred, s1, s2);
       const float4 mg = scale4(s1, cnt_inv), mgn = scale4(s2, cnt_inv);
       const float4 is1 = inv_sd4(*reinterpret_cast<const float4*>(mom + (patch / a.bt) * 16 + 4));
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
         const size_t q = slot(patch) + pix(k);
         const float4 n1 = n1s[q];
-        sB[pix(k)] = is1 * (n2s[q] - mg - n1 * mgn);
+        sB[pix(k)] = rnd4<BF>(is1 * (n2s[q] - mg - n1 * mgn));
         const float4 v = xin[q];
-        sA[pix(k)] = make_float4(v.x, v.y, 0.f, 0.f);
+        sA[pix(k)] = rnd4<BF>(make_float4(v.x, v.y, 0.f, 0.f));
       }
       __syncthreads();
       wgrad(sA, sB, 9, 2, a.wpart + static_cast<size_t>(patch) * a.nw +
                               static_cast<size_t>(idx) * REC + OFF_W1);
       float2 gx[PPT];
-      conv1_bwd(sB, rec, r0, c, gx);
+      conv1_bwd<BF>(sB, rec, r0, c, gx);
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
         const size_t q = slot(patch) + pix(k);
@@ -800,16 +931,19 @@ train_kernel(const StepArgs a) {
 // ---------------------------------------------------------------------------
 
 struct SegArgs {
-  const float4* x;     // [B, NPIX]
-  float4* z;           // [B, NPIX]
-  float* ldj;          // [B]
-  const float* rec;    // [nc, REC], BN folded into w1/b1 and w2/b2
-  const float4* offs;  // [nc, NPIX]
-  const float* mixes;  // [nm, 16]
+  const float4* x;      // [B, NPIX]
+  float4* z;            // [B, NPIX]
+  float* ldj;           // [B]
+  const float* rec;     // [nc, REC]: BN folded into w1/b1 and w2/b2, or not (bnrun)
+  const float4* offs;   // [nc, NPIX]
+  const float* mixes;   // [nm, 16]
+  const float4* bnrun;  // [nc, 4]: mean1, var1, mean2, var2 of each coupling's
+                        // running BN, applied after each conv; null: folded in rec
   int B, n_ops;
   int ops[MAX_OPS];
 };
 
+template <bool BF>
 __global__ void __launch_bounds__(THREADS)
 segment_kernel(const SegArgs a) {
   __shared__ float4 xs[NPIX];
@@ -825,10 +959,11 @@ segment_kernel(const SegArgs a) {
     const int kind = a.ops[i] >> 8, idx = a.ops[i] & 255;
     if (kind == OP_MIX) {
       const float* m = a.mixes + idx * 16;
-      const float4 m0 = ldg4(m), m1 = ldg4(m + 4), m2 = ldg4(m + 8), m3 = ldg4(m + 12);
+      const float4 m0 = wld4<BF>(m), m1 = wld4<BF>(m + 4), m2 = wld4<BF>(m + 8),
+                   m3 = wld4<BF>(m + 12);
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
-        const float4 v = x[k];
+        const float4 v = rnd4<BF>(x[k]);
         x[k] = fma4(v.w, m3, fma4(v.z, m2, fma4(v.y, m1, scale4(m0, v.x))));
       }
       continue;
@@ -836,15 +971,30 @@ segment_kernel(const SegArgs a) {
     const float* rec = a.rec + static_cast<size_t>(idx) * REC;
     __syncthreads();  // the previous coupling is done reading xs and hs
 #pragma unroll
-    for (int k = 0; k < PPT; ++k) xs[pix(k)] = x[k];
+    for (int k = 0; k < PPT; ++k) xs[pix(k)] = rnd4<BF>(x[k]);
     __syncthreads();
     float4 h[PPT];
-    conv1_fwd(xs, rec, r0, c, h);
+    conv1_fwd<BF>(xs, rec, r0, c, h);
+    const bool bn = a.bnrun != nullptr;
+    float4 m1 = zero4(), is1 = zero4(), m2 = zero4(), is2 = zero4();
+    if (bn) {
+      const float4* r = a.bnrun + static_cast<size_t>(idx) * 4;
+      m1 = r[0];
+      is1 = inv_sd4(r[1]);
+      m2 = r[2];
+      is2 = inv_sd4(r[3]);
+    }
 #pragma unroll
-    for (int k = 0; k < PPT; ++k) hs[pix(k)] = relu4(conv2_fwd(relu4(h[k]), rec));
+    for (int k = 0; k < PPT; ++k) {
+      float4 v = h[k];
+      if (bn) v = (v - m1) * is1;
+      v = conv2_fwd<BF>(relu4(v), rec);
+      if (bn) v = (v - m2) * is2;
+      hs[pix(k)] = rnd4<BF>(relu4(v));
+    }
     __syncthreads();
     float4 t[PPT];
-    conv3_fwd(hs, rec, a.offs + static_cast<size_t>(idx) * NPIX, r0, c, t);
+    conv3_fwd<BF>(hs, rec, a.offs + static_cast<size_t>(idx) * NPIX, r0, c, t);
     const float rescale = __ldg(rec + OFF_RESCALE);
 #pragma unroll
     for (int k = 0; k < PPT; ++k) {
@@ -916,25 +1066,32 @@ StepArgs make_args(int mode, int B, int bt, int ns, int nc, int nm, const int* o
   return a;
 }
 
-// One cooperative launch of train_kernel<MODE> on `stream`: as many CTAs as
-// can be resident at once (occupancy API), at most B.
-template <int MODE>
+// One cooperative launch of train_kernel<MODE, BF> on `stream`: as many CTAs
+// as can be resident at once (occupancy API), at most B.
+template <int MODE, bool BF>
 int launch_train(StepArgs a, void* stream, int* launched) {
   int dev = 0, sms = 0, per_sm = 0, coop = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, train_kernel<MODE>, THREADS, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, train_kernel<MODE, BF>, THREADS,
+                                                        0);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!coop || per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   const int grid = a.B < per_sm * sms ? a.B : per_sm * sms;
   void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(train_kernel<MODE>), dim3(grid),
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(train_kernel<MODE, BF>), dim3(grid),
                                     dim3(THREADS), args, 0, static_cast<cudaStream_t>(stream));
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err == cudaSuccess) ++*launched;
   return static_cast<int>(err);
+}
+
+template <int MODE>
+int launch_train(StepArgs a, int bf16, void* stream, int* launched) {
+  return bf16 ? launch_train<MODE, true>(a, stream, launched)
+              : launch_train<MODE, false>(a, stream, launched);
 }
 
 bool bad_sizes(int B, int bt, int nc, int nm) {
@@ -971,14 +1128,15 @@ extern "C" int nf_train_scratch(int mode, int B, int bt, int nc, int nm, int n_o
 // [nc,32,32,4], bnmom [nc,16] (m1, v1, m2, v2 of each BN, averaged over the
 // groups). scratch_f4, scratch_f, wpart as sized by nf_train_scratch (mode
 // 0), wpart zeroed. Sets *launched to the kernel launches issued (1 or 0) and
-// returns the launch error (cudaError_t), 0 if none.
+// returns the launch error (cudaError_t), 0 if none. bf16 != 0 runs the
+// bfloat16 mode (see the top of this file), 0 the float32 one.
 extern "C" int nf_train_step(const float* x, const float* clean, const float* sa,
                              const float* sb, const float* rec, const float* offs,
                              const float* mixes, float* scratch_f4, float* scratch_f,
                              float* wpart, float* rows, float* gsa, float* gsb,
                              float* grad_w, float* goffs, float* bnmom, int B, int bt,
                              int ns, int nc, int nm, float invb, float gl, const int* ops,
-                             int n_ops, void* stream, int* launched) {
+                             int n_ops, int bf16, void* stream, int* launched) {
   *launched = 0;
   if (bad_sizes(B, bt, nc, nm) || ns <= 0 || check_ops(ops, n_ops, nc, nm, ns, true))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -998,7 +1156,7 @@ extern "C" int nf_train_step(const float* x, const float* clean, const float* sa
   a.bnmom = bnmom;
   a.invb = invb;
   a.gl = gl;
-  return launch_train<STEP>(a, stream, launched);
+  return launch_train<STEP>(a, bf16, stream, launched);
 }
 
 // Ghost-BN forward of one [mix, coupling]* segment (no scale ops) over B
@@ -1007,12 +1165,12 @@ extern "C" int nf_train_step(const float* x, const float* clean, const float* sa
 // patch's ldj (the others are zero), bnmom [nc,16] (the group
 // moments averaged over the groups). rec [nc, REC] holds the records without
 // BN folded in. scratch_f4 and scratch_f as sized by nf_train_scratch (mode
-// 1). *launched and the return value as above.
+// 1). *launched, bf16 and the return value as above.
 extern "C" int nf_segment_train_forward(const float* x, float* z, float* rows, float* bnmom,
                                         const float* rec, const float* offs,
                                         const float* mixes, float* scratch_f4,
                                         float* scratch_f, int B, int bt, int nc, int nm,
-                                        const int* ops, int n_ops, void* stream,
+                                        const int* ops, int n_ops, int bf16, void* stream,
                                         int* launched) {
   *launched = 0;
   if (bad_sizes(B, bt, nc, nm) || check_ops(ops, n_ops, nc, nm, 0, false))
@@ -1025,7 +1183,7 @@ extern "C" int nf_segment_train_forward(const float* x, float* z, float* rows, f
   a.cur = reinterpret_cast<float4*>(z);
   a.rows = rows;
   a.bnmom = bnmom;
-  return launch_train<SEG_FWD>(a, stream, launched);
+  return launch_train<SEG_FWD>(a, bf16, stream, launched);
 }
 
 // Backward of that forward from the cotangents gz [B,32,32,4] and gldj [B],
@@ -1033,13 +1191,13 @@ extern "C" int nf_segment_train_forward(const float* x, float* z, float* rows, f
 // gx [B,32,32,4], grad_w [nc*REC + nm*16] (records, then mixes; the b1/b2
 // entries and every field the chain does not read are exactly zero), goffs
 // [nc,32,32,4]. scratch_f4, scratch_f, wpart as sized by nf_train_scratch
-// (mode 2), wpart zeroed. *launched and the return value as above.
+// (mode 2), wpart zeroed. *launched, bf16 and the return value as above.
 extern "C" int nf_segment_backward(const float* x, const float* gz, const float* gldj,
                                    const float* rec, const float* offs, const float* mixes,
                                    float* scratch_f4, float* scratch_f, float* wpart,
                                    float* gx, float* grad_w, float* goffs, int B, int bt,
-                                   int nc, int nm, const int* ops, int n_ops, void* stream,
-                                   int* launched) {
+                                   int nc, int nm, const int* ops, int n_ops, int bf16,
+                                   void* stream, int* launched) {
   *launched = 0;
   if (bad_sizes(B, bt, nc, nm) || check_ops(ops, n_ops, nc, nm, 0, false))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1053,16 +1211,19 @@ extern "C" int nf_segment_backward(const float* x, const float* gz, const float*
   a.gcur = reinterpret_cast<float4*>(gx);
   a.grad_w = grad_w;
   a.goffs = goffs;
-  return launch_train<SEG_BWD>(a, stream, launched);
+  return launch_train<SEG_BWD>(a, bf16, stream, launched);
 }
 
 // Running-statistics forward of one [mix, coupling]* segment: x -> z and the
-// per-patch log-det ldj [B]. rec holds the records with BN folded in. One
-// launch of B CTAs on `stream`; *launched and the return value as above.
+// per-patch log-det ldj [B]. rec holds the records with BN folded in and
+// bnrun is null, or rec holds them without BN and bnrun [nc, 4, 4] the
+// running mean1, var1, mean2, var2 of each coupling (the bfloat16 mode rounds
+// the unfolded weights, as the TPU kernel does). One launch of B CTAs on
+// `stream`; *launched, bf16 and the return value as above.
 extern "C" int nf_segment_forward(const float* x, float* z, float* ldj, const float* rec,
-                                  const float* offs, const float* mixes, int B, int nc,
-                                  int nm, const int* ops, int n_ops, void* stream,
-                                  int* launched) {
+                                  const float* offs, const float* mixes, const float* bnrun,
+                                  int B, int nc, int nm, const int* ops, int n_ops, int bf16,
+                                  void* stream, int* launched) {
   *launched = 0;
   if (B <= 0 || nc <= 0 || nm <= 0 || check_ops(ops, n_ops, nc, nm, 0, false))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1073,10 +1234,14 @@ extern "C" int nf_segment_forward(const float* x, float* z, float* ldj, const fl
   a.rec = rec;
   a.offs = reinterpret_cast<const float4*>(offs);
   a.mixes = mixes;
+  a.bnrun = reinterpret_cast<const float4*>(bnrun);
   a.B = B;
   a.n_ops = n_ops;
   for (int i = 0; i < n_ops; ++i) a.ops[i] = ops[i];
-  segment_kernel<<<B, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  if (bf16)
+    segment_kernel<true><<<B, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  else
+    segment_kernel<false><<<B, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
   const int err = static_cast<int>(cudaGetLastError());
   if (err == 0) ++*launched;
   return err;

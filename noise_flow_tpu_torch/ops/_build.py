@@ -29,18 +29,18 @@ _I = ctypes.c_int
 SIGNATURES = {
     "fused_sample": {
         "nf_fused_sample": ([_P] * 9 + [_I] * 4 + [ctypes.POINTER(_I), _I, _I, ctypes.c_uint,
-                             ctypes.c_float, _P, ctypes.POINTER(_I)], _I),
+                             ctypes.c_float, _I, _P, ctypes.POINTER(_I)], _I),
         "nf_rng_normals": ([_P, _I, ctypes.c_uint, ctypes.c_float, _P], _I),
     },
     "fused_train": {
         "nf_train_step": ([_P] * 16 + [_I] * 5 + [ctypes.c_float] * 2 + [ctypes.POINTER(_I),
-                          _I, _P, ctypes.POINTER(_I)], _I),
+                          _I, _I, _P, ctypes.POINTER(_I)], _I),
         "nf_train_scratch": ([_I] * 6 + [ctypes.POINTER(ctypes.c_longlong)], _I),
-        "nf_segment_forward": ([_P] * 6 + [_I] * 3 + [ctypes.POINTER(_I), _I, _P,
+        "nf_segment_forward": ([_P] * 7 + [_I] * 3 + [ctypes.POINTER(_I), _I, _I, _P,
                                ctypes.POINTER(_I)], _I),
-        "nf_segment_train_forward": ([_P] * 9 + [_I] * 4 + [ctypes.POINTER(_I), _I, _P,
+        "nf_segment_train_forward": ([_P] * 9 + [_I] * 4 + [ctypes.POINTER(_I), _I, _I, _P,
                                      ctypes.POINTER(_I)], _I),
-        "nf_segment_backward": ([_P] * 12 + [_I] * 4 + [ctypes.POINTER(_I), _I, _P,
+        "nf_segment_backward": ([_P] * 12 + [_I] * 4 + [ctypes.POINTER(_I), _I, _I, _P,
                                 ctypes.POINTER(_I)], _I),
     },
 }

@@ -31,6 +31,15 @@ Philox-4x32-10 bits through JAX's ``_box_muller``. ``rng_normals_reference``
 is that draw in plain PyTorch; the counter and key it assigns are written
 down once, at the top of ``csrc/fused_sample.cu``.
 
+``mm_dtype`` picks the precision of the chain's products, as the JAX
+kernel's: ``float32``, or ``bfloat16``, where each product of a mix or a
+convolution rounds both its operands to bfloat16 (nearest even) and sums
+the exact products in float32 (JAX's ``jnp.dot(a.astype(bf16),
+b.astype(bf16), preferred_element_type=f32)``). Everything else stays
+float32: biases, the offsets of the zero-conv's indicator channel, the
+batch-BN moments (JAX's ``mm32``), the scale layers and the coupling update.
+In running-BN mode the rounded weights are the BN-folded ones.
+
 ``sample_chain_reference`` is the plain PyTorch version of the kernel's
 function. ``fused_sample_chain`` (eps) and ``fused_sample_chain_rng`` (seed)
 launch the kernel for CUDA tensors and take the plain version only for CPU
@@ -41,7 +50,6 @@ from __future__ import annotations
 
 import collections
 import ctypes
-import logging
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -80,6 +88,25 @@ REC = 288
 launch_counts: Dict[str, int] = collections.Counter()
 
 
+# the precisions of the kernels' products, by the names JAX's kernels use
+_MM_DTYPES = {"float32": False, "bfloat16": True, torch.float32: False, torch.bfloat16: True}
+
+
+def is_bf16(mm_dtype) -> bool:
+    """True for the bfloat16 mode, False for float32; raise for any other
+    ``mm_dtype`` (a string or a torch dtype)."""
+    try:
+        return _MM_DTYPES[mm_dtype]
+    except (KeyError, TypeError):
+        raise ValueError(f"mm_dtype must be float32 or bfloat16, got {mm_dtype!r}") from None
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bfloat16 (nearest even) and back to float32: an operand
+    of a product in the bfloat16 mode."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
 def _field(rec: torch.Tensor, name: str) -> torch.Tensor:
     off, shape = _REC_LAYOUT[name]
     return rec[..., off:off + math.prod(shape)].reshape(rec.shape[:-1] + shape)
@@ -101,6 +128,8 @@ def _coupling_record(layer, fold_bn: bool) -> np.ndarray:
     w1, b1 = _np(p.l1_w), _np(p.l1_b).reshape(-1)
     w2, b2 = _np(p.l2_w)[0, 0], _np(p.l2_b).reshape(-1)
     if fold_bn:
+        # the float32 operations of JAX's _bn_fold, so that the folded
+        # weights, which the bfloat16 mode rounds, are the same floats
         s1 = (1.0 / np.sqrt(_np(s.bn1.var) + BN_EPS)).astype(np.float32)
         s2 = (1.0 / np.sqrt(_np(s.bn2.var) + BN_EPS)).astype(np.float32)
         w1, b1 = w1 * s1, (b1 - _np(s.bn1.mean)) * s1
@@ -297,28 +326,38 @@ def _group_bn(h, bt: int):
     return torch.cat(out, 0)
 
 
+def _zero_conv(h, rec, rnd):
+    """The coupling's zero-conv of the hidden map h: taps inside the patch
+    are a product of rnd(h) and rnd(w3); taps outside add the indicator
+    channel's weights, and the bias, in float32."""
+    wz = torch.cat([rnd(_field(rec, "w3")), _field(rec, "wind")[:, :, None]], 2)
+    return conv2d_nhwc(_edge_pad_with_indicator(rnd(h)), wz, "VALID") + _field(rec, "bz")
+
+
 @torch.no_grad()
 def sample_chain_reference(program: SampleProgram, x, clean, sa, sb,
-                           bt: Optional[int] = None):
+                           bt: Optional[int] = None, mm_dtype="float32"):
     """Plain version of the kernel: x [B,32,32,4] (eps * temp), clean
-    [B,32,32,4], sa/sb [B, n_scale] -> noise [B,32,32,4]."""
+    [B,32,32,4], sa/sb [B, n_scale] -> noise [B,32,32,4]. ``mm_dtype`` as in
+    the module docstring: in bfloat16 both operands of every product are
+    rounded, and nothing else."""
     batch_bn = program.bn_mode == "batch"
     bt = bt or x.shape[0]
+    rnd = bf16_round if is_bf16(mm_dtype) else (lambda t: t)
     for kind, idx in program.ops:
         if kind == OP_MIX:
-            x = x @ program.mixes[idx]
+            x = rnd(x) @ rnd(program.mixes[idx])
         elif kind == OP_SCALE:
             a = sa[:, idx].reshape(-1, 1, 1, 1)
             b = sb[:, idx].reshape(-1, 1, 1, 1)
             x = x * torch.sqrt(a * clean + b)
         else:
             rec = program.coup[idx]
-            h = conv2d_nhwc(x[..., :2], _field(rec, "w1")) + _field(rec, "b1")
+            h = conv2d_nhwc(rnd(x[..., :2]), rnd(_field(rec, "w1"))) + _field(rec, "b1")
             h = torch.relu(_group_bn(h, bt) if batch_bn else h)
-            h = h @ _field(rec, "w2") + _field(rec, "b2")
+            h = rnd(h) @ rnd(_field(rec, "w2")) + _field(rec, "b2")
             h = torch.relu(_group_bn(h, bt) if batch_bn else h)
-            wz = torch.cat([_field(rec, "w3"), _field(rec, "wind")[:, :, None]], 2)
-            t = conv2d_nhwc(_edge_pad_with_indicator(h), wz, "VALID") + _field(rec, "bz")
+            t = _zero_conv(h, rec, rnd)
             ls = _field(rec, "rescale") * torch.tanh(t[..., 2:])
             x = torch.cat([x[..., :2], (x[..., 2:] - t[..., :2]) * torch.exp(-ls)], -1)
     return x
@@ -340,9 +379,10 @@ def _check(name, t, shape):
 
 
 def _launch_kernel(program: SampleProgram, x, clean, sa, sb, bt: int,
-                   seed: Optional[int] = None, temp: float = 1.0):
+                   seed: Optional[int] = None, temp: float = 1.0, bf16: bool = False):
     """Launch the chain on x (eps * temp), or with ``seed`` (x None) on
-    normals(seed) * temp drawn in the kernel."""
+    normals(seed) * temp drawn in the kernel; ``bf16`` picks the kernel's
+    bfloat16 mode."""
     from noise_flow_tpu_torch.ops._build import load_library
 
     b = clean.shape[0]
@@ -372,12 +412,14 @@ def _launch_kernel(program: SampleProgram, x, clean, sa, sb, bt: int,
             sa.data_ptr(), sb.data_ptr(), program.mixes.data_ptr(), program.coup.data_ptr(),
             part.data_ptr(), mom.data_ptr(), b, ns, bt,
             int(program.bn_mode == "batch"), ops, len(program.ops_code),
-            int(seed is not None), 0 if seed is None else seed, float(temp), stream,
-            ctypes.byref(launched))
+            int(seed is not None), 0 if seed is None else seed, float(temp), int(bf16),
+            stream, ctypes.byref(launched))
     # one per kernel launch: the C entry runs the batch-BN chain stage by stage
     launch_counts["fused_sample"] += launched.value
     if seed is not None:
         launch_counts["fused_sample_rng"] += launched.value
+    if bf16:
+        launch_counts["fused_sample_bf16"] += launched.value
     if err != 0:
         raise RuntimeError(f"fused_sample kernel launch failed: CUDA error {err}")
     return out
@@ -394,31 +436,35 @@ def _device_kind(t) -> str:
 
 
 def fused_sample_chain(program: SampleProgram, x, clean, sa, sb,
-                       bt: Optional[int] = None):
+                       bt: Optional[int] = None, mm_dtype="float32"):
     """Run the sampling chain on x = eps * temp.
 
     CUDA tensors go through the kernel (or raise); CPU tensors through
     ``sample_chain_reference``. ``bt`` is the BatchNorm group size in batch
-    mode (default ``bn_block(B)``) and is ignored in running mode."""
+    mode (default ``bn_block(B)``) and is ignored in running mode.
+    ``mm_dtype``: float32 or bfloat16 (the kernel's bfloat16 mode)."""
     bt = _default_bt(program, x.shape[0], bt)
+    bf16 = is_bf16(mm_dtype)
     if _device_kind(x) == "cpu":
-        return sample_chain_reference(program, x, clean, sa, sb, bt)
-    return _launch_kernel(program, x, clean, sa, sb, bt)
+        return sample_chain_reference(program, x, clean, sa, sb, bt, mm_dtype)
+    return _launch_kernel(program, x, clean, sa, sb, bt, bf16=bf16)
 
 
 def fused_sample_chain_rng(program: SampleProgram, seed, temp: float, clean, sa, sb,
-                           bt: Optional[int] = None):
+                           bt: Optional[int] = None, mm_dtype="float32"):
     """Run the sampling chain on normals(seed) * temp, drawn in the kernel
     (the JAX kernel's in-kernel RNG mode): no eps tensor exists on the card.
     CPU tensors go through ``sample_chain_reference`` on
-    ``rng_normals_reference(seed, B) * temp``. ``bt`` as in
+    ``rng_normals_reference(seed, B) * temp``. ``bt`` and ``mm_dtype`` as in
     ``fused_sample_chain``."""
     b = clean.shape[0]
     bt = _default_bt(program, b, bt)
+    bf16 = is_bf16(mm_dtype)
     if _device_kind(clean) == "cpu":
         x = rng_normals_reference(seed, b) * temp
-        return sample_chain_reference(program, x, clean, sa, sb, bt)
-    return _launch_kernel(program, None, clean, sa, sb, bt, seed=rng_seed(seed), temp=temp)
+        return sample_chain_reference(program, x, clean, sa, sb, bt, mm_dtype)
+    return _launch_kernel(program, None, clean, sa, sb, bt, seed=rng_seed(seed), temp=temp,
+                          bf16=bf16)
 
 
 def rng_normals(seed, b: int, device, temp: float = 1.0):
@@ -446,13 +492,14 @@ def rng_normals(seed, b: int, device, temp: float = 1.0):
 @torch.no_grad()
 def fused_sample(program: SampleProgram, cond, temp: float = 1.0, eps=None,
                  generator: Optional[torch.Generator] = None,
-                 bt: Optional[int] = None, seed=None):
+                 bt: Optional[int] = None, seed=None, mm_dtype="float32"):
     """Sample noise for cond {'clean':[B,32,32,4], 'nlf0','nlf1','iso','cam'}.
 
     eps (optional): standard normals [B,32,32,4] for parity tests, else drawn
     from ``generator`` on the program's device. With ``seed`` (an int; the
     counterpart of ``pallas_sample(..., in_kernel_rng=True)``) the normals
-    are drawn in the kernel instead and no eps tensor is made. ``bt`` as in
+    are drawn in the kernel instead and no eps tensor is made. ``bt`` and
+    ``mm_dtype`` (float32, ``pallas_sample``'s default, or bfloat16) as in
     ``fused_sample_chain``. Returns [B,32,32,4]."""
     dev = program.device
     clean = torch.as_tensor(cond["clean"], dtype=torch.float32, device=dev).contiguous()
@@ -461,11 +508,11 @@ def fused_sample(program: SampleProgram, cond, temp: float = 1.0, eps=None,
     if seed is not None:
         if eps is not None:
             raise ValueError("fused_sample takes eps or seed, not both")
-        return fused_sample_chain_rng(program, seed, temp, clean, sa, sb, bt)
+        return fused_sample_chain_rng(program, seed, temp, clean, sa, sb, bt, mm_dtype)
     if eps is None:
         eps = torch.randn((b, H, W, C), generator=generator, device=dev)
     x = (torch.as_tensor(eps, dtype=torch.float32, device=dev) * temp).contiguous()
-    return fused_sample_chain(program, x, clean, sa, sb, bt)
+    return fused_sample_chain(program, x, clean, sa, sb, bt, mm_dtype)
 
 
 def precompute_scale_ab(program: SampleProgram, cond, batch: Optional[int] = None):
@@ -475,9 +522,6 @@ def precompute_scale_ab(program: SampleProgram, cond, batch: Optional[int] = Non
     return program.scale_ab(cond, batch or cond["clean"].shape[0])
 
 
-BF16_ITEM = "ROADMAP.md queue 2, 'the bf16 modes'"
-
-
 def make_sampler(program: SampleProgram, cond, temp: float = 1.0, bt: int = 64,
                  mm_dtype=torch.bfloat16, tile_out: bool = True):
     """The leanest per-call sampling closure for FIXED conditioning (JAX's
@@ -485,12 +529,9 @@ def make_sampler(program: SampleProgram, cond, temp: float = 1.0, bt: int = 64,
     kernel from an int seed, one launch a call in running-BN mode. Returns
     ``sample(seed) -> noise``, [B, 32, 32*4] (a view of the NHWC result) with
     ``tile_out``, else [B, 32, 32, 4]. ``bt`` is the BatchNorm group in batch
-    mode and must divide B, as JAX requires. ``mm_dtype`` other than float32
-    (JAX's default is bfloat16) warns and runs float32."""
-    if mm_dtype != torch.float32:
-        logging.getLogger(__name__).warning(
-            "make_sampler mm_dtype=%s: the fused sampler runs float32 only (%s)",
-            mm_dtype, BF16_ITEM)
+    mode and must divide B, as JAX requires. ``mm_dtype`` is the kernel's
+    precision, bfloat16 by default, as JAX's."""
+    is_bf16(mm_dtype)
     dev = program.device
     clean = torch.as_tensor(cond["clean"], dtype=torch.float32, device=dev).contiguous()
     batch = clean.shape[0]
@@ -500,7 +541,7 @@ def make_sampler(program: SampleProgram, cond, temp: float = 1.0, bt: int = 64,
         sa, sb = precompute_scale_ab(program, cond, batch)
 
     def sample(seed):
-        out = fused_sample_chain_rng(program, seed, temp, clean, sa, sb, bt)
+        out = fused_sample_chain_rng(program, seed, temp, clean, sa, sb, bt, mm_dtype)
         return out.view(batch, H, W * C) if tile_out else out
 
     return sample

@@ -37,6 +37,24 @@ Scale layers (sdn*, gain*) reduce to per-example ``(a, b)`` with
 clean = 0 and 1; their log-dets through the layer's own ``inverse`` on a
 dummy input. Both stay in differentiable PyTorch.
 
+``mm_dtype`` is the precision of the kernels' products, by JAX's names:
+``"float32"``, or ``"bfloat16"`` (the trainer's default
+``pallas_train_dtype``), where every product that JAX's kernels compute as a
+matmul ``mm(a, b)`` rounds both operands to bfloat16 (nearest even) and
+sums the exact products in float32. Forward: the chain state at a mix and
+at conv1, relu(n1) at conv2, relu(n2) at conv3, and the weights. Backward:
+each data gradient ``mm(g, w.T)`` rounds g and w, each weight gradient
+``mm(a.T, g)`` rounds a and g; the elementwise uses of the same values stay
+float32. The ghost-BN moments are an ``mm`` there too: the sum of each lane
+(one column and channel) over the group's rows is rounded to bfloat16
+before the 32 lanes of a channel are added, in both forward moments and in
+the two means of the BN backward. Autograd through ``.to(torch.bfloat16)``
+would round the results of the backward's products instead of their
+operands, so the bfloat16 plain versions are built from autograd Functions
+whose backward rounds where JAX's does. The running-statistics eval forward
+in bfloat16 takes the records without BN folded in and the running moments
+(``bnrun``), as JAX's kernel with ``ghost_bn=False``.
+
 ``train_step_reference``, ``segment_forward_reference``,
 ``segment_train_forward_reference`` and ``segment_backward_reference`` are
 the plain PyTorch versions of the kernels. ``fused_train_step``,
@@ -66,13 +84,14 @@ from noise_flow_tpu_torch.ops.fused_sample import (
     _REC_LAYOUT,
     _check,
     _field,
+    bf16_round,
+    is_bf16,
     launch_counts,
 )
 from noise_flow_tpu_torch.ops.nn import BN_DECAY, BN_EPS, LOGSCALE_FACTOR, conv2d_nhwc
 
 H, W, C = 32, 32, 4
 SUPPORTED_KINDS = {"coupling", "conv1x1", "perm_reverse"}
-BF16_ITEM = "ROADMAP.md queue 2, 'the bf16 modes'"
 _CODE = {"mix": OP_MIX, "scale": OP_SCALE, "coup": OP_COUPLING}
 # what one launch of the train kernel computes (Mode in csrc/fused_train.cu)
 _STEP, _SEG_FWD, _SEG_BWD = 0, 1, 2
@@ -119,13 +138,6 @@ def check_envelope(flow) -> None:
     kinds = {s.kind for s in flow.specs} - set(SCALE_KINDS)
     if not kinds <= SUPPORTED_KINDS:
         raise ValueError(f"unsupported layer kinds {kinds - SUPPORTED_KINDS}")
-
-
-def _check_dtype(mm_dtype: str) -> None:
-    if mm_dtype != "float32":
-        raise NotImplementedError(
-            f"the fused training kernels run float32 only, not {mm_dtype!r}: "
-            f"{BF16_ITEM}")
 
 
 # ---------------------------------------------------------------------------
@@ -229,27 +241,109 @@ def _ghost_bn(h, bt: int):
     return n, m.mean(dim=(0, 1, 2)).detach(), v.mean(dim=(0, 1, 2)).detach()
 
 
-def _coupling_train(x, r, off, bt: int):
-    h = conv2d_nhwc(x[..., :2], _field(r, "w1")) + _field(r, "b1")
-    n1, m1, v1 = _ghost_bn(h, bt)
-    h = torch.relu(n1) @ _field(r, "w2") + _field(r, "b2")
-    n2, m2, v2 = _ghost_bn(h, bt)
-    t = conv2d_nhwc(torch.relu(n2), _field(r, "w3")) + off
+def _bf16_cmean(v, bt: int):
+    """JAX's bfloat16 ``cmean`` over each group of bt patches: the sum of
+    each lane (column, channel) over the group's rows, rounded to bfloat16,
+    then the W lanes of a channel summed in float32, times 1/n ->
+    [B / bt, 1, 1, 1, C] (v grouped as [B / bt, bt, H, W, C])."""
+    lanes = bf16_round(v.sum(dim=(1, 2)))
+    return (lanes.sum(dim=1) * (1.0 / (bt * H * W)))[:, None, None, None, :]
+
+
+class _BF16GhostBN(torch.autograd.Function):
+    """Ghost BN in the bfloat16 mode: the moments by ``_bf16_cmean``; the
+    backward is JAX's ``bn_bwd``, inv_s * (gn - cmean(gn) - n * cmean(gn *
+    n)), with the same cmean. apply(h, bt) -> (n, mean, var), the moments
+    averaged over groups and not differentiable."""
+
+    @staticmethod
+    def forward(ctx, h, bt):
+        g = h.reshape(h.shape[0] // bt, bt, H, W, h.shape[-1])
+        m = _bf16_cmean(g, bt)
+        d = g - m
+        v = _bf16_cmean(d * d, bt)
+        inv = torch.rsqrt(v + BN_EPS)
+        n = d * inv
+        ctx.save_for_backward(n, inv)
+        ctx.bt = bt
+        mean, var = m.mean(dim=(0, 1, 2, 3)), v.mean(dim=(0, 1, 2, 3))
+        ctx.mark_non_differentiable(mean, var)
+        return n.reshape(h.shape), mean, var
+
+    @staticmethod
+    def backward(ctx, gn, _gm, _gv):
+        n, inv = ctx.saved_tensors
+        g = gn.reshape(n.shape)
+        gh = inv * (g - _bf16_cmean(g, ctx.bt) - n * _bf16_cmean(g * n, ctx.bt))
+        return gh.reshape(gn.shape), None
+
+
+class _BF16MM(torch.autograd.Function):
+    """a @ b (b [4, 4]: a mix or conv2) as JAX's bfloat16 ``mm``: a and b
+    rounded; backward g @ b.T with g and b rounded, a.T @ g with a and g."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ar, br = bf16_round(a), bf16_round(b)
+        ctx.save_for_backward(ar, br)
+        return ar @ br
+
+    @staticmethod
+    def backward(ctx, g):
+        ar, br = ctx.saved_tensors
+        gr = bf16_round(g)
+        return gr @ br.T, ar.reshape(-1, ar.shape[-1]).T @ gr.reshape(-1, gr.shape[-1])
+
+
+class _BF16Conv(torch.autograd.Function):
+    """conv2d_nhwc(x, w) (3x3, SAME) as JAX's bfloat16 band matmuls: x and
+    w rounded; backward the data and weight gradients of the same conv from
+    the rounded cotangent, on the rounded x and w."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xr, wr = bf16_round(x), bf16_round(w)
+        ctx.save_for_backward(xr, wr)
+        return conv2d_nhwc(xr, wr)
+
+    @staticmethod
+    def backward(ctx, g):
+        xr, wr = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            return torch.autograd.grad(conv2d_nhwc(xr, wr), (xr, wr), bf16_round(g))
+
+
+def _ops(mm_dtype):
+    """(conv, mm, ghost_bn) of the plain versions in mm_dtype."""
+    if is_bf16(mm_dtype):
+        return _BF16Conv.apply, _BF16MM.apply, _BF16GhostBN.apply
+    return conv2d_nhwc, torch.matmul, _ghost_bn
+
+
+def _coupling_train(x, r, off, bt: int, ops):
+    conv, mm, bn = ops
+    h = conv(x[..., :2], _field(r, "w1")) + _field(r, "b1")
+    n1, m1, v1 = bn(h, bt)
+    h = mm(torch.relu(n1), _field(r, "w2")) + _field(r, "b2")
+    n2, m2, v2 = bn(h, bt)
+    t = conv(torch.relu(n2), _field(r, "w3")) + off
     ls = _field(r, "rescale") * torch.tanh(t[..., 2:])
     x = torch.cat([x[..., :2], x[..., 2:] * torch.exp(ls) + t[..., :2]], -1)
     return x, ls.sum(dim=(1, 2, 3)), torch.stack([m1, v1, m2, v2])
 
 
 def train_step_reference(x, clean, sa, sb, rec, offs, mixes, ops_code,
-                         bt: int) -> Dict[str, torch.Tensor]:
+                         bt: int, mm_dtype="float32") -> Dict[str, torch.Tensor]:
     """Plain version of the step kernel: the same ghost-BN chain in plain
     ops, differentiated by ``torch.autograd.grad`` of
     ``mean(-(ldj + logp(z)))``. Returns the kernel's outputs: ``rows``
     [B, 3] (ldj, sum z, sum z^2), ``bnmom`` [nc, 4, 4] (m1, v1, m2, v2
     averaged over groups), and the gradients ``grad_rec``, ``grad_offs``,
     ``grad_mixes``, ``gsa``, ``gsb`` (the b1/b2 entries are autograd's
-    near-zeros, where the kernel gives exact zeros)."""
+    near-zeros, where the kernel gives exact zeros). ``mm_dtype`` as in the
+    module docstring."""
     b = x.shape[0]
+    ops = _ops(mm_dtype)
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in (rec, offs, mixes, sa, sb)]
         rec_, offs_, mix_, sa_, sb_ = leaves
@@ -259,12 +353,12 @@ def train_step_reference(x, clean, sa, sb, rec, offs, mixes, ops_code,
         for code in ops_code:
             kind, idx = code >> 8, code & 255
             if kind == OP_MIX:
-                z = z @ mix_[idx]
+                z = ops[1](z, mix_[idx])
             elif kind == OP_SCALE:
                 z = z / torch.sqrt(sa_[:, idx].reshape(-1, 1, 1, 1) * clean
                                    + sb_[:, idx].reshape(-1, 1, 1, 1))
             else:
-                z, l, mom = _coupling_train(z, rec_[idx], offs_[idx], bt)
+                z, l, mom = _coupling_train(z, rec_[idx], offs_[idx], bt, ops)
                 ldj = ldj + l
                 moms.append(mom)
         zs = z.sum(dim=(1, 2, 3))
@@ -280,36 +374,46 @@ def train_step_reference(x, clean, sa, sb, rec, offs, mixes, ops_code,
 
 
 @torch.no_grad()
-def segment_forward_reference(x, rec, offs, mixes, ops_code):
+def segment_forward_reference(x, rec, offs, mixes, ops_code, mm_dtype="float32", bnrun=None):
     """Plain version of the segment kernel: running-statistics forward of
-    one segment (BN folded into ``rec``) -> (z, ldj [B])."""
+    one segment -> (z, ldj [B]), with BN folded into ``rec`` (``bnrun``
+    None), or from records without it and ``bnrun`` [nc, 4, 4], the running
+    mean1, var1, mean2, var2 of each coupling, applied after each conv (the
+    bfloat16 mode's form, as JAX's)."""
+    conv, mm, _ = _ops(mm_dtype)
+
+    def bn(h, idx, j):
+        if bnrun is None:
+            return h
+        return (h - bnrun[idx, j]) * torch.rsqrt(bnrun[idx, j + 1] + BN_EPS)
     z = x
     ldj = x.new_zeros((x.shape[0],))
     for code in ops_code:
         kind, idx = code >> 8, code & 255
         if kind == OP_MIX:
-            z = z @ mixes[idx]
+            z = mm(z, mixes[idx])
             continue
         r = rec[idx]
-        h = torch.relu(conv2d_nhwc(z[..., :2], _field(r, "w1")) + _field(r, "b1"))
-        h = torch.relu(h @ _field(r, "w2") + _field(r, "b2"))
-        t = conv2d_nhwc(h, _field(r, "w3")) + offs[idx]
+        h = torch.relu(bn(conv(z[..., :2], _field(r, "w1")) + _field(r, "b1"), idx, 0))
+        h = torch.relu(bn(mm(h, _field(r, "w2")) + _field(r, "b2"), idx, 2))
+        t = conv(h, _field(r, "w3")) + offs[idx]
         ls = _field(r, "rescale") * torch.tanh(t[..., 2:])
         z = torch.cat([z[..., :2], z[..., 2:] * torch.exp(ls) + t[..., :2]], -1)
         ldj = ldj + ls.sum(dim=(1, 2, 3))
     return z, ldj
 
 
-def _segment_train_chain(x, rec, offs, mixes, ops_code, bt: int):
+def _segment_train_chain(x, rec, offs, mixes, ops_code, bt: int, mm_dtype):
+    ops = _ops(mm_dtype)
     z = x
     ldj = x.new_zeros((x.shape[0],))
     moms = []
     for code in ops_code:
         kind, idx = code >> 8, code & 255
         if kind == OP_MIX:
-            z = z @ mixes[idx]
+            z = ops[1](z, mixes[idx])
         else:
-            z, l, mom = _coupling_train(z, rec[idx], offs[idx], bt)
+            z, l, mom = _coupling_train(z, rec[idx], offs[idx], bt, ops)
             ldj = ldj + l
             moms.append(mom)
     bnmom = torch.stack(moms) if moms else x.new_zeros((rec.shape[0], 4, C))
@@ -317,21 +421,24 @@ def _segment_train_chain(x, rec, offs, mixes, ops_code, bt: int):
 
 
 @torch.no_grad()
-def segment_train_forward_reference(x, rec, offs, mixes, ops_code, bt: int):
+def segment_train_forward_reference(x, rec, offs, mixes, ops_code, bt: int,
+                                    mm_dtype="float32"):
     """Plain version of the ghost-BN segment kernel: one segment's forward
     with BN over groups of bt patches, from un-folded records -> (z, ldj [B],
     bnmom [nc, 4, 4]: m1, v1, m2, v2 of each coupling averaged over groups)."""
-    return _segment_train_chain(x, rec, offs, mixes, ops_code, bt)
+    return _segment_train_chain(x, rec, offs, mixes, ops_code, bt, mm_dtype)
 
 
-def segment_backward_reference(x, rec, offs, mixes, ops_code, bt: int, gz, gldj):
+def segment_backward_reference(x, rec, offs, mixes, ops_code, bt: int, gz, gldj,
+                               mm_dtype="float32"):
     """Plain version of the segment backward kernel: ``torch.autograd.grad``
     of the ghost-BN forward against the cotangents gz [B,32,32,4] and gldj
     [B] -> (gx, grad_rec, grad_offs, grad_mixes). The b1/b2 entries of
-    grad_rec are autograd's near-zeros, where the kernel gives exact zeros."""
+    grad_rec are autograd's near-zeros, where the kernel gives exact zeros.
+    In bfloat16 the backward rounds where JAX's does (module docstring)."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in (x, rec, offs, mixes)]
-        z, ldj, _ = _segment_train_chain(*leaves, ops_code, bt)
+        z, ldj, _ = _segment_train_chain(*leaves, ops_code, bt, mm_dtype)
         grads = torch.autograd.grad((z, ldj), leaves, (gz, gldj), allow_unused=True)
     return tuple(torch.zeros_like(t) if g is None else g for g, t in zip(grads, leaves))
 
@@ -360,14 +467,18 @@ def _ops_array(ops_code):
     return (ctypes.c_int * max(len(ops_code), 1))(*ops_code)
 
 
-def _launch(name: str, entry, dev, *args) -> None:
-    """Call the C entry ``entry`` with ``args``, then the current stream of
-    ``dev`` and the launch count it sets; add its launches to
-    ``launch_counts[name]``, and raise if the launch failed."""
+def _launch(name: str, entry, dev, bf16: bool, *args) -> None:
+    """Call the C entry ``entry`` with ``args`` and the mode, then the
+    current stream of ``dev`` and the launch count it sets; add its launches
+    to ``launch_counts[name]`` (and to ``name + "_bf16"`` in the bfloat16
+    mode), and raise if the launch failed."""
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
-        err = entry(*args, torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched))
+        err = entry(*args, int(bf16), torch.cuda.current_stream(dev).cuda_stream,
+                    ctypes.byref(launched))
     launch_counts[name] += launched.value
+    if bf16:
+        launch_counts[name + "_bf16"] += launched.value
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
@@ -386,7 +497,7 @@ def _check_segment(x, rec, offs, mixes, ops_code, bt=None):
     return b, nc, nm
 
 
-def _launch_step(x, clean, sa, sb, rec, offs, mixes, ops_code, bt, ldj_seed=None):
+def _launch_step(x, clean, sa, sb, rec, offs, mixes, ops_code, bt, ldj_seed, bf16):
     from noise_flow_tpu_torch.ops._build import load_library
 
     b, ns, nc, nm = x.shape[0], sa.shape[1], rec.shape[0], mixes.shape[0]
@@ -407,7 +518,7 @@ def _launch_step(x, clean, sa, sb, rec, offs, mixes, ops_code, bt, ldj_seed=None
     out = {"rows": empty((b, 3)), "gsa": zeros((b, ns)), "gsb": zeros((b, ns)),
            "grad_w": empty((nc * REC + nm * C * C,)), "grad_offs": empty((nc, H, W, C)),
            "bnmom": empty((nc, 4, C))}
-    _launch("fused_train_step", lib.nf_train_step, x.device,
+    _launch("fused_train_step", lib.nf_train_step, x.device, bf16,
             x.data_ptr(), clean.data_ptr(), sa.data_ptr(), sb.data_ptr(),
             rec.data_ptr(), offs.data_ptr(), mixes.data_ptr(), scratch_f4.data_ptr(),
             scratch_f.data_ptr(), wpart.data_ptr(), out["rows"].data_ptr(),
@@ -422,49 +533,59 @@ def _launch_step(x, clean, sa, sb, rec, offs, mixes, ops_code, bt, ldj_seed=None
 
 
 def fused_train_step(x, clean, sa, sb, rec, offs, mixes, ops_code, bt: int,
-                     ldj_seed=None) -> Dict[str, torch.Tensor]:
+                     ldj_seed=None, mm_dtype="float32") -> Dict[str, torch.Tensor]:
     """One mean-NLL forward and backward over x [B,32,32,4] with BN groups of
-    bt. CUDA tensors go through the step kernel (or raise); CPU tensors
-    through ``train_step_reference``. Returns the outputs described there.
-    ``ldj_seed`` replaces the ldj seed -1/B (kernel only; to plant a fault)."""
+    bt, in ``mm_dtype``. CUDA tensors go through the step kernel (or raise);
+    CPU tensors through ``train_step_reference``. Returns the outputs
+    described there. ``ldj_seed`` replaces the ldj seed -1/B (kernel only; to
+    plant a fault)."""
+    bf16 = is_bf16(mm_dtype)
     if x.device.type == "cpu" and ldj_seed is None:
-        return train_step_reference(x, clean, sa, sb, rec, offs, mixes, ops_code, bt)
+        return train_step_reference(x, clean, sa, sb, rec, offs, mixes, ops_code, bt, mm_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"fused_train_step runs on CUDA or CPU tensors (ldj_seed: CUDA "
                          f"only), got {x.device}")
-    return _launch_step(x, clean, sa, sb, rec, offs, mixes, ops_code, bt, ldj_seed)
+    return _launch_step(x, clean, sa, sb, rec, offs, mixes, ops_code, bt, ldj_seed, bf16)
 
 
-def _launch_segment(x, rec, offs, mixes, ops_code):
+def _launch_segment(x, rec, offs, mixes, ops_code, bf16, bnrun):
     from noise_flow_tpu_torch.ops._build import load_library
 
     b, nc, nm = _check_segment(x, rec, offs, mixes, ops_code)
+    if bnrun is not None:
+        _check("bnrun", bnrun, (nc, 4, C))
+        _same_device(x, bnrun)
     lib = load_library("fused_train")
     z = torch.empty_like(x)
     ldj = torch.empty((b,), dtype=torch.float32, device=x.device)
-    _launch("fused_segment_forward", lib.nf_segment_forward, x.device,
+    _launch("fused_segment_forward", lib.nf_segment_forward, x.device, bf16,
             x.data_ptr(), z.data_ptr(), ldj.data_ptr(), rec.data_ptr(), offs.data_ptr(),
-            mixes.data_ptr(), b, nc, nm, _ops_array(ops_code), len(ops_code))
+            mixes.data_ptr(), None if bnrun is None else bnrun.data_ptr(), b, nc, nm,
+            _ops_array(ops_code), len(ops_code))
     return z, ldj
 
 
-def fused_segment_forward(x, rec, offs, mixes, ops_code):
-    """Running-statistics forward of one segment: x [B,32,32,4] -> (z, ldj).
-    CUDA tensors go through the kernel (or raise); CPU tensors through
+def fused_segment_forward(x, rec, offs, mixes, ops_code, mm_dtype="float32", bnrun=None):
+    """Running-statistics forward of one segment: x [B,32,32,4] -> (z, ldj),
+    ``rec`` and ``bnrun`` as in ``segment_forward_reference``. CUDA tensors
+    go through the kernel (or raise); CPU tensors through
     ``segment_forward_reference``."""
+    bf16 = is_bf16(mm_dtype)
     if x.device.type == "cpu":
-        return segment_forward_reference(x, rec, offs, mixes, ops_code)
+        return segment_forward_reference(x, rec, offs, mixes, ops_code, mm_dtype, bnrun)
     if x.device.type != "cuda":
         raise ValueError(f"fused_segment_forward runs on CUDA or CPU tensors, got {x.device}")
-    return _launch_segment(x, rec, offs, mixes, ops_code)
+    return _launch_segment(x, rec, offs, mixes, ops_code, bf16, bnrun)
 
 
-def fused_segment_train_forward(x, rec, offs, mixes, ops_code, bt: int):
+def fused_segment_train_forward(x, rec, offs, mixes, ops_code, bt: int, mm_dtype="float32"):
     """Ghost-BN forward of one segment: x [B,32,32,4] -> (z, ldj [B], bnmom
-    [nc, 4, 4]), BN over groups of bt. CUDA tensors go through the kernel
-    (or raise); CPU tensors through ``segment_train_forward_reference``."""
+    [nc, 4, 4]), BN over groups of bt, in ``mm_dtype``. CUDA tensors go
+    through the kernel (or raise); CPU tensors through
+    ``segment_train_forward_reference``."""
+    bf16 = is_bf16(mm_dtype)
     if x.device.type == "cpu":
-        return segment_train_forward_reference(x, rec, offs, mixes, ops_code, bt)
+        return segment_train_forward_reference(x, rec, offs, mixes, ops_code, bt, mm_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"fused_segment_train_forward runs on CUDA or CPU tensors, "
                          f"got {x.device}")
@@ -476,21 +597,24 @@ def fused_segment_train_forward(x, rec, offs, mixes, ops_code, bt: int):
     z = torch.empty_like(x)
     rows = torch.empty((b, 3), dtype=torch.float32, device=x.device)
     bnmom = torch.empty((nc, 4, C), dtype=torch.float32, device=x.device)
-    _launch("fused_segment_train_forward", lib.nf_segment_train_forward, x.device,
+    _launch("fused_segment_train_forward", lib.nf_segment_train_forward, x.device, bf16,
             x.data_ptr(), z.data_ptr(), rows.data_ptr(), bnmom.data_ptr(), rec.data_ptr(),
             offs.data_ptr(), mixes.data_ptr(), scratch_f4.data_ptr(), scratch_f.data_ptr(),
             b, bt, nc, nm, _ops_array(ops_code), len(ops_code))
     return z, rows[:, 0], bnmom
 
 
-def fused_segment_backward(x, rec, offs, mixes, ops_code, bt: int, gz, gldj):
+def fused_segment_backward(x, rec, offs, mixes, ops_code, bt: int, gz, gldj,
+                           mm_dtype="float32"):
     """Backward of ``fused_segment_train_forward`` from the cotangents gz
     [B,32,32,4] and gldj [B] -> (gx, grad_rec, grad_offs, grad_mixes); the
     kernel recomputes the forward. CUDA tensors go through the kernel (or
     raise; b1/b2 of grad_rec exactly zero); CPU tensors through
     ``segment_backward_reference``."""
+    bf16 = is_bf16(mm_dtype)
     if x.device.type == "cpu":
-        return segment_backward_reference(x, rec, offs, mixes, ops_code, bt, gz, gldj)
+        return segment_backward_reference(x, rec, offs, mixes, ops_code, bt, gz, gldj,
+                                          mm_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"fused_segment_backward runs on CUDA or CPU tensors, got {x.device}")
     from noise_flow_tpu_torch.ops._build import load_library
@@ -505,7 +629,7 @@ def fused_segment_backward(x, rec, offs, mixes, ops_code, bt: int, gz, gldj):
     gx = torch.empty_like(x)
     grad_w = torch.empty((nc * REC + nm * C * C,), dtype=torch.float32, device=x.device)
     goffs = torch.empty((nc, H, W, C), dtype=torch.float32, device=x.device)
-    _launch("fused_segment_backward", lib.nf_segment_backward, x.device,
+    _launch("fused_segment_backward", lib.nf_segment_backward, x.device, bf16,
             x.data_ptr(), gz.data_ptr(), gldj.data_ptr(), rec.data_ptr(), offs.data_ptr(),
             mixes.data_ptr(), scratch_f4.data_ptr(), scratch_f.data_ptr(), wpart.data_ptr(),
             gx.data_ptr(), grad_w.data_ptr(), goffs.data_ptr(), b, bt, nc, nm,
@@ -526,8 +650,9 @@ class SegmentFn(torch.autograd.Function):
     """One segment of the segment path as an autograd function, the
     counterpart of the JAX ``make_segment_fn`` custom_vjp.
 
-    apply(x, rec, offs, mixes, ops_code, bt, fns) -> (z, ldj [B], bnmom [nc,
-    4, 4]), bnmom not differentiable. ``fns`` is (forward, backward):
+    apply(x, rec, offs, mixes, ops_code, bt, fns, mm_dtype="float32") -> (z,
+    ldj [B], bnmom [nc, 4, 4]), bnmom not differentiable. ``fns`` is
+    (forward, backward):
     ``SEGMENT_KERNELS``, or ``SEGMENT_PLAIN`` to run the plain versions on any
     device. Only the inputs are saved; the backward recomputes the forward
     and takes any cotangents (gz, gldj); a cotangent that autograd does not
@@ -535,10 +660,10 @@ class SegmentFn(torch.autograd.Function):
     records' gradient are exact zeros, as in JAX (BN removes the mean)."""
 
     @staticmethod
-    def forward(ctx, x, rec, offs, mixes, ops_code, bt, fns):
-        z, ldj, bnmom = fns[0](x, rec, offs, mixes, ops_code, bt)
+    def forward(ctx, x, rec, offs, mixes, ops_code, bt, fns, mm_dtype="float32"):
+        z, ldj, bnmom = fns[0](x, rec, offs, mixes, ops_code, bt, mm_dtype=mm_dtype)
         ctx.save_for_backward(x, rec, offs, mixes)
-        ctx.ops_code, ctx.bt, ctx.bwd = ops_code, bt, fns[1]
+        ctx.ops_code, ctx.bt, ctx.bwd, ctx.mm_dtype = ops_code, bt, fns[1], mm_dtype
         ctx.mark_non_differentiable(bnmom)
         return z, ldj, bnmom
 
@@ -546,11 +671,12 @@ class SegmentFn(torch.autograd.Function):
     def backward(ctx, gz, gldj, _g_bn):
         x, rec, offs, mixes = ctx.saved_tensors
         gx, grad_rec, grad_offs, grad_mixes = ctx.bwd(
-            x, rec, offs, mixes, ctx.ops_code, ctx.bt, gz.contiguous(), gldj.contiguous())
+            x, rec, offs, mixes, ctx.ops_code, ctx.bt, gz.contiguous(), gldj.contiguous(),
+            mm_dtype=ctx.mm_dtype)
         for name in ("b1", "b2"):
             off, shape = _REC_LAYOUT[name]
             grad_rec[:, off:off + shape[0]] = 0.0
-        return gx, grad_rec, grad_offs, grad_mixes, None, None, None
+        return gx, grad_rec, grad_offs, grad_mixes, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -565,15 +691,15 @@ class FusedNLL(torch.autograd.Function):
     one-shot trick). Any other use of z or ldj would need the segment path's
     backward kernel.
 
-    apply(rec, offs, mixes, sa, sb, x, clean, ops_code, bt, step_fn) ->
-    (mean(-(ldj + logp(z))), sd_z, bnmom); the last two are not
+    apply(rec, offs, mixes, sa, sb, x, clean, ops_code, bt, step_fn, mm_dtype)
+    -> (mean(-(ldj + logp(z))), sd_z, bnmom); the last two are not
     differentiable. ``step_fn`` is ``fused_train_step``, or
     ``train_step_reference`` to run the plain version on any device (the
     on-card comparison does)."""
 
     @staticmethod
-    def forward(ctx, rec, offs, mixes, sa, sb, x, clean, ops_code, bt, step_fn):
-        out = step_fn(x, clean, sa, sb, rec, offs, mixes, ops_code, bt)
+    def forward(ctx, rec, offs, mixes, sa, sb, x, clean, ops_code, bt, step_fn, mm_dtype):
+        out = step_fn(x, clean, sa, sb, rec, offs, mixes, ops_code, bt, mm_dtype=mm_dtype)
         ctx.save_for_backward(out["grad_rec"], out["grad_offs"], out["grad_mixes"],
                               out["gsa"], out["gsb"])
         ldj, zs, z2 = out["rows"].unbind(1)
@@ -588,7 +714,7 @@ class FusedNLL(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, _g_sd, _g_bn):
-        return tuple(t * g for t in ctx.saved_tensors) + (None,) * 5
+        return tuple(t * g for t in ctx.saved_tensors) + (None,) * 6
 
 
 def _bn_state(flow, coup_idx, bnmom):
@@ -610,9 +736,10 @@ class _Fused:
 
     def __init__(self, flow, bt: int, mm_dtype: str):
         check_envelope(flow)
-        _check_dtype(mm_dtype)
+        is_bf16(mm_dtype)
         self.flow = flow
         self.bt = bt
+        self.mm_dtype = mm_dtype
 
     def _cond4(self, cond, batch: int):
         dev = self.flow.device
@@ -636,7 +763,7 @@ class FusedTrainStep(_Fused):
     ``state_dict`` buffers. Semantics match ``jax.value_and_grad`` of the
     JAX ``FusedFlow.loss`` in train mode, as the JAX ``FusedTrainStep``.
     Envelope: single-level 32x32x4 flows of couplings, 1x1 mixes and at most
-    ``MAX_SCALE`` scale layers; float32 only."""
+    ``MAX_SCALE`` scale layers. ``mm_dtype``: "float32" or "bfloat16"."""
 
     MAX_SCALE = 4
 
@@ -710,7 +837,7 @@ class FusedTrainStep(_Fused):
         rec, offs, mixes, mix_logdet = self.fold()
         sa, sb, ildj = self._prep(cond, batch)
         knll, sd_z, bnmom = FusedNLL.apply(rec, offs, mixes, sa, sb, x, clean,
-                                           self.ops_code, self.bt, step_fn)
+                                           self.ops_code, self.bt, step_fn, self.mm_dtype)
         nll = knll - mix_logdet - torch.mean(ildj)
         return nll, sd_z, _bn_state(self.flow, self.coup_idx, bnmom)
 
@@ -727,12 +854,14 @@ class FusedTrainStep(_Fused):
 class FusedFlow(_Fused):
     """Fused path over a NoiseFlow: ``loss(x, cond, train)`` mirrors
     ``NoiseFlow.loss`` with each [mix, coupling]* segment through a kernel
-    and the scale layers in PyTorch. ``train=False`` (eval) folds the running
-    statistics into the records and runs the running-statistics forward
-    kernel. ``train=True`` is the segment path, as the JAX ``FusedFlow``: each
-    segment through ``SegmentFn`` with BN over groups of ``bt`` patches,
-    differentiable with respect to the flow's parameters; the state it
-    returns holds the new running statistics."""
+    and the scale layers in PyTorch. ``train=False`` (eval) runs the
+    running-statistics forward kernel: in float32 with the running
+    statistics folded into the records, in bfloat16 with them applied after
+    each conv (``running_moments``). ``train=True`` is the segment path, as
+    the JAX ``FusedFlow``: each segment through ``SegmentFn`` with BN over
+    groups of ``bt`` patches, differentiable with respect to the flow's
+    parameters; the state it returns holds the new running statistics.
+    ``mm_dtype``: "float32" or "bfloat16"."""
 
     def __init__(self, flow, bt: int = 64, mm_dtype: str = "float32"):
         super().__init__(flow, bt, mm_dtype)
@@ -772,6 +901,20 @@ class FusedFlow(_Fused):
                                        [flow.layers[i] for i in mix_i], dev)
         return rec, offs, mixes, mix_logdet
 
+    def running_moments(self, lo: int, hi: int):
+        """[nc, 4, 4]: the running mean1, var1, mean2, var2 of each coupling
+        of the segment of specs [lo, hi) (the eval kernel's ``bnrun``; dead
+        channels of a narrower coupling have mean 0 and variance 1, as
+        JAX's ``bnrun``)."""
+        flow = self.flow
+        rows = [torch.stack([_pad_last(q.bn1.mean, C), _pad_last(q.bn1.var, C, 1.0),
+                             _pad_last(q.bn2.mean, C), _pad_last(q.bn2.var, C, 1.0)])
+                for q in (flow.layers[i].nn for i in range(lo, hi)
+                          if flow.specs[i].kind == "coupling")]
+        if not rows:
+            return torch.tensor([[[0.0] * C, [1.0] * C] * 2], device=flow.device)
+        return torch.stack(rows).contiguous()
+
     def inverse(self, x, cond, train: bool, seg_fns=SEGMENT_KERNELS):
         """data -> latent: (z, objective [B], state). Eval: no gradients,
         and the state is the couplings' running statistics, unchanged. Train:
@@ -793,15 +936,19 @@ class FusedFlow(_Fused):
                     obj = obj + ildj
                     continue
                 _, seg, lo, hi = item
-                rec, offs, mixes, mix_logdet = self.fold_segment(lo, hi, fold_bn=not train)
+                bf16 = is_bf16(self.mm_dtype)
+                rec, offs, mixes, mix_logdet = self.fold_segment(
+                    lo, hi, fold_bn=not (train or bf16))
                 code = _ops_code(seg.ops)
                 if train:
                     z, ldj, bnmom = SegmentFn.apply(z.contiguous(), rec, offs, mixes, code,
-                                                    self.bt, seg_fns)
+                                                    self.bt, seg_fns, self.mm_dtype)
                     state.update(_bn_state(flow, [i for i in range(lo, hi)
                                                   if flow.specs[i].kind == "coupling"], bnmom))
                 else:
-                    z, ldj = fused_segment_forward(z.contiguous(), rec, offs, mixes, code)
+                    bnrun = self.running_moments(lo, hi) if bf16 else None
+                    z, ldj = fused_segment_forward(z.contiguous(), rec, offs, mixes, code,
+                                                   self.mm_dtype, bnrun)
                 obj = obj + ldj + mix_logdet
         if not train:
             state = {k: v for k, v in flow.state_dict().items() if ".bn" in k}

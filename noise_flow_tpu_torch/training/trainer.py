@@ -117,23 +117,20 @@ class Trainer:
                     self.use_oneshot = getattr(cfg, "pallas_oneshot", True)
                 except ValueError:
                     pass
-                if getattr(cfg, "pallas_train_dtype", "float32") != "float32":
-                    logging.getLogger(__name__).warning(
-                        "pallas_train_dtype=%r: the fused kernels run float32 only "
-                        "(ROADMAP.md queue 2, 'the bf16 modes')",
-                        cfg.pallas_train_dtype)
+        # the fused kernels' precision, as JAX's trainer takes it
+        self.mm_dtype = getattr(cfg, "pallas_train_dtype", "bfloat16")
 
     # ------------------------------------------------------------ kernels
     def _fused_for_batch(self, b: int) -> FusedFlow:
         bt = pick_block(b)
         if bt not in self._fused_cache:
-            self._fused_cache[bt] = FusedFlow(self.flow, bt=bt)
+            self._fused_cache[bt] = FusedFlow(self.flow, bt=bt, mm_dtype=self.mm_dtype)
         return self._fused_cache[bt]
 
     def _step_for_batch(self, b: int) -> FusedTrainStep:
         bt = pick_block(b, target=64, stretch=8)
         if bt not in self._step_cache:
-            self._step_cache[bt] = FusedTrainStep(self.flow, bt=bt)
+            self._step_cache[bt] = FusedTrainStep(self.flow, bt=bt, mm_dtype=self.mm_dtype)
         return self._step_cache[bt]
 
     # -------------------------------------------------------------- steps

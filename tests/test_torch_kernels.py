@@ -512,3 +512,115 @@ def test_dncnn_nf_noise_matches_plain(cuda_device):
         128)
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 modes (make_sampler's default, the trainer's default
+# pallas_train_dtype): each kernel against its plain bfloat16 version,
+# normwise, since a value at a bfloat16 rounding boundary rounds either way
+# under another float32 summation order; the float32 kernel on the same
+# inputs must be further off than the tolerance (see chip_smoke.py BF16_*
+# for the observed errors these are set from)
+# ---------------------------------------------------------------------------
+
+BF16_SAMPLE_RTOL, BF16_Z_RTOL, BF16_BWD_RTOL, BF16_BN_ATOL = 3e-4, 3e-4, 1.5e-3, 5e-5
+BF16_STEP_RTOL = {"rows": 5e-5, "grad_rec": 4e-3, "grad_offs": 1.5e-2, "grad_mixes": 1e-3,
+                  "gsa": 1e-3, "gsb": 1e-3}
+
+
+def _nrel(k, p):
+    return float((k - p).norm() / p.norm().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,b,rng", [("batch", 138, False), ("running", 128, True)])
+def test_fused_sample_bf16_kernel_matches_plain(cuda_device, mode, b, rng):
+    prog = fs.build_sample_program(_flagship(cuda_device), bn_mode=mode)
+    x, clean, sa, sb = _inputs(prog, b, seed=b, device=cuda_device)
+    before = fs.launch_counts["fused_sample_bf16"]
+    if rng:
+        got, f32 = (fs.fused_sample_chain_rng(prog, 5, 0.6, clean, sa, sb, b, m)
+                    for m in ("bfloat16", "float32"))
+        x = fs.rng_normals_reference(5, b, device=cuda_device) * 0.6
+    else:
+        got, f32 = (fs.fused_sample_chain(prog, x, clean, sa, sb, b, m)
+                    for m in ("bfloat16", "float32"))
+    assert fs.launch_counts["fused_sample_bf16"] == before + (40 if mode == "batch" else 1)
+    ref = fs.sample_chain_reference(prog, x, clean, sa, sb, b, "bfloat16")
+    torch.cuda.synchronize()
+    assert _nrel(got, ref) <= BF16_SAMPLE_RTOL < _nrel(f32, ref), (_nrel(got, ref), _nrel(f32, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bt", [69, 138])
+def test_train_step_bf16_kernel_matches_plain(cuda_device, bt):
+    _, args = _step_inputs(_flagship(cuda_device), 138, bt, seed=bt, device=cuda_device)
+    before = ft.launch_counts["fused_train_step_bf16"]
+    got = ft.fused_train_step(*args, bt, mm_dtype="bfloat16")
+    assert ft.launch_counts["fused_train_step_bf16"] == before + 1
+    f32 = ft.fused_train_step(*args, bt)
+    ref = ft.train_step_reference(*args, bt, mm_dtype="bfloat16")
+    torch.cuda.synchronize()
+    assert float((got["bnmom"] - ref["bnmom"]).abs().max()) <= BF16_BN_ATOL
+    for key, tol in BF16_STEP_RTOL.items():
+        e, e32 = _nrel(got[key], ref[key]), _nrel(f32[key], ref[key])
+        assert e <= tol < e32, (key, e, e32)
+
+
+@pytest.mark.cuda
+def test_segment_kernels_bf16_match_plain(cuda_device):
+    """The running-BN eval forward (unfolded records and the running moments),
+    the ghost forward and the backward, bf16, on both flagship segments."""
+    flow = _flagship(cuda_device)
+    ff = ft.FusedFlow(flow)
+    b, bt, bf = 138, 69, "bfloat16"
+    segs, x, gz, gldj = _segments(flow, b, seed=7, device=cuda_device)
+    spans = [(lo, hi) for _, _, lo, hi in (it for it in ff.plan if it[0] == "segment")]
+    before = dict(ft.launch_counts)
+    for (rec, offs, mixes, code), (lo, hi) in zip(segs, spans):
+        bnrun = ff.running_moments(lo, hi)
+        zk, zk32 = (ft.fused_segment_forward(x, rec, offs, mixes, code, m, bnrun)[0]
+                    for m in (bf, "float32"))
+        zp = ft.segment_forward_reference(x, rec, offs, mixes, code, bf, bnrun)[0]
+        k, k32 = (ft.fused_segment_train_forward(x, rec, offs, mixes, code, bt, m)
+                  for m in (bf, "float32"))
+        p = ft.segment_train_forward_reference(x, rec, offs, mixes, code, bt, bf)
+        gk, gk32 = (ft.fused_segment_backward(x, rec, offs, mixes, code, bt, gz, gldj, m)
+                    for m in (bf, "float32"))
+        gp = ft.segment_backward_reference(x, rec, offs, mixes, code, bt, gz, gldj, bf)
+        torch.cuda.synchronize()
+        assert _nrel(zk, zp) <= BF16_Z_RTOL < _nrel(zk32, zp)
+        assert _nrel(k[0], p[0]) <= BF16_Z_RTOL < _nrel(k32[0], p[0])
+        assert float((k[2] - p[2]).abs().max()) <= BF16_BN_ATOL
+        for a, a32, r in zip(gk, gk32, gp):
+            assert _nrel(a, r) <= BF16_BWD_RTOL < _nrel(a32, r), (_nrel(a, r), _nrel(a32, r))
+        x = p[0]
+    for name in ("fused_segment_forward", "fused_segment_train_forward", "fused_segment_backward"):
+        assert ft.launch_counts[name + "_bf16"] == before.get(name + "_bf16", 0) + len(segs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("oneshot", [True, False], ids=["oneshot", "segment"])
+def test_trainer_launches_bf16_kernels_on_card(cuda_device, oneshot):
+    """Trainer(use_pallas=True) at the default pallas_train_dtype (bfloat16):
+    every train and eval launch in bf16 mode."""
+    from noise_flow_tpu_torch.training.trainer import Trainer
+
+    cfg = load_hps(os.path.join(MODEL, "hps.txt"))
+    cfg.use_pallas, cfg.pallas_oneshot = True, oneshot
+    assert cfg.pallas_train_dtype == "bfloat16"
+    tr = Trainer(_flagship(cuda_device), cfg)
+    rng = np.random.default_rng(0)
+    mb = {"_x": (0.02 * rng.standard_normal((16, 32, 32, 4))).astype(np.float32),
+          "_y": rng.uniform(0.01, 0.9, (16, 32, 32, 4)).astype(np.float32),
+          "nlf0": np.full(16, 5e-4, np.float32), "nlf1": np.full(16, 2e-6, np.float32),
+          "iso": np.full(16, 800.0, np.float32), "cam": np.full(16, 2.0, np.float32)}
+    ft.launch_counts.clear()
+    nll, _ = tr.train_epoch([mb, mb])
+    ev, _ = tr.eval_epoch([mb])
+    want = ({"fused_train_step": 2} if oneshot else
+            {"fused_segment_train_forward": 4, "fused_segment_backward": 4})
+    want["fused_segment_forward"] = 2
+    want.update({f"{k}_bf16": v for k, v in want.items()})
+    assert dict(ft.launch_counts) == want
+    assert np.isfinite(nll) and np.isfinite(ev)

@@ -198,8 +198,13 @@ def test_make_sampler_checks(flagship, caplog):
     with pytest.raises(ValueError, match="multiple of bt"):
         fs.make_sampler(prog, tc, bt=16, mm_dtype=torch.float32)
     with caplog.at_level("WARNING"):
-        fs.make_sampler(prog, tc, bt=8)          # JAX's default bf16: warns, runs f32
-    assert "bf16 modes" in caplog.text
+        got = fs.make_sampler(prog, tc, bt=8)(3)    # JAX's default: bf16, run as such
+    assert not caplog.text
+    bf16 = fs.fused_sample(prog, tc, seed=3, bt=8, mm_dtype=torch.bfloat16)
+    np.testing.assert_array_equal(got.reshape(24, 32, 32, 4).numpy(), bf16.numpy())
+    assert not torch.equal(bf16, fs.fused_sample(prog, tc, seed=3, bt=8))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fs.make_sampler(prog, tc, bt=8, mm_dtype=torch.float16)
     with pytest.raises(ValueError, match="eps or seed"):
         fs.fused_sample(prog, tc, eps=torch.zeros(24, 32, 32, 4), seed=1)
     with pytest.raises(ValueError, match="CUDA or the CPU"):

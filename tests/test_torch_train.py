@@ -208,7 +208,8 @@ def test_segment_reference_matches_flow_inverse():
 def test_envelope_and_unported_modes_raise():
     """Outside the one-shot step's envelope (more than MAX_SCALE scale
     layers) it raises ValueError, as JAX's does, and the segment path runs
-    the flow; the bf16 mode and flows outside the fused envelope raise."""
+    the flow; the bf16 mode is taken, an unknown dtype and flows outside the
+    fused envelope raise."""
     flow = NoiseFlow((32, 32, 4), default_config(arch="sdn|gain|sdn1|gain1|sdn2|unc"),
                      device="cpu")
     with pytest.raises(ValueError, match="segment path"):
@@ -219,8 +220,9 @@ def test_envelope_and_unported_modes_raise():
     assert bool(torch.isfinite(z).all()) and bool(torch.isfinite(obj).all()) and len(st) == 4
     with pytest.raises(ValueError, match="multiple of bt"):
         ft.FusedFlow(flow, bt=4).inverse(torch.as_tensor(x), _torch_cond(cond), train=True)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        ft.FusedFlow(flow, mm_dtype="bfloat16")
+    assert ft.FusedFlow(flow, mm_dtype="bfloat16").mm_dtype == "bfloat16"
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ft.FusedFlow(flow, mm_dtype="float16")
     small = NoiseFlow((16, 16, 4), default_config(arch="unc", patch_height=16), device="cpu")
     with pytest.raises(ValueError, match="x_shape"):
         ft.FusedFlow(small)
