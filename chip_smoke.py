@@ -108,10 +108,42 @@ Phases, each of which fails the run if it fails:
 30. time each bf16 kernel beside its float32 mode in turns, its plain
    version and its bf16 bound (useful FMAs over 989 TFLOP/s, bytes over 3.35
    TB/s);
-31. print the ``{"kernels": [...]}`` line, one entry a TPU kernel function
+31. the sampler with the whole batch as one BN group (``bt = b``, what
+   ``NoiseFlowWrapper`` passes) against its plain version at b = 2961 (the
+   frame) and 4096, within TOL, its kernel timed beside ``bn_block`` groups
+   (medians of runs in turns); the wrapper's own call at b = 300 equals
+   ``fused_sample(bt=300)`` bit for bit and not its ``bn_block`` groups of
+   150;
+32. the train template's probe attribution (``probes/train_template.py``;
+   ``csrc/train_probe.cu`` and the ``csrc/train_variants_*.cu`` libraries):
+   every ablation of the ghost segment forward and of the segment backward
+   in the parent's design and in the redesign, both precisions, bt 69 and
+   138; the chained ghost-BN reductions, the weight-gradient layouts, the
+   one-shot step in both designs, the launch and floor probes; each timed.
+   Every variant that has a plain version is held to it on the same inputs
+   (the full segment and step variants at the production kernels'
+   tolerances, the BN chains and weight gradients at BN_CHAIN_ATOL and
+   WGRAD_RTOL), and a planted fault of each of the last two must disagree;
+   the full variants in the production design are bit-equal to the
+   production kernels;
+33. the redesigned step and segment backward against the parent's template
+   (kept in the probe library) in turns, float32 and bf16, bt 69 and 138,
+   beside their bounds and plain versions; the ghost forward too, which
+   shares the template's design;
+34. print the ``{"kernels": [...]}`` line, one entry a TPU kernel function
    (the segment forward with its running and ghost modes, the sampler with
    its eps and RNG modes; every entry with its bf16 modes under
-   ``by_mode``).
+   ``by_mode``; the step and the backward with ``redesign``, the parent's
+   time beside each), then one entry a train-template probe site of
+   ``experiments/`` (``replaces`` its ``pl.pallas_call`` line; ``launches``
+   counts its wrappers' ``counters`` over the main paths' runs, each read
+   just after its path ran from counts set to 0; no main path runs a probe.
+   ``plain_ms`` and ``max_abs_err`` are null for the launch and floor
+   probes, which compute nothing to compare, and ``one_op_ms`` is one small
+   PyTorch call beside them).
+
+The redesign keeps one launch a call, so the exact launch counts of phases
+9, 15 and 28 are those of the parent's design.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; it is printed
 only if every phase passed. Exit code 0 then, non-zero otherwise.
@@ -119,6 +151,7 @@ only if every phase passed. Exit code 0 then, non-zero otherwise.
 
 from __future__ import annotations
 
+import collections
 import copy
 import itertools
 import json
@@ -184,6 +217,7 @@ SEG_GRAD_RTOL = 5e-4
 PATH_LOSS_RTOL = 1e-6
 FIVE_SCALE_ARCH = "sdn|gain|sdn1|gain1|sdn2|unc"   # beyond the one-shot step's 4 scale layers
 TRAIN_B, TRAIN_BTS = 138, (69, 138)
+FRAME_ROUNDS = 5      # phase 31: the frame's kernel at bt = b and bn_block(b), in turns
 TRAIN_EPOCHS, TRAIN_IMAGES, TEST_IMAGES = 2, 17, 3    # 512x512: 256 patches each
 # The in-kernel RNG mode. The kernel's normals against the plain version's
 # (both on the card): logf, sqrtf and sincosf at full precision on both
@@ -239,6 +273,72 @@ BF16_FIT_IMAGES = 90
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+# The probe library's variants that have a plain version (phase 32), each
+# against it on the same inputs: the template's full variants at the
+# tolerances of the production kernels above; 8 chained ghost-BN
+# normalisations of N(0, 1) patches, max abs (observed with this script on
+# an H100 80GB HBM3 at 700 W: 1.4e-6 in float32, 6.7e-6 in bfloat16, where
+# the rounding of a lane's group sum flips with the summation order); the
+# weight-gradient contractions of bfloat16-rounded operands in float32,
+# normwise (observed 1.3e-7 to 2.6e-7). A planted fault of each must exceed
+# them.
+BN_CHAIN_ATOL = {"float32": 1e-5, "bfloat16": 5e-5}
+WGRAD_RTOL = 1e-5
+# launch counts of the main paths, each read just after the path ran with
+# the counts set to 0 just before it (the kernels line's probe entries)
+MAIN_PATH = collections.Counter()
+
+
+def _main_path(counts: dict) -> dict:
+    """Add a main path's launch counts to MAIN_PATH; return them."""
+    MAIN_PATH.update(counts)
+    return counts
+
+
+def _norm_rel(k, p) -> float:
+    return float((k - p).norm() / p.norm().clamp_min(1e-30))
+
+
+def _probe_check(kind: str, dt: str, got, ref) -> bool:
+    """A probe variant against its plain version on the same inputs (the
+    check of train_template.attribution), at the tolerances above."""
+    import torch
+    bf = dt == "bfloat16"
+
+    def finite(t):
+        return bool(torch.isfinite(t).all())
+    if kind == "bn_chain":
+        return finite(got) and float((got - ref).abs().max()) <= BN_CHAIN_ATOL[dt]
+    if kind == "wgrad":
+        return finite(got) and _norm_rel(got, ref) <= WGRAD_RTOL
+    if kind == "train_step":
+        ok = True
+        for key in ref:
+            if key == "bnmom":
+                good = float((got[key] - ref[key]).abs().max()) <= (BF16_BN_ATOL if bf else BN_ATOL)
+            else:
+                tol = BF16_STEP_RTOL[key] if bf else ROWS_RTOL if key == "rows" else RAW_GRAD_RTOL
+                good = _norm_rel(got[key], ref[key]) <= tol
+            ok = ok and good and finite(got[key])
+        return ok
+    if kind == "segment_backward":
+        tol = BF16_BWD_RTOL if bf else SEG_GRAD_RTOL
+        return all(_norm_rel(a, r) <= tol and finite(a)
+                   for o, rr in zip(got, ref) for a, r in zip(o, rr))
+    if kind == "segment_train_forward":
+        ok = True
+        for (zk, lk, mk), (zp, lp, mp) in zip(got, ref):
+            if bf:
+                good = (_norm_rel(zk, zp) <= BF16_Z_RTOL and _norm_rel(lk, lp) <= BF16_LDJ_RTOL
+                        and float((mk - mp).abs().max()) <= BF16_BN_ATOL)
+            else:
+                good = (bool(((zk - zp).abs() <= SEG_TOL[0] + SEG_TOL[1] * zp.abs()).all())
+                        and float(((lk - lp).abs() / lp.abs().clamp_min(1.0)).max()) <= LDJ_RTOL
+                        and bool(((mk - mp).abs()
+                                  <= GHOST_BN_TOL[0] + GHOST_BN_TOL[1] * mp.abs()).all()))
+            ok = ok and good and finite(zk) and finite(lk)
+        return ok
+    raise ValueError(f"no check for {kind}")
 
 
 def _smi() -> str:
@@ -363,9 +463,6 @@ def _training_phases(phase, agree):
     b = TRAIN_B
     x, cond = _train_batch(b, seed=11)
 
-    def norm_rel(k, p):
-        return float((k - p).norm() / p.norm().clamp_min(1e-30))
-
     def kernel_inputs(step):
         with torch.no_grad():
             rec, offs, mixes, _ = step.fold()
@@ -386,7 +483,7 @@ def _training_phases(phase, agree):
                 e = float((k[key] - p[key]).abs().max())
                 good = e <= BN_ATOL
             else:
-                e = norm_rel(k[key], p[key])
+                e = _norm_rel(k[key], p[key])
                 good = e <= (ROWS_RTOL if key == "rows" else RAW_GRAD_RTOL)
             good = good and bool(torch.isfinite(k[key]).all())
             ok = ok and good
@@ -419,7 +516,7 @@ def _training_phases(phase, agree):
                 # the plain version's is autograd's rounding
                 ok = ok and float(gk[name].abs().max()) == 0.0
                 continue
-            rels[name] = norm_rel(gk[name], g)
+            rels[name] = _norm_rel(gk[name], g)
             max_abs = max(max_abs, float((gk[name] - g).abs().max()))
             max_rel = max(max_rel, float(((gk[name] - g).abs() / g.abs().clamp_min(1e-6)).max()))
         bad = {k: v for k, v in rels.items() if not v <= LEAF_GRAD_RTOL}
@@ -519,7 +616,7 @@ def _training_phases(phase, agree):
                     sc_sd=stats["sc_in_sd"], do_sampling=True, verbose=True)
         torch.cuda.synchronize()
         t_fit = time.time() - t0
-        counts = dict(fs.launch_counts)
+        counts = _main_path(dict(fs.launch_counts))
         launches[oneshot] = counts
         nll = torch.stack(nlls).cpu().numpy()
         # eval steps: each test batch, plus the sampling phase's first batch
@@ -685,7 +782,7 @@ def _training_phases(phase, agree):
         torch.cuda.synchronize()
         ok, worst = True, 0.0
         for name, a, r in zip(grad_names, k, p):
-            e = norm_rel(a, r)
+            e = _norm_rel(a, r)
             good = e <= SEG_GRAD_RTOL and bool(torch.isfinite(a).all())
             ok = ok and good
             worst = max(worst, float((a - r).abs().max()))
@@ -754,7 +851,7 @@ def _training_phases(phase, agree):
             if k.endswith(("l1_b", "l2_b")):
                 ok = ok and float(g_s[k].abs().max()) == 0.0 == float(g.abs().max())
                 continue
-            rels[k] = norm_rel(g_s[k], g)
+            rels[k] = _norm_rel(g_s[k], g)
         worst = max(rels, key=rels.get)
         bad = sorted(k for k, v in rels.items() if not v <= LEAF_GRAD_RTOL)
         print(f"compare segment path vs one-shot b={b} bt=69: loss {float(nll_s):.4f} vs "
@@ -798,7 +895,7 @@ def _training_phases(phase, agree):
         fs.launch_counts.clear()
         nlls = [float(tr5.train_step(tr5._put(mb))[0])
                 for mb in itertools.islice(tr.batches(b, drop_remainder=True), 5)]
-        counts = dict(fs.launch_counts)
+        counts = _main_path(dict(fs.launch_counts))
         want = {"fused_segment_train_forward": 5 * n_seg, "fused_segment_backward": 5 * n_seg}
         print(f"train {cfg.arch} (5 scale layers, segment path): 5 steps at b={b}, NLL "
               f"{[round(v, 3) for v in nlls]}; launches {counts} (expected {want})")
@@ -1011,7 +1108,7 @@ def _rng_dncnn_phases(phase, agree, programs, nf):
         tile = smp(next(seeds))
         torch.cuda.synchronize()
         extra = torch.cuda.max_memory_allocated() - base
-        counts = dict(fs.launch_counts)
+        counts = _main_path(dict(fs.launch_counts))
         out_bytes = tile.numel() * 4
         ms = _time_ms(lambda: smp(next(seeds)), 20)
         n = 20
@@ -1053,7 +1150,7 @@ def _rng_dncnn_phases(phase, agree, programs, nf):
             "--cam_iso_nlf", os.path.join(ROOT, "cam_iso_nlf.txt")])
         torch.cuda.synchronize()
         t_fit = time.time() - t0
-        counts = dict(fs.launch_counts)
+        counts = _main_path(dict(fs.launch_counts))
         out["launches"] = counts.get("fused_sample_rng", 0)
         want = DNCNN_EPOCHS * steps * BATCH_BN_LAUNCHES
         with open(os.path.join(save, "log.csv")) as f:
@@ -1255,14 +1352,11 @@ def _bf16_phases(phase, programs):
     errs, timings, launches = {}, {}, {}
     dev = torch.device("cuda")
 
-    def norm_rel(k, p):
-        return float((k - p).norm() / p.norm().clamp_min(1e-30))
-
     def hold(label, k, p, k32, tol):
         """The bf16 kernel's output k and the float32 kernel's k32 against
         the plain bf16 output p, normwise; (agrees, max abs error)."""
         torch.cuda.synchronize()
-        e, e32 = norm_rel(k, p), norm_rel(k32, p)
+        e, e32 = _norm_rel(k, p), _norm_rel(k32, p)
         max_abs = float((k - p).abs().max())
         ok = bool(torch.isfinite(k).all()) and e <= tol < e32
         print(f"compare bf16 {label}: normwise {e:.3e} max_abs {max_abs:.3e} (tol {tol}); "
@@ -1312,7 +1406,7 @@ def _bf16_phases(phase, programs):
                 e, e32 = (float((a - p[key]).abs().max()) for a in (k[key], k32[key]))
                 tol = BF16_BN_ATOL
             else:
-                e, e32 = norm_rel(k[key], p[key]), norm_rel(k32[key], p[key])
+                e, e32 = _norm_rel(k[key], p[key]), _norm_rel(k32[key], p[key])
                 tol = BF16_STEP_RTOL[key]
             good = e <= tol < e32 and bool(torch.isfinite(k[key]).all())
             ok = ok and good
@@ -1343,7 +1437,7 @@ def _bf16_phases(phase, programs):
             return float(torch.sqrt(sum(((g[n] - gp[n]) ** 2).sum() for n in leaves)
                                     / sum((gp[n] ** 2).sum() for n in leaves)))
         e_g, e_g32 = all_leaves(gk), all_leaves(g32)
-        rels = {n: norm_rel(gk[n], gp[n]) for n in leaves}
+        rels = {n: _norm_rel(gk[n], gp[n]) for n in leaves}
         worst_leaf = max(rels, key=rels.get)
         ok = ok and e_loss <= LOSS_RTOL and e_g <= BF16_LEAF_RTOL < e_g32
         print(f"compare bf16 train step b={b} bt={bt}: loss {float(nk):.4f} vs {float(npl):.4f} "
@@ -1374,7 +1468,7 @@ def _bf16_phases(phase, programs):
             zk32, _ = ft.fused_segment_forward(z_in, rec, offs, mixes, code, F32, bnrun)
             zp, lp = ft.segment_forward_reference(z_in, rec, offs, mixes, code, BF, bnrun)
             good, e = hold(f"eval forward segment {n} z b={b}", zk, zp, zk32, BF16_Z_RTOL)
-            e_l = norm_rel(lk, lp)
+            e_l = _norm_rel(lk, lp)
             print(f"  eval forward segment {n} ldj: normwise {e_l:.3e} (tol {BF16_LDJ_RTOL})")
             ok = ok and good and e_l <= BF16_LDJ_RTOL
             worst = max(worst, e, float((lk - lp).abs().max()))
@@ -1391,7 +1485,7 @@ def _bf16_phases(phase, programs):
             p = ft.segment_train_forward_reference(z_in, rec, offs, mixes, code, bt, BF)
             good, e = hold(f"ghost forward segment {n} z b={b} bt={bt}", k[0], p[0], k32[0],
                            BF16_Z_RTOL)
-            e_l, e_m = norm_rel(k[1], p[1]), float((k[2] - p[2]).abs().max())
+            e_l, e_m = _norm_rel(k[1], p[1]), float((k[2] - p[2]).abs().max())
             e_m32 = float((k32[2] - p[2]).abs().max())
             print(f"  ghost forward segment {n} ldj normwise {e_l:.3e} (tol {BF16_LDJ_RTOL}); "
                   f"group moments abs {e_m:.3e} (tol {BF16_BN_ATOL}; float32 kernel {e_m32:.3e})")
@@ -1487,7 +1581,7 @@ def _bf16_phases(phase, programs):
             train_cli.parse_config = parse
         torch.cuda.synchronize()
         t_fit = time.time() - t0
-        counts = dict(fs.launch_counts)
+        counts = _main_path(dict(fs.launch_counts))
         n_train = TRAIN_EPOCHS * steps * (1 if oneshot else n_seg)
         want = {"fused_segment_forward": TRAIN_EPOCHS * test_steps * n_seg}
         for name in (("fused_train_step",) if oneshot else
@@ -1520,7 +1614,7 @@ def _bf16_phases(phase, programs):
         n = 5
         tiles = [smp(next(seeds)) for _ in range(n)]
         torch.cuda.synchronize()
-        counts = dict(fs.launch_counts)
+        counts = _main_path(dict(fs.launch_counts))
         launches["make_sampler"] = counts
         ms = _time_ms(lambda: smp(next(seeds)), 20)
         timings["make_sampler"] = {"ms": ms, "patches_per_s": SAMPLER_B / (ms / 1e3)}
@@ -1628,6 +1722,156 @@ def _bf16_phases(phase, programs):
     }
 
 
+def _redesign_phases(phase, agree, programs, nf):
+    """Phases 31-33 (see the module docstring): the sampler with the whole
+    batch as one BN group, the train template's probe attribution, and the
+    redesigned step and segment backward against the parent's template.
+    Returns the probe sites' entries for the kernels line and the design
+    times by kernel."""
+    import numpy as np
+    import torch
+    from noise_flow_tpu_torch.ops import fused_sample as fs
+    from noise_flow_tpu_torch.ops import fused_train as ft
+    from noise_flow_tpu_torch.probes import train_template as tt
+
+    out = {"probes": {}, "designs": {}, "frame": {}}
+    prog = programs["batch"]
+
+    def whole_batch():
+        """The kernel at bt = b against its plain version, timed beside the
+        bn_block groups of JAX's Pallas branch; and the wrapper's own call
+        launches with bt = b: on one generator state it equals fused_sample
+        with bt = b bit for bit, and not with bn_block groups."""
+        for b in (2961, 4096):
+            x, clean, sa, sb = _inputs(prog, b, seed=b + 1)
+            k = fs.fused_sample_chain(prog, x, clean, sa, sb, b)
+            p = fs.sample_chain_reference(prog, x, clean, sa, sb, b)
+            ok, err = agree(f"bn=batch b={b} bt={b} (whole batch)", k, p)
+            if not ok:
+                raise AssertionError(f"kernel disagrees with plain at b={b}, bt={b}")
+            t = tt.alternated_ms({bt: lambda bt=bt: fs.fused_sample_chain(prog, x, clean, sa, sb,
+                                                                          bt)
+                                  for bt in (b, fs.bn_block(b))}, FRAME_ROUNDS, 5)
+            flops, nbytes = _work(prog, b)
+            out["frame"][b] = {"ms": t[b], "ms_bn_block": t[fs.bn_block(b)], "max_abs_err": err,
+                               "bound_ms": max(flops / PEAK_FP32_FLOPS,
+                                               nbytes / PEAK_HBM_BYTES) * 1e3}
+            print(f"time bn=batch b={b}: kernel at bt={b} {t[b]:.4f} ms, at "
+                  f"bt={fs.bn_block(b)} {t[fs.bn_block(b)]:.4f} ms (medians of {FRAME_ROUNDS}, "
+                  f"in turns; {t[b] / t[fs.bn_block(b)] - 1:+.1%})")
+        b = 300
+        clean = np.random.default_rng(3).uniform(0.01, 0.9, (b, 32, 32, 4)).astype(np.float32)
+        cond = {"clean": torch.as_tensor(clean, device="cuda"),
+                "iso": torch.full((b,), 800.0, device="cuda"),
+                "cam": torch.full((b,), 2.0, device="cuda"),
+                "nlf0": torch.zeros(b, device="cuda"), "nlf1": torch.zeros(b, device="cuda")}
+        state = nf._gen.get_state()
+        got = nf.sample_noise_nf(clean, 0.0, 0.0, 800.0, 2.0)
+        same = {}
+        for bt in (b, fs.bn_block(b)):
+            nf._gen.set_state(state)
+            ref = fs.fused_sample(prog, cond, temp=nf.temp, generator=nf._gen, bt=bt)
+            same[bt] = bool(np.array_equal(got, ref.cpu().numpy()))
+        print(f"wrapper b={b}: equals fused_sample bt={b} {same[b]}, bt={fs.bn_block(b)} "
+              f"{same[fs.bn_block(b)]}")
+        if not same[b] or same[fs.bn_block(b)]:
+            raise AssertionError("the wrapper's batch-BN call does not take the whole batch")
+    phase("sampler with the whole batch as one BN group (bt = b)", whole_batch)
+
+    def attribution():
+        """Every probe timed; every variant that has a plain version held to
+        it (_probe_check), and a planted fault of the bn chain and of the
+        weight gradient caught; the probe library's full variants in the
+        production design bit-equal to the production kernels."""
+        res = tt.attribution(iters=10, check=_probe_check)
+        bad = [f"{site}: {key}" for site, e in res.items()
+               for key, row in e["variants"].items() if row.get("agrees") is False]
+        held = sum(1 for e in res.values() for row in e["variants"].values() if "agrees" in row)
+        print(f"probe variants held to their plain versions: {held}, disagreeing: {bad}")
+        if bad or not held:
+            raise AssertionError(f"probe variants disagree with their plain versions: {bad}")
+        inp = tt.flagship_inputs()
+        zin, gz, gldj = inp["z"], inp["gz"], inp["gldj"]
+        faults = {
+            "bn chain in groups of 23, plain in 69": _probe_check(
+                "bn_chain", "float32", tt.bn_chain("production", zin, 23),
+                tt.bn_chain_reference(zin, 69)),
+            "mma weight gradient with a and g swapped": _probe_check(
+                "wgrad", "bfloat16", tt.wgrad("mma", 9, gz, zin), tt.wgrad_reference(9, zin, gz)),
+        }
+        print(f"probe planted faults (each must disagree): {faults}")
+        if any(faults.values()):
+            raise AssertionError(f"a probe check missed a planted fault: {faults}")
+        args = inp["step"]
+        for dt in ("float32", "bfloat16"):
+            a = ft.fused_train_step(*args, 69, mm_dtype=dt)
+            b = tt.train_step(tt.PROD, *args, 69, dt)
+            same = all(torch.equal(a[k], b[k]) for k in a)
+            for sg in inp["segments"]:
+                same = same and all(torch.equal(u, v) for u, v in zip(
+                    ft.fused_segment_train_forward(zin, *sg, 69, dt),
+                    tt.segment_train_forward(tt.PROD, "full", zin, *sg, 69, dt)))
+                same = same and all(torch.equal(u, v) for u, v in zip(
+                    ft.fused_segment_backward(zin, *sg, 69, gz, gldj, dt),
+                    tt.segment_backward(tt.PROD, "full", zin, *sg, 69, gz, gldj, dt)))
+            if not same:
+                raise AssertionError(f"a probe full variant ({dt}) is not the production kernel")
+        print("probe full variants: bit-equal to the production step, ghost forward and "
+              "backward kernels in both precisions")
+        out["probes"] = res
+    phase("train template probe attribution (parent design and redesign)", attribution)
+
+    def designs():
+        """Each kernel, precision and bt: the parent's template (probe
+        library) and the redesign (the production wrapper) in turns
+        (parent, redesign, redesign, parent), medians; bound and plain."""
+        inp = tt.flagship_inputs()
+        sa, rec, offs, mixes = inp["step"][2], *inp["step"][4:7]
+        segs, zin, gz, gldj = inp["segments"], inp["z"], inp["gz"], inp["gldj"]
+        for dt in ("float32", "bfloat16"):
+            peak = PEAK_BF16_FLOPS if dt == "bfloat16" else PEAK_FP32_FLOPS
+            for bt in TRAIN_BTS:
+                runs = {
+                    "step": (lambda: tt.train_step(tt.PARENT, *inp["step"], bt, dt),
+                             lambda: ft.fused_train_step(*inp["step"], bt, mm_dtype=dt),
+                             lambda: ft.train_step_reference(*inp["step"], bt, mm_dtype=dt),
+                             _train_work((rec, offs, mixes, sa), b_, "step")),
+                    "segment_backward": (
+                        lambda: [tt.segment_backward(tt.PARENT, "full", zin, *sg, bt, gz, gldj, dt)
+                                 for sg in segs],
+                        lambda: [ft.fused_segment_backward(zin, *sg, bt, gz, gldj, dt)
+                                 for sg in segs],
+                        lambda: [ft.segment_backward_reference(zin, *sg, bt, gz, gldj, dt)
+                                 for sg in segs],
+                        tuple(map(sum, zip(*(_train_work(sg, b_, "backward") for sg in segs))))),
+                    # not one of the two redesigned kernels: it shares the template's
+                    # design, and this row shows what that costs it
+                    "ghost_forward": (
+                        lambda: [tt.segment_train_forward(tt.PARENT, "full", zin, *sg, bt, dt)
+                                 for sg in segs],
+                        lambda: [ft.fused_segment_train_forward(zin, *sg, bt, dt) for sg in segs],
+                        lambda: [ft.segment_train_forward_reference(zin, *sg, bt, dt)
+                                 for sg in segs],
+                        tuple(map(sum, zip(*(_train_work(sg, b_, "ghost") for sg in segs)))))}
+                for kind, (parent, redesign, plain, (flops, nbytes)) in runs.items():
+                    ms = {"parent": [], "redesign": []}
+                    for who in ("parent", "redesign", "redesign", "parent"):
+                        ms[who].append(tt.time_ms(parent if who == "parent" else redesign, 20))
+                    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
+                    row = {"ms": float(np.median(ms["redesign"])),
+                           "parent_ms": float(np.median(ms["parent"])),
+                           "plain_ms": _time_ms(plain, 3), "bound_ms": max(t_ops, t_bytes) * 1e3,
+                           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+                    out["designs"][(kind, dt, bt)] = row
+                    print(f"time {kind} {dt} b={b_} bt={bt}: redesign {row['ms']:.4f} ms, parent "
+                          f"{row['parent_ms']:.4f} ms ({row['parent_ms'] / row['ms']:.2f}x), plain "
+                          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+                          f"({row['bound_by']})")
+    b_ = TRAIN_B
+    phase("step and segment backward: redesign against the parent's template", designs)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1664,10 +1908,11 @@ def main() -> int:
         t0 = time.time()
         _build.build_all()
         print(f"build_seconds {time.time() - t0:.2f}")
-        for name, log in _build.build_logs.items():
-            for line in log.splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"ptxas[{name}] {line.strip()}")
+        for name in _build.build_logs:
+            for k in _build.kernel_resources(name):
+                print(f"ptxas[{name}] {k['kernel']}: {k.get('registers')} registers, spill "
+                      f"{k['spill_stores']} B stores / {k['spill_loads']} B loads, "
+                      f"{k.get('smem')} B smem")
     phase("build kernels", build)
 
     nf = phase("load wrapper", lambda: NoiseFlowWrapper(
@@ -1758,7 +2003,7 @@ def main() -> int:
         t_frame = time.time() - t0
         if noise.shape != frame.shape[1:] or not np.isfinite(noise).all():
             raise AssertionError(f"bad frame noise {noise.shape}")
-        launches = fs.launch_counts["fused_sample"]
+        launches = _main_path(dict(fs.launch_counts))["fused_sample"]
         tiles = -(-FRAME_HW[0] // 32) * -(-FRAME_HW[1] // 32)
         calls = len(GRID) + -(-tiles // 4096)   # sample_noise_frame's batch
         expected = calls * BATCH_BN_LAUNCHES
@@ -1849,6 +2094,7 @@ def main() -> int:
     train_out = _training_phases(phase, agree)
     rng_out = _rng_dncnn_phases(phase, agree, programs, nf)
     bf16_modes = _bf16_phases(phase, programs)
+    redesign = _redesign_phases(phase, agree, programs, nf)
 
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
@@ -1885,12 +2131,22 @@ def main() -> int:
         "shape": "b=138, bn=batch, eps mode (the wrapper's default)",
         "by_mode": {"eps": eps_mode, "rng": rng_mode},
     }
+    entry["by_mode"]["eps"]["whole_batch"] = {
+        f"b={b},bt={b}": v for b, v in redesign["frame"].items()}
     kernels = [entry] + train_out["entries"]
     for k in kernels:   # the bf16 modes beside each kernel's float32 ones
         k.setdefault("by_mode", {}).update(bf16_modes.get(k["name"], {}))
+        kind = {"fused_train_step": "step", "fused_segment_backward": "segment_backward",
+                "fused_segment_forward": "ghost_forward"}.get(k["name"])
+        if kind:   # the production design beside the parent's, both precisions
+            k["redesign"] = {f"{dt},bt={bt}": v for (kd, dt, bt), v in
+                             redesign["designs"].items() if kd == kind}
     if {k["name"] for k in kernels} - set(bf16_modes):
         print("chip_smoke: a kernel has no bf16 mode in the kernels line", file=sys.stderr)
         return 1
+    for probe in redesign["probes"].values():   # the train-template probe sites
+        probe["launches"] = sum(MAIN_PATH.get(c, 0) for c in probe["counters"])
+        kernels.append(probe)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

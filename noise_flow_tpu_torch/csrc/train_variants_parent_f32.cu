@@ -1,0 +1,6 @@
+// train_variants.cuh in the parent's design, float32: one library of the probe
+// library's template variants (see train_variants.cuh).
+
+#define VARIANT_DESIGN DESIGN_PARENT
+#define VARIANT_BF false
+#include "train_variants.cuh"

@@ -3,8 +3,14 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/kernels/lib<name>-<hash>.so`` at the root of the checkout (listed in
 ``.gitignore``), with ``-gencode arch=compute_90a,code=sm_90a``. The hash
-covers the source and the flags, so an edited source is rebuilt. The build
-runs at first use; ``build_all`` starts one nvcc per source, all at once.
+covers the source, the headers of ``csrc/`` and the flags, so an edited
+source or header is rebuilt. ``train_probe`` and the four
+``train_variants_<design>_<precision>`` are the probe library of
+``probes/train_template.py``: the attribution probes, and the train
+kernels' template in the parent's design and the production one with its
+ablations, one library a design and precision so that they build in
+parallel. The build runs at first use; ``build_all`` starts one nvcc per
+source, all at once.
 Nothing is built or imported when this module is imported.
 """
 
@@ -13,10 +19,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -43,7 +50,26 @@ SIGNATURES = {
         "nf_segment_backward": ([_P] * 12 + [_I] * 4 + [ctypes.POINTER(_I), _I, _I, _P,
                                 ctypes.POINTER(_I)], _I),
     },
+    "train_probe": {
+        "nf_probe_bn_chain": ([_I] * 2 + [_P] * 3 + [_I] * 4 + [_P, ctypes.POINTER(_I)], _I),
+        "nf_probe_wgrad": ([_I] * 3 + [_P] * 3 + [_I, _P, ctypes.POINTER(_I)], _I),
+        "nf_probe_launch": ([_I] * 3 + [_P] * 16 + [_I] * 5 + [ctypes.POINTER(_I), _I, _P,
+                            ctypes.POINTER(_I)], _I),
+    },
 }
+VARIANT_LIBRARIES = tuple(f"train_variants_{design}_{precision}"
+                          for design in ("parent", "prod") for precision in ("f32", "bf16"))
+for _name in VARIANT_LIBRARIES:
+    SIGNATURES[_name] = {
+        "nf_train_scratch": ([_I] * 6 + [ctypes.POINTER(ctypes.c_longlong)], _I),
+        "nf_variant_train_step": ([_P] * 16 + [_I] * 5 + [ctypes.c_float] * 2
+                                  + [ctypes.POINTER(_I), _I, _P, ctypes.POINTER(_I)], _I),
+        "nf_variant_segment_backward": ([_I] + [_P] * 12 + [_I] * 4
+                                        + [ctypes.POINTER(_I), _I, _P, ctypes.POINTER(_I)], _I),
+        "nf_variant_segment_train_forward": ([_I] + [_P] * 9 + [_I] * 4
+                                             + [ctypes.POINTER(_I), _I, _P,
+                                                ctypes.POINTER(_I)], _I),
+    }
 
 _libs: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}
@@ -63,6 +89,8 @@ def _nvcc() -> str:
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -90,6 +118,30 @@ def build_all(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, Path]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return {n: so for n, (_, so) in targets.items()}
+
+
+def kernel_resources(name: str) -> List[Dict[str, object]]:
+    """Each kernel of library ``name`` as ``-Xptxas -v`` reported it in this
+    process's build (``build_logs``): its mangled name, registers, spill
+    stores and loads (bytes) and static shared memory (bytes)."""
+    out, cur = [], None
+    for line in build_logs.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"kernel": m.group(1), "spill_stores": 0, "spill_loads": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -454,13 +454,13 @@ def _same_device(*ts):
 
 def _scratch(lib, mode: int, b: int, bt: int, nc: int, nm: int, n_ops: int, dev):
     """The train kernel's scratch for one launch in ``mode``: (float4
-    scratch, partial sums and moments, zeroed per-patch weight gradients)."""
+    scratch, partial sums and moments, per-patch weight gradients), sized by
+    the library's ``nf_train_scratch``. The kernel writes every entry it
+    reads: nothing is zeroed."""
     sizes = (ctypes.c_longlong * 3)()
     if lib.nf_train_scratch(mode, b, bt, nc, nm, n_ops, sizes):
         raise ValueError(f"bad sizes: batch {b}, bt {bt}")
-    return (torch.empty(sizes[0], dtype=torch.float32, device=dev),
-            torch.empty(sizes[1], dtype=torch.float32, device=dev),
-            torch.zeros(sizes[2], dtype=torch.float32, device=dev))
+    return tuple(torch.empty(n, dtype=torch.float32, device=dev) for n in sizes)
 
 
 def _ops_array(ops_code):

@@ -94,10 +94,10 @@ class NoiseFlowWrapper:
                 "nlf0": full(b1), "nlf1": full(b2), "iso": full(iso),
                 "cam": full(cam)}
         t = self.temp if temp is None else float(temp)
-        # batch-stats BN: one group per batch up to 256 patches, so the
-        # moments are the full batch's; larger batches use groups
-        # (fused_sample_chain's default, bn_block)
-        out = fused_sample(self._program, cond, temp=t, generator=self._gen)
+        # batch-stats BN over the whole batch (bt = b), as JAX's default
+        # wrapper samples through flow.sample(train=True); fused_sample's
+        # own default, bn_block, is the rule of JAX's Pallas branch only
+        out = fused_sample(self._program, cond, temp=t, generator=self._gen, bt=b)
         return out.cpu().numpy()
 
     def sample_noise_frame(self, clean_frame: np.ndarray, b1: float,

@@ -624,3 +624,167 @@ def test_trainer_launches_bf16_kernels_on_card(cuda_device, oneshot):
     want.update({f"{k}_bf16": v for k, v in want.items()})
     assert dict(ft.launch_counts) == want
     assert np.isfinite(nll) and np.isfinite(ev)
+
+
+# ---------------------------------------------------------------------------
+# the train template's redesign (csrc/train_kernel.cuh, DESIGN_PROD): the
+# step and the segment backward against their plain versions in both
+# precisions at awkward shapes (one patch; a batch of 7 in one group; the
+# trainer's groups of 69; 300 patches, more than the 264 CTAs that can be
+# resident, in groups of 100), a rerun bit for bit, and the probe library's
+# full variant (csrc/train_probe.cu) bit-equal to the production kernel
+# ---------------------------------------------------------------------------
+
+AWKWARD = [(1, 1), (7, 7), (138, 69), (300, 100)]
+
+
+def _step_agrees(got, ref, mm_dtype):
+    if mm_dtype == "float32":
+        return _raw_close(got, ref)
+    return (float((got["bnmom"] - ref["bnmom"]).abs().max()) <= BF16_BN_ATOL
+            and all(_nrel(got[k], ref[k]) <= tol for k, tol in BF16_STEP_RTOL.items()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mm_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,bt", AWKWARD)
+def test_train_step_redesign_matches_plain(cuda_device, mm_dtype, b, bt):
+    _, args = _step_inputs(_flagship(cuda_device), b, bt, seed=3 * b + bt, device=cuda_device)
+    got = ft.fused_train_step(*args, bt, mm_dtype=mm_dtype)
+    ref = ft.train_step_reference(*args, bt, mm_dtype=mm_dtype)
+    again = ft.fused_train_step(*args, bt, mm_dtype=mm_dtype)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(v).all()) for v in got.values())
+    assert _step_agrees(got, ref, mm_dtype), {k: _nrel(got[k], ref[k]) for k in ref}
+    assert all(torch.equal(got[k], again[k]) for k in got)   # no float atomics
+    for name in ("b1", "b2"):
+        off, shape = fs._REC_LAYOUT[name]
+        assert float(got["grad_rec"][:, off:off + shape[0]].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mm_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,bt", AWKWARD)
+def test_segment_backward_redesign_matches_plain(cuda_device, mm_dtype, b, bt):
+    tol = SEG_GRAD_RTOL if mm_dtype == "float32" else BF16_BWD_RTOL
+    segs, x, gz, gldj = _segments(_flagship(cuda_device), b, seed=5 * b + bt,
+                                  device=cuda_device)
+    for rec, offs, mixes, code in segs:
+        got = ft.fused_segment_backward(x, rec, offs, mixes, code, bt, gz, gldj, mm_dtype)
+        ref = ft.segment_backward_reference(x, rec, offs, mixes, code, bt, gz, gldj, mm_dtype)
+        again = ft.fused_segment_backward(x, rec, offs, mixes, code, bt, gz, gldj, mm_dtype)
+        torch.cuda.synchronize()
+        assert all(_nrel(a, r) <= tol for a, r in zip(got, ref)), [
+            _nrel(a, r) for a, r in zip(got, ref)]
+        assert all(torch.equal(u, v) for u, v in zip(got, again))
+        x = ft.segment_train_forward_reference(x, rec, offs, mixes, code, bt, mm_dtype)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mm_dtype", ["float32", "bfloat16"])
+def test_probe_full_variant_is_the_production_kernel(cuda_device, mm_dtype):
+    """The probe library instantiates the production design's template with
+    its ablation switch at full: bit for bit the production kernels (step,
+    ghost forward, backward); its copy of the parent's design is held to the
+    plain versions."""
+    from noise_flow_tpu_torch.probes import train_template as tt
+
+    flow = _flagship(cuda_device)
+    _, args = _step_inputs(flow, 138, 69, seed=8, device=cuda_device)
+    prod = ft.fused_train_step(*args, 69, mm_dtype=mm_dtype)
+    probe = tt.train_step(tt.PROD, *args, 69, mm_dtype)
+    parent = tt.train_step(tt.PARENT, *args, 69, mm_dtype)
+    ref = ft.train_step_reference(*args, 69, mm_dtype=mm_dtype)
+    torch.cuda.synchronize()
+    assert all(torch.equal(prod[k], probe[k]) for k in prod)
+    assert _step_agrees(parent, ref, mm_dtype)
+    segs, x, gz, gldj = _segments(flow, 138, seed=9, device=cuda_device)
+    for rec, offs, mixes, code in segs:
+        a = ft.fused_segment_backward(x, rec, offs, mixes, code, 69, gz, gldj, mm_dtype)
+        b = tt.segment_backward(tt.PROD, "full", x, rec, offs, mixes, code, 69, gz, gldj,
+                                mm_dtype)
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+        a = ft.fused_segment_train_forward(x, rec, offs, mixes, code, 69, mm_dtype)
+        b = tt.segment_train_forward(tt.PROD, "full", x, rec, offs, mixes, code, 69, mm_dtype)
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+# ---------------------------------------------------------------------------
+# the probe library's other variants that have a plain version
+# (probes/train_template.py): the parent design's ghost forward and
+# backward; the chained ghost-BN reductions; the weight-gradient layouts.
+# Observed on an H100: BN chains 1.4e-6 (float32) and 6.7e-6 (bfloat16)
+# max abs, weight gradients 2.6e-7 normwise at most.
+# ---------------------------------------------------------------------------
+
+BN_CHAIN_ATOL = {"float32": 1e-5, "bfloat16": 5e-5}
+WGRAD_RTOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mm_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,bt", [(7, 7), (138, 69), (300, 100)])
+def test_probe_parent_segment_kernels_match_plain(cuda_device, mm_dtype, b, bt):
+    from noise_flow_tpu_torch.probes import train_template as tt
+
+    segs, x, gz, gldj = _segments(_flagship(cuda_device), b, seed=b + 2 * bt, device=cuda_device)
+    for rec, offs, mixes, code in segs:
+        zk, lk, mk = tt.segment_train_forward(tt.PARENT, "full", x, rec, offs, mixes, code, bt,
+                                              mm_dtype)
+        zp, lp, mp = ft.segment_train_forward_reference(x, rec, offs, mixes, code, bt, mm_dtype)
+        g = tt.segment_backward(tt.PARENT, "full", x, rec, offs, mixes, code, bt, gz, gldj,
+                                mm_dtype)
+        gp = ft.segment_backward_reference(x, rec, offs, mixes, code, bt, gz, gldj, mm_dtype)
+        torch.cuda.synchronize()
+        if mm_dtype == "float32":
+            np.testing.assert_allclose(zk.cpu().numpy(), zp.cpu().numpy(), **SEG_Z_TOL)
+            np.testing.assert_allclose(lk.cpu().numpy(), lp.cpu().numpy(), rtol=SEG_LDJ_RTOL)
+            np.testing.assert_allclose(mk.cpu().numpy(), mp.cpu().numpy(), atol=BN_ATOL,
+                                       rtol=SEG_BN_RTOL)
+            assert _bwd_close(g, gp)
+        else:
+            assert _nrel(zk, zp) <= BF16_Z_RTOL
+            assert float((mk - mp).abs().max()) <= BF16_BN_ATOL
+            assert all(_nrel(a, r) <= BF16_BWD_RTOL for a, r in zip(g, gp))
+        x = zp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mm_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["production", "no_reduction", "group_barrier", "merged"])
+def test_probe_bn_chain_matches_plain(cuda_device, variant, mm_dtype):
+    """Each reduction against n chained two-pass ghost BNs (no_reduction
+    against groups of one patch; it and merged run in float32), at the
+    flagship's groups and at groups of 7; a chain in groups of a third must
+    exceed the tolerance."""
+    from noise_flow_tpu_torch.probes import train_template as tt
+
+    x = torch.randn((138, 32, 32, 4), generator=torch.Generator().manual_seed(4)).to(cuda_device)
+    dt = "float32" if variant in tt.F32_ONLY_BN else mm_dtype
+    for b, bt in ((138, 69), (21, 7)):
+        got = tt.bn_chain(variant, x[:b], bt, tt.N_BN, mm_dtype)
+        ref = tt.bn_chain_reference(x[:b], 1 if variant == "no_reduction" else bt, tt.N_BN, dt)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        assert float((got - ref).abs().max()) <= BN_CHAIN_ATOL[dt], (b, bt)
+    wrong = tt.bn_chain("production", x, 23, tt.N_BN, mm_dtype)
+    ref = tt.bn_chain_reference(x, 69, tt.N_BN, mm_dtype)
+    assert float((wrong - ref).abs().max()) > BN_CHAIN_ATOL[mm_dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ntaps", [9, 1])
+@pytest.mark.parametrize("variant", ["warp", "mma"])
+def test_probe_wgrad_matches_plain(cuda_device, variant, ntaps):
+    from noise_flow_tpu_torch.probes import train_template as tt
+
+    g = torch.Generator().manual_seed(6)
+    a = torch.randn((138, 32, 32, 4), generator=g).to(cuda_device)
+    go = (torch.randn((138, 32, 32, 4), generator=g) / 138).to(cuda_device)
+    got = tt.wgrad(variant, ntaps, a, go)
+    ref = tt.wgrad_reference(ntaps, a, go)
+    again = tt.wgrad(variant, ntaps, a, go)
+    torch.cuda.synchronize()
+    assert _nrel(got, ref) <= WGRAD_RTOL
+    assert torch.equal(got, again)
+    assert _nrel(tt.wgrad(variant, ntaps, go, a), ref) > WGRAD_RTOL   # a and g swapped
