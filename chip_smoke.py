@@ -140,7 +140,34 @@ Phases, each of which fails the run if it fails:
    just after its path ran from counts set to 0; no main path runs a probe.
    ``plain_ms`` and ``max_abs_err`` are null for the launch and floor
    probes, which compute nothing to compare, and ``one_op_ms`` is one small
-   PyTorch call beside them).
+   PyTorch call beside them), and last the three sampler-group sites of
+   phase 35; before it, a ``{"rank": [...]}`` line: each kernel and mode
+   with main-path launches, calls x (device ms a call - bound a call)
+   summed over the shapes its calls ran at (the wrapper's requests and its
+   frame apart), the redesign ranking;
+35. the sampler group's probe attribution (``probes/sampler.py``;
+   ``csrc/sample_variants_{f32,bf16}.cu`` and ``csrc/sample_probe.cu``): the
+   sampler's template with every ablation of ``kernel_probe.py`` (notrans,
+   noshift, nocoupnn, interleave, 2 and 8 pixels a thread) and every fold of
+   ``kernel_sweep.py`` (concat-K, interleave, precast and their
+   combinations), at (R) running BN with in-kernel RNG, b = 8192, and (W)
+   batch BN on eps, b = bt = 138, both precisions; the chains of 56
+   dependent products of ``mxu_bound_probe.py`` at the literal shape and
+   at the sampler's, torch.matmul at 4096^2 (k) and the production sampler
+   in float32 against bfloat16 (R). Each is timed as device time in turns;
+   each variant is held to its plain version (float32 within TOL, bfloat16
+   normwise within BF16_SAMPLE_RTOL, notrans at NOTRANS_RTOL, the chains at
+   CHAIN_RTOL, over their first CHAIN_PREFIX products at CHAIN_PREFIX_RTOL,
+   and PX_CHAIN_RTOL), the variants of FULL's arithmetic
+   (interleave, precast, pixels a thread in running BN) bit for bit to it;
+   FULL is bit-equal to the production kernel in both precisions, BN modes
+   and input modes, a (W) call is 40 launches (nocoupnn one); then the
+   production sampler's rows (a request, the frame, the DnCNN_NF step,
+   make_sampler) and the eval forward re-timed as device times;
+36. plant faults those comparisons must catch: a wrong polynomial in
+   notrans (tanh u -> u), an interleaved stream reading the other patch's
+   clean, a precast record rounded toward zero, one chain product skipped,
+   a bfloat16 chain whose intermediates are not rounded again.
 
 The redesign keeps one launch a call, so the exact launch counts of phases
 9, 15 and 28 are those of the parent's design.
@@ -153,8 +180,10 @@ from __future__ import annotations
 
 import collections
 import copy
+import functools
 import itertools
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -167,6 +196,7 @@ MODEL = os.path.join(ROOT, "experiments", "sidd", "prod_exact_150")
 TEMP = 0.6
 GRID = ((100.0, 0.0), (400.0, 1.0), (800.0, 2.0), (1600.0, 3.0), (3200.0, 4.0))
 FRAME_HW = (1500, 2000)          # packed SIDD frame: 2961 patches of 32x32
+FRAME_B = -(-FRAME_HW[0] // 32) * -(-FRAME_HW[1] // 32)   # one wrapper call (b <= 4096)
 BATCHES = (138, 2961, 4096)      # requests, this frame, larger frames
 # kernel vs plain: |kernel - plain| <= atol + rtol * |plain|, elementwise, in
 # both BN modes: float32 sums (and batch-BN moments) in another order than the
@@ -284,6 +314,14 @@ PEAK_HBM_BYTES = 3.35e12
 # them.
 BN_CHAIN_ATOL = {"float32": 1e-5, "bfloat16": 5e-5}
 WGRAD_RTOL = 1e-5
+# The sampler probe library's variants (phase 35), each against its plain
+# version on the same inputs (observed with this script's first call on an
+# H100 80GB HBM3 at 700 W, b = 512 running and 138 batch): the sampler's
+# function and the ablations but notrans in float32 elementwise within TOL
+# (up to 1.8e-7 abs), in bfloat16 normwise within BF16_SAMPLE_RTOL (up to
+# 6.5e-5); notrans and the product chains at the tolerances of
+# probes/sampler.py (NOTRANS_RTOL, CHAIN_RTOL, PX_CHAIN_RTOL), which say
+# what was observed.
 # launch counts of the main paths, each read just after the path ran with
 # the counts set to 0 just before it (the kernels line's probe entries)
 MAIN_PATH = collections.Counter()
@@ -341,6 +379,26 @@ def _probe_check(kind: str, dt: str, got, ref) -> bool:
     raise ValueError(f"no check for {kind}")
 
 
+def _sampler_check(kind: str, dt: str, got, ref) -> bool:
+    """A sampler probe variant against its plain version on the same inputs
+    (the check of sampler.attribution), at the tolerances above."""
+    import torch
+    from noise_flow_tpu_torch.probes import sampler as sp
+    if not bool(torch.isfinite(got).all()):
+        return False
+    if kind == "sample_notrans":
+        return _norm_rel(got, ref) <= sp.NOTRANS_RTOL[dt]
+    if kind == "sample":
+        if dt == "bfloat16":
+            return _norm_rel(got, ref) <= BF16_SAMPLE_RTOL
+        return bool(((got - ref).abs() <= TOL[0] + TOL[1] * ref.abs()).all())
+    tol = {"mm_chain": sp.CHAIN_RTOL, "mm_chain_prefix": sp.CHAIN_PREFIX_RTOL,
+           "px_chain": sp.PX_CHAIN_RTOL}.get(kind)
+    if tol is not None:
+        return _norm_rel(got, ref) <= tol[dt]
+    raise ValueError(f"no check for {kind}")
+
+
 def _smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -386,20 +444,11 @@ def _inputs(program, b, seed):
 
 
 def _work(program, b, rng=False):
-    """(FLOPs, bytes) the chain needs for b patches: multiply-adds of the
-    convolutions and mixes at 2 FLOPs each; eps (not in the RNG mode) and
-    clean read once, the noise written once, sa/sb and the weights read
-    once. The RNG mode's Philox (integer) and Box-Muller operations are
-    left out: both modes are bound by the chain's float32 FMAs alone, by
-    one rule."""
-    from noise_flow_tpu_torch.ops.fused_sample import OP_COUPLING, OP_MIX
-    n_c = sum(1 for k, _ in program.ops if k == OP_COUPLING)
-    n_mix = sum(1 for k, _ in program.ops if k == OP_MIX)
-    mac_per_px = n_c * (9 * 2 * 4 + 4 * 4 + 9 * 4 * 4) + n_mix * 16
-    flops = 2.0 * mac_per_px * 32 * 32 * b
-    nbytes = 4.0 * ((2 if rng else 3) * b * 32 * 32 * 4 + 2 * b * max(program.n_scale, 1)
-                    + program.coup.numel() + program.mixes.numel())
-    return flops, nbytes
+    """(FLOPs, bytes) the chain needs for b patches (``sampler.chain_work``:
+    the convolutions' and mixes' multiply-adds, each input read and the noise
+    written once; the RNG mode's Philox and Box-Muller left out)."""
+    from noise_flow_tpu_torch.probes.sampler import chain_work
+    return chain_work(program, b, rng)
 
 
 def _train_batch(b, seed):
@@ -1872,6 +1921,229 @@ def _redesign_phases(phase, agree, programs, nf):
     return out
 
 
+def _production_times(programs, flow):
+    """Device times (``train_template.time_ms``, medians of ``sampler.ROUNDS``
+    rounds in turns) of the production rows the rank reads: the sampler's
+    eps mode at b = bt = 138 (a request) and at b = bt = FRAME_B (the frame),
+    its RNG mode at b = bt = 128 (the DnCNN_NF step) and at b = 8192 running
+    BN (make_sampler), the running-BN eval forward of both flagship segments
+    at b = 138; float32 and bfloat16 (the frame float32 only, as the
+    wrapper samples). Each row: ms a call, launches a call, bound, plain
+    ms."""
+    import torch
+    from noise_flow_tpu_torch.ops import fused_sample as fs
+    from noise_flow_tpu_torch.ops import fused_train as ft
+    from noise_flow_tpu_torch.probes import sampler as sp
+    from noise_flow_tpu_torch.probes import train_template as tt
+
+    w_in, r_in = sp.shape_inputs(programs, "W"), sp.shape_inputs(programs, "R")
+    d_in = dict(w_in, seed=sp.SEED, b=128, bt=128, x=None)    # RNG mode, batch BN
+    for key in ("clean", "sa", "sb"):
+        d_in[key] = d_in[key][:128].contiguous()
+    x, clean, sa, sb = _inputs(programs["batch"], FRAME_B, seed=FRAME_B + 7)
+    f_in = {"program": programs["batch"], "b": FRAME_B, "bt": FRAME_B, "x": x, "clean": clean,
+            "sa": sa, "sb": sb, "seed": None}
+    ff = ft.FusedFlow(flow, bt=sp.W_B)
+    with torch.no_grad():
+        segs = [(*ff.fold_segment(lo, hi, fold_bn=False)[:3], ft._ops_code(seg.ops),
+                 ff.running_moments(lo, hi)) for _, seg, lo, hi in
+                (it for it in ff.plan if it[0] == "segment")]
+    z = torch.randn((sp.W_B, 32, 32, 4), generator=torch.Generator(device="cuda").manual_seed(12),
+                    device="cuda")
+    eval_work = tuple(map(sum, zip(*(_train_work(sg[:3], sp.W_B, "forward") for sg in segs))))
+    plans = {}
+    for dt in sp.DTYPES:
+        suffix = "" if dt == "float32" else "_bf16"
+        runs = (("eps", w_in), ("eps_frame", f_in), ("rng", d_in), ("rng_8192", r_in))
+        for mode, inp in runs:
+            if mode == "eps_frame" and dt != "float32":
+                continue
+            plans[mode + suffix] = (functools.partial(sp.run_production, inp, dt),
+                                    functools.partial(sp.run_variant, inp, "full", dt, False),
+                                    _work(inp["program"], inp["b"], inp["seed"] is not None),
+                                    dt, f"b={inp['b']}, bt={inp['bt']}, "
+                                    f"{inp['program'].bn_mode} BN, "
+                                    f"{'rng' if inp['seed'] is not None else 'eps'}")
+        plans["eval" + suffix] = (
+            lambda dt=dt: [ft.fused_segment_forward(z, *sg[:4], dt, sg[4]) for sg in segs],
+            lambda dt=dt: [ft.segment_forward_reference(z, *sg[:4], dt, sg[4]) for sg in segs],
+            eval_work, dt, "b=138, running BN, both segments")
+    ms = tt.alternated_ms({k: v[0] for k, v in plans.items()}, sp.ROUNDS, 10)
+    out = {}
+    for key, (fn, plain, (fl, nb), dt, shape) in plans.items():
+        counter = "fused_segment_forward" if key.startswith("eval") else "fused_sample"
+        before = fs.launch_counts[counter]
+        fn()
+        launches = fs.launch_counts[counter] - before
+        bound = tt._bound(fl, nb, fs.is_bf16(dt))
+        out[key] = {"ms": ms[key], "launches_a_call": launches, "bound_ms": bound[0],
+                    "bound_by": bound[1], "plain_ms": tt.time_ms(plain, 2), "shape": shape}
+        print(f"time {key} ({shape}): {ms[key]:.4f} ms a call ({launches} launches), bound "
+              f"{bound[0]:.4f} ms ({bound[1]}), plain {out[key]['plain_ms']:.4f} ms")
+    return out
+
+
+def _sampler_phases(phase, programs, flow):
+    """Phases 35-36 (see the module docstring): the sampler group's probe
+    attribution and the production sampler's and eval forward's device
+    times, then the planted faults. Returns the probe sites' entries for
+    the kernels line and the production rows."""
+    import torch
+    from noise_flow_tpu_torch.ops import fused_sample as fs
+    from noise_flow_tpu_torch.probes import sampler as sp
+
+    out = {"probes": {}, "production": {}}
+
+    def attribution():
+        """Every variant timed and held to its plain version
+        (_sampler_check); the variants of FULL's arithmetic bit-equal to it;
+        FULL bit-equal to the production kernel in both precisions, both BN
+        modes and both input modes; 40 launches a (W) call, 1 for nocoupnn."""
+        res = sp.attribution(check=_sampler_check)
+        rows = {f"{site}: {k}": r for site, e in res.items() for k, r in e["variants"].items()}
+        bad = [k for k, r in rows.items()
+               if r.get("agrees") is False or r.get("bit_equal") is False
+               or r.get("bit_equal_to_production") is False]
+        held = sum(1 for r in rows.values() if "agrees" in r)
+        calls = {k: r["launches_a_call"] for k, r in rows.items() if "launches_a_call" in r}
+        wrong = [k for k, n in calls.items()
+                 if n != (1 if k.endswith(",R") or "nocoupnn" in k else BATCH_BN_LAUNCHES)]
+        print(f"sampler probe variants held to their plain versions: {held}; bit-equal checks: "
+              f"{sum(1 for r in rows.values() if 'bit_equal' in r)}; disagreeing: {bad}; "
+              f"launches a call wrong: {wrong}")
+        if bad or not held or wrong:
+            raise AssertionError(f"sampler probe variants disagree: {bad}, launches {wrong}")
+        for mode, rng in (("running", False), ("batch", True)):   # the other two input modes
+            inp = dict(sp.shape_inputs(programs, "W"), program=programs[mode])
+            if rng:
+                inp.update(seed=sp.SEED, x=None)
+            for dt in sp.DTYPES:
+                if not torch.equal(sp.run_variant(inp, "full", dt), sp.run_production(inp, dt)):
+                    raise AssertionError(f"probe full is not production ({mode}, rng={rng}, {dt})")
+        print("sampler probe full: bit-equal to the production kernel in both precisions, both "
+              "BN modes, both input modes")
+        out["probes"] = res
+        out["production"] = _production_times(programs, flow)
+    phase("sampler probe attribution", attribution)
+
+    def planted_faults():
+        """Faults of each kind the comparisons of phase 35 must catch: a
+        wrong polynomial in notrans (tanh u -> u), an interleaved stream
+        reading the other patch's clean, a precast record rounded toward
+        zero, one chain product skipped, and a bfloat16 chain whose
+        intermediates are not rounded again (the chains at their timed
+        shape)."""
+        inp = sp.shape_inputs(programs, "W")
+        prog, x, clean, sa, sb, b = (inp[k] for k in ("program", "x", "clean", "sa", "sb", "b"))
+        caught = {}
+        xc, wc = sp.chain_inputs(torch.Generator(device="cuda").manual_seed(3))
+        for dt in sp.DTYPES:
+            k = sp.sample_variant(prog, "notrans", x, clean, sa, sb, b, dt)
+            p = sp.ablated_chain_reference(prog, x, clean, sa, sb, b, dt, "notrans", slope=1.0)
+            caught[f"notrans tanh u -> u ({dt})"] = not _sampler_check("sample_notrans", dt, k, p)
+            swapped = clean.view(b // 2, 2, *clean.shape[1:]).flip(1).reshape(clean.shape)
+            k = sp.sample_variant(prog, "interleave", x, swapped.contiguous(), sa, sb, b, dt)
+            p = sp.variant_reference(prog, "interleave", x, clean, sa, sb, b, dt)
+            caught[f"interleave reads the other patch's clean ({dt})"] = not _sampler_check(
+                "sample", dt, k, p)
+            got, ref = sp.mm_chain(xc, wc[1:].contiguous(), dt), sp.mm_chain_reference(xc, wc, dt)
+            caught[f"chain with a product skipped ({dt})"] = not _sampler_check(
+                "mm_chain", dt, got, ref)
+            print(f"chain with a product skipped ({dt}): normwise {_norm_rel(got, ref):.3e}")
+        for n in (sp.N_MM, sp.CHAIN_PREFIX):   # the full chain's reading, for the record
+            got = sp.chain_without_rerounding(xc, wc[:n])
+            ref = sp.mm_chain_reference(xc, wc[:n], "bfloat16")
+            print(f"bfloat16 chain without re-rounding, {n} products: normwise "
+                  f"{_norm_rel(got, ref):.3e}")
+        caught["chain without re-rounding (bfloat16)"] = not _sampler_check(
+            "mm_chain_prefix", "bfloat16", got, ref)
+        trunc = copy.copy(prog)
+        coup = prog.coup.clone()
+        weights = torch.zeros(fs.REC, dtype=torch.bool, device="cuda")
+        for name in ("w1", "w2", "w3"):
+            off, shape = fs._REC_LAYOUT[name]
+            weights[off:off + math.prod(shape)] = True
+        toward_zero = (coup.view(torch.int32) & -65536).view(torch.float32)
+        trunc.coup = torch.where(weights, toward_zero, coup).contiguous()
+        k = sp.sample_variant(trunc, "precast", x, clean, sa, sb, b, "bfloat16")
+        full = sp.sample_variant(prog, "full", x, clean, sa, sb, b, "bfloat16")
+        caught["precast record rounded toward zero (bfloat16)"] = not torch.equal(k, full)
+        print(f"sampler probe planted faults (each must be caught): {caught}")
+        if not all(caught.values()):
+            raise AssertionError(f"a sampler probe comparison missed a planted fault: {caught}")
+    phase("sampler probe planted faults", planted_faults)
+    return out
+
+
+# the kernels line's (kernel, mode) by the production rows of
+# _production_times that time its calls; and the redesign rows (phase 33) by
+# (kernel, mode, kind, launches a call: both segments are two launches)
+PRODUCTION_MODES = {("fused_sample", "eps"): ("eps", "eps_frame"),
+                    ("fused_sample", "rng"): ("rng",),
+                    ("fused_sample", "eps_bf16"): ("eps_bf16",),
+                    ("fused_sample", "rng_bf16"): ("rng_8192_bf16",),
+                    ("fused_segment_forward", "running"): ("eval",),
+                    ("fused_segment_forward", "running_bf16"): ("eval_bf16",)}
+DESIGN_MODES = (("fused_train_step", None, "step", 1), ("fused_train_step", "bf16", "step", 1),
+                ("fused_segment_backward", None, "segment_backward", 2),
+                ("fused_segment_backward", "bf16", "segment_backward", 2),
+                ("fused_segment_forward", "ghost", "ghost_forward", 2),
+                ("fused_segment_forward", "ghost_bf16", "ghost_forward", 2))
+
+
+def _rank(kernels, production, designs, serve_calls):
+    """The redesign ranking: for each kernel and mode with main-path
+    launches, the sum over the shapes of its calls of calls x (device ms a
+    call - bound a call), each call at the time measured at its own shape.
+    The sampler's eps calls are the serve phase's (``serve_calls``: five
+    requests at b = 138, the frame at b = FRAME_B); the other modes' calls
+    are their main-path launches over the launches a call of their one row
+    (the sampler's RNG mode at b = 128, the DnCNN_NF step; make_sampler's
+    bf16 at b = 8192; the train kernels at b = 138, bt = 69). Raises
+    ValueError where the calls do not account for the launches. Each
+    production row also goes into its mode's entry under device_ms, by
+    shape. Sorted, largest first."""
+    by_name = {k["name"]: k for k in kernels}
+    ranks = []
+
+    def mode_entry(kernel, mode):
+        return by_name[kernel] if mode is None else by_name[kernel].get("by_mode", {}).get(mode)
+
+    def add(kernel, mode, parts):
+        """parts: (row, calls, launches a call) of each shape the mode ran at."""
+        m = mode_entry(kernel, mode)
+        if m is None or not m.get("launches"):
+            return
+        if sum(c * n for _, c, n in parts) != m["launches"]:
+            raise ValueError(f"the rank's calls of {kernel} {mode} do not make its "
+                             f"{m['launches']} main-path launches: {parts}")
+        rows = [{"shape": r["shape"], "calls": c, "ms": r["ms"], "bound_ms": r["bound_ms"],
+                 "rank_ms": c * (r["ms"] - r["bound_ms"])} for r, c, _ in parts]
+        ranks.append({"kernel": kernel, "mode": mode or "float32", "launches": m["launches"],
+                      "parts": rows, "rank_ms": sum(r["rank_ms"] for r in rows)})
+
+    def one_shape(kernel, mode, row, per_call):
+        """A mode whose main-path calls all run at the row's shape."""
+        launches = (mode_entry(kernel, mode) or {}).get("launches") or 0
+        add(kernel, mode, [(row, launches // per_call, per_call)])
+    for (kernel, mode), keys in PRODUCTION_MODES.items():
+        rows = {k: production[k] for k in keys if k in production}
+        if len(rows) != len(keys):
+            continue
+        (mode_entry(kernel, mode) or {})["device_ms"] = {r["shape"]: r["ms"] for r in rows.values()}
+        if kernel == "fused_sample" and mode == "eps":
+            add(kernel, mode, [(r, serve_calls.get(k, 0), r["launches_a_call"])
+                               for k, r in rows.items()])
+        else:
+            (row,) = rows.values()
+            one_shape(kernel, mode, row, row["launches_a_call"])
+    for kernel, mode, kind, per_call in DESIGN_MODES:
+        row = designs.get((kind, "bfloat16" if mode and "bf16" in mode else "float32", 69))
+        if row is not None:
+            one_shape(kernel, mode, dict(row, shape="b=138, bt=69"), per_call)
+    return sorted(ranks, key=lambda r: -r["rank_ms"])
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1888,6 +2160,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     failures = []
+    t_start = time.time()
 
     def phase(name, fn):
         t0 = time.time()
@@ -2004,8 +2277,9 @@ def main() -> int:
         if noise.shape != frame.shape[1:] or not np.isfinite(noise).all():
             raise AssertionError(f"bad frame noise {noise.shape}")
         launches = _main_path(dict(fs.launch_counts))["fused_sample"]
-        tiles = -(-FRAME_HW[0] // 32) * -(-FRAME_HW[1] // 32)
-        calls = len(GRID) + -(-tiles // 4096)   # sample_noise_frame's batch
+        # calls by the production row that times them (_production_times)
+        serve_calls.update(eps=len(GRID), eps_frame=-(-FRAME_B // 4096))
+        calls = sum(serve_calls.values())
         expected = calls * BATCH_BN_LAUNCHES
         print(f"serve: {len(GRID)} requests of 138 patches, {t_req * 1e3:.2f} ms "
               f"each (host clock, incl. transfers); frame {FRAME_HW} in "
@@ -2035,6 +2309,7 @@ def main() -> int:
         if not bool(torch.isfinite(nll).all()) or abs(sd - TEMP) > 0.03 * TEMP:
             raise AssertionError(f"round trip latent sd {sd} vs temperature {TEMP}")
         return launches
+    serve_calls = {}
     launches = phase("serve requests + frame", serve)
 
     timings = {}
@@ -2095,6 +2370,7 @@ def main() -> int:
     rng_out = _rng_dncnn_phases(phase, agree, programs, nf)
     bf16_modes = _bf16_phases(phase, programs)
     redesign = _redesign_phases(phase, agree, programs, nf)
+    sampler = _sampler_phases(phase, programs, nf.flow)
 
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
@@ -2144,7 +2420,15 @@ def main() -> int:
     if {k["name"] for k in kernels} - set(bf16_modes):
         print("chip_smoke: a kernel has no bf16 mode in the kernels line", file=sys.stderr)
         return 1
-    for probe in redesign["probes"].values():   # the train-template probe sites
+    print(f"smoke_seconds {time.time() - t_start:.1f} (build included)")
+    try:
+        rank = _rank(kernels, sampler["production"], redesign["designs"], serve_calls)
+    except ValueError as e:
+        print(f"chip_smoke: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps({"rank": rank}))
+    # the probe sites: train template, then the sampler group
+    for probe in [*redesign["probes"].values(), *sampler["probes"].values()]:
         probe["launches"] = sum(MAIN_PATH.get(c, 0) for c in probe["counters"])
         kernels.append(probe)
     print(json.dumps({"kernels": kernels}))

@@ -57,6 +57,14 @@ SIGNATURES = {
                             ctypes.POINTER(_I)], _I),
     },
 }
+_CHAIN = ([_I] + [_P] * 3 + [_I] * 2 + [_P, ctypes.POINTER(_I)], _I)
+SIGNATURES["sample_probe"] = {"nf_mm_chain": _CHAIN, "nf_px_chain": _CHAIN}
+SAMPLE_VARIANT_LIBRARIES = ("sample_variants_f32", "sample_variants_bf16")
+for _name in SAMPLE_VARIANT_LIBRARIES:
+    SIGNATURES[_name] = {
+        "nf_sample_variant": ([_I] * 3 + [_P] * 9 + [_I] * 4 + [ctypes.POINTER(_I), _I, _I,
+                              ctypes.c_uint, ctypes.c_float, _P, ctypes.POINTER(_I)], _I),
+    }
 VARIANT_LIBRARIES = tuple(f"train_variants_{design}_{precision}"
                           for design in ("parent", "prod") for precision in ("f32", "bf16"))
 for _name in VARIANT_LIBRARIES:

@@ -132,11 +132,11 @@ SITES = (
 )
 
 
-def pallas_call_lines(root: Path = ROOT) -> Dict[Site, bool]:
+def pallas_call_lines(root: Path = ROOT, sites=SITES) -> Dict[Site, bool]:
     """Whether each site's line in experiments/ holds a ``pl.pallas_call``
     (read as text; nothing of JAX is imported)."""
     out = {}
-    for s in SITES:
+    for s in sites:
         lines = (root / "experiments" / s.file).read_text().splitlines()
         out[s] = s.line <= len(lines) and "pl.pallas_call" in lines[s.line - 1]
     return out

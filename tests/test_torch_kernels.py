@@ -788,3 +788,146 @@ def test_probe_wgrad_matches_plain(cuda_device, variant, ntaps):
     assert _nrel(got, ref) <= WGRAD_RTOL
     assert torch.equal(got, again)
     assert _nrel(tt.wgrad(variant, ntaps, go, a), ref) > WGRAD_RTOL   # a and g swapped
+
+
+# ---------------------------------------------------------------------------
+# the sampler group's probe library (probes/sampler.py): the sampler's
+# template with its ablations and designs, and the chains of dependent
+# products. Tolerances: the module's NOTRANS_RTOL, CHAIN_RTOL and
+# PX_CHAIN_RTOL (observed errors there).
+# ---------------------------------------------------------------------------
+
+
+def _sampler_inputs(device, b, mode, rng, seed):
+    """The flagship's program in ``mode`` and a shape's inputs at b, bt = b:
+    the chain input drawn in the kernel (rng) or a seeded eps * 0.6."""
+    from noise_flow_tpu_torch.probes import sampler as sp
+
+    nf = NoiseFlowWrapper(MODEL, bn_batch_stats=mode == "batch", device=device)
+    x, clean, sa, sb = _inputs(nf._program, b, seed, device)
+    return {"program": nf._program, "b": b, "bt": b, "x": None if rng else x, "clean": clean,
+            "sa": sa, "sb": sb, "seed": sp.SEED + seed if rng else None}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng", [False, True])
+@pytest.mark.parametrize("mode", ["running", "batch"])
+@pytest.mark.parametrize("mm_dtype", ["float32", "bfloat16"])
+def test_sampler_probe_full_is_the_production_kernel(cuda_device, mm_dtype, mode, rng):
+    """The probe library instantiates the sampler's template with ABL_FULL,
+    DESIGN_PROD and 4 pixels a thread: bit for bit the production kernel,
+    in both precisions, both BN modes and both input modes."""
+    from noise_flow_tpu_torch.probes import sampler as sp
+
+    for b in (1, 137):
+        inp = _sampler_inputs(cuda_device, b, mode, rng, seed=b)
+        got = sp.run_variant(inp, "full", mm_dtype)
+        want = sp.run_production(inp, mm_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (b, float((got - want).abs().max()))
+
+
+# SHA-256 (first 16 hex digits) of the production sampler's output on
+# _sampler_inputs(b = 137, seed = 5), written by the kernel as it was before
+# its template moved into csrc/sample_kernel.cuh (the git history's
+# csrc/fused_sample.cu) on an H100 80GB HBM3; the template gave the same
+# bytes in the same run.
+SAMPLER_DIGESTS = {
+    ("running", False, "float32"): "9b04316b4cdfa946",
+    ("running", False, "bfloat16"): "541d595a9455df81",
+    ("running", True, "float32"): "f78c8c8c8d02e648",
+    ("running", True, "bfloat16"): "68f124f4d8c2fc96",
+    ("batch", False, "float32"): "6f1d41a2feebfdee",
+    ("batch", False, "bfloat16"): "2182996b7276ca3b",
+    ("batch", True, "float32"): "c5c7281267a7ca07",
+    ("batch", True, "bfloat16"): "12faf8d467eb6415",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mm_dtype", ["float32", "bfloat16"])
+def test_sampler_template_keeps_the_kernel_bits(cuda_device, mm_dtype):
+    """Moving the sampler's kernel into its template changed no bit of its
+    output: the production kernel's output in both BN modes and both input
+    modes has the digest the kernel wrote before the move."""
+    import hashlib
+
+    from noise_flow_tpu_torch.probes import sampler as sp
+
+    for (mode, rng, dt), digest in SAMPLER_DIGESTS.items():
+        if dt != mm_dtype:
+            continue
+        y = sp.run_production(_sampler_inputs(cuda_device, 137, mode, rng, seed=5), dt)
+        torch.cuda.synchronize()
+        assert hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16] == digest, (mode, rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["running", "batch"])
+@pytest.mark.parametrize("mm_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["ppt2", "ppt8", "notrans", "noshift", "nocoupnn",
+                                     "interleave", "concat_k", "concat_k_interleave", "precast",
+                                     "concat_k_interleave_precast"])
+def test_sampler_probe_variant_matches_plain(cuda_device, variant, mm_dtype, mode):
+    """Each variant against its plain version at awkward batches (b = 1 and
+    137: one patch, and an odd batch that leaves the interleaved designs'
+    last CTA half empty); the variants of FULL's arithmetic bit for bit to
+    the kernel they share it with (the pixels a thread only in running BN,
+    where no block sum enters)."""
+    from noise_flow_tpu_torch.probes import sampler as sp
+
+    if variant in sp.BF16_ONLY and mm_dtype == "float32":
+        with pytest.raises(ValueError, match="bfloat16"):
+            sp.run_variant(_sampler_inputs(cuda_device, 1, mode, False, 1), variant, mm_dtype)
+        return
+    for b in (1, 137):
+        inp = _sampler_inputs(cuda_device, b, mode, mode == "running", seed=b + 1)
+        got = sp.run_variant(inp, variant, mm_dtype)
+        ref = sp.run_variant(inp, variant, mm_dtype, kernel=False)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        if variant == "notrans":
+            assert _nrel(got, ref) <= sp.NOTRANS_RTOL[mm_dtype], (b, _nrel(got, ref))
+        elif mm_dtype == "bfloat16":
+            assert _nrel(got, ref) <= BF16_SAMPLE_RTOL, (b, _nrel(got, ref))
+        else:
+            np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), **TOL)
+        same = sp.SAME_BITS.get(variant)
+        if same and (mode == "running" or variant not in ("ppt2", "ppt8")):
+            assert torch.equal(got, sp.run_variant(inp, same, mm_dtype)), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mm_dtype", ["float32", "bfloat16"])
+def test_sampler_probe_chains_match_plain(cuda_device, mm_dtype):
+    """The chains of 56 dependent products against their plain version: the
+    literal [rows, 128] x [128, 128] chain at its timed shape (R_B * 32 rows,
+    128 CTAs), 4096 rows (two CTAs) and 384 (one CTA, not a multiple of
+    2048), and over its first CHAIN_PREFIX products; the sampler-shape chain
+    at b = 1 and 137 by FMAs and, in bfloat16, by mma.sync. One product
+    skipped must fail the tolerance, and in bfloat16 a chain whose
+    intermediates are not rounded again must fail the prefix's."""
+    from noise_flow_tpu_torch.probes import sampler as sp
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x_full, w = sp.chain_inputs(g)
+    for rows in (x_full.shape[0], 4096, 384):
+        x = x_full[:rows].contiguous()
+        got, ref = sp.mm_chain(x, w, mm_dtype), sp.mm_chain_reference(x, w, mm_dtype)
+        torch.cuda.synchronize()
+        assert _nrel(got, ref) <= sp.CHAIN_RTOL[mm_dtype], (rows, _nrel(got, ref))
+        assert _nrel(sp.mm_chain(x, w[1:].contiguous(), mm_dtype), ref) > sp.CHAIN_RTOL[mm_dtype]
+        pre = w[:sp.CHAIN_PREFIX].contiguous()
+        got, ref = sp.mm_chain(x, pre, mm_dtype), sp.mm_chain_reference(x, pre, mm_dtype)
+        assert _nrel(got, ref) <= sp.CHAIN_PREFIX_RTOL[mm_dtype], (rows, _nrel(got, ref))
+        if mm_dtype == "bfloat16":
+            assert _nrel(sp.chain_without_rerounding(x, pre), ref) > sp.CHAIN_PREFIX_RTOL[mm_dtype]
+    wp = sp.random_rotations(sp.N_MM, 4, g)
+    variants = ["f32"] if mm_dtype == "float32" else ["bf16_fma", "bf16_mma"]
+    for b in (1, 137):
+        x = torch.randn((b, 32, 32, 4), generator=g, device="cuda")
+        ref = sp.mm_chain_reference(x, wp, mm_dtype)
+        for v in variants:
+            got = sp.px_chain(v, x, wp)
+            torch.cuda.synchronize()
+            assert _nrel(got, ref) <= sp.PX_CHAIN_RTOL[mm_dtype], (b, v, _nrel(got, ref))
