@@ -14,12 +14,13 @@ Phases, each of which fails the run if it fails:
    main path gives it: the published batch (138), the frame below (2961,
    BatchNorm groups of 141) and the frame batch of larger frames (4096,
    groups of 256); then plant faults (BatchNorm groups halved, BatchNorm
-   mode swapped, a coupling skipped) that the same comparison must report;
+   mode swapped, a coupling skipped), each run through the cooperative
+   batch-BN launch, that the same comparison must report;
 4. serve requests: ``sample_noise_nf`` at batch 138, temperature 0.6, for
    (iso, cam) pairs on the ISO grid, then ``sample_noise_frame`` on a
    synthetic packed frame of 1500x2000 (2961 patches); the kernel's launch
-   count over this phase must be what its calls issue (40 launches a call in
-   batch-BN mode), the outputs finite and of the right
+   count over this phase must be what its calls issue (one cooperative
+   launch a call in batch-BN mode), the outputs finite and of the right
    shape, and one batch of samples, taken back through the plain
    ``inverse``/``nll_per_sample``, must give a latent whose sd is the
    temperature within 3%;
@@ -76,7 +77,7 @@ Phases, each of which fails the run if it fails:
    launch a call, no eps allocated, ms a call and patches/s;
 23. train a DnCNN through ``cli.train_dncnn.main`` (``DnCNN_NF``, the
    flagship flow as its noise source, depth 9, 32 filters, batch 128, 2
-   epochs of 9 steps on synthetic data): exactly 40 sampler launches a
+   epochs of 9 steps on synthetic data): exactly one sampler launch a
    step, all in RNG mode, a finite and falling loss, ``log.csv`` and the
    checkpoints; then ``cli.test_dncnn.main --synthetic`` on the last
    checkpoint, a finite PSNR and SSIM;
@@ -141,7 +142,9 @@ Phases, each of which fails the run if it fails:
    ``plain_ms`` and ``max_abs_err`` are null for the launch and floor
    probes, which compute nothing to compare, and ``one_op_ms`` is one small
    PyTorch call beside them), and last the three sampler-group sites of
-   phase 35; before it, a ``{"rank": [...]}`` line: each kernel and mode
+   phase 35 (the sampler's entry also carries ``design``, its production
+   design by precision and BN mode, and ``redesign``, phase 37's rows);
+   before it, a ``{"rank": [...]}`` line: each kernel and mode
    with main-path launches, calls x (device ms a call - bound a call)
    summed over the shapes its calls ran at (the wrapper's requests and its
    frame apart), the redesign ranking;
@@ -160,17 +163,34 @@ Phases, each of which fails the run if it fails:
    CHAIN_RTOL, over their first CHAIN_PREFIX products at CHAIN_PREFIX_RTOL,
    and PX_CHAIN_RTOL), the variants of FULL's arithmetic
    (interleave, precast, pixels a thread in running BN) bit for bit to it;
-   FULL is bit-equal to the production kernel in both precisions, BN modes
-   and input modes, a (W) call is 40 launches (nocoupnn one); then the
+   FULL (the probe library keeps the parent's design, batch BN stage by
+   stage) is bit-equal to the production kernel in running BN and within
+   the sampler's tolerance of it in batch BN, in both precisions and input
+   modes, a (W) call is 40 launches (nocoupnn one); then the
    production sampler's rows (a request, the frame, the DnCNN_NF step,
    make_sampler) and the eval forward re-timed as device times;
 36. plant faults those comparisons must catch: a wrong polynomial in
    notrans (tanh u -> u), an interleaved stream reading the other patch's
    clean, a precast record rounded toward zero, one chain product skipped,
-   a bfloat16 chain whose intermediates are not rounded again.
+   a bfloat16 chain whose intermediates are not rounded again;
+37. the sampler's redesign (batch BN in one cooperative launch with merged
+   moments, each patch kept on chip where the card holds every CTA; bf16
+   weights rounded once) against the parent's design (the probe library's
+   stage-by-stage launch_chain, 40 launches a batch-BN call) in turns, as
+   device times: a request (b = 138, eps) and the DnCNN_NF step's call (b
+   = 128, RNG) in both precisions; the frame (b = bt = 2961, float32; it
+   walks); make_sampler's bf16 call (b = 8192, running BN). It prints each
+   ratio, the launch plan (CTAs, CTAs an SM, resident or walk) and the
+   rule that picks it, ptxas's registers of the cooperative kernels, and
+   each output's distance to the parent; the redesign must agree with the
+   plain version, be one launch a call, be faster at b = 138 and 128, no
+   more than 3% slower at the frame and at most 0.75 of the parent at
+   make_sampler; the running-BN kernel must give the parent's bits.
 
-The redesign keeps one launch a call, so the exact launch counts of phases
-9, 15 and 28 are those of the parent's design.
+The train template's redesigned step, segment backward and ghost forward
+keep one launch a call, so the exact launch counts of phases 9, 15 and 28
+are those of its parent's design; the sampler's batch-BN calls went from
+40 launches to one.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; it is printed
 only if every phase passed. Exit code 0 then, non-zero otherwise.
@@ -204,9 +224,12 @@ BATCHES = (138, 2961, 4096)      # requests, this frame, larger frames
 # from its plain version by at most 1.5e-7 on the H100, so atol 1e-6 leaves
 # room for rounding and no more; the planted faults must exceed it.
 TOL = (1e-6, 1e-5)
-# kernel launches of one fused_sample call in batch-BN mode: four statistics
-# stages and one apply stage for each of the flagship's eight couplings
-BATCH_BN_LAUNCHES = 40
+# kernel launches of one fused_sample call in batch-BN mode: one cooperative
+# launch; in the parent's design (the probe library's launch_chain) four
+# statistics stages and one apply stage for each of the flagship's eight
+# couplings
+BATCH_BN_LAUNCHES = 1
+PARENT_BATCH_BN_LAUNCHES = 40
 # The train step, kernel vs plain, at b = 138 (flagship weights). Float32 sums
 # in another order; the gradients of the early couplings also go through
 # ReLU kinks where a float32 rounding flips a mask (one or two flips a step,
@@ -1997,8 +2020,11 @@ def _sampler_phases(phase, programs, flow):
     def attribution():
         """Every variant timed and held to its plain version
         (_sampler_check); the variants of FULL's arithmetic bit-equal to it;
-        FULL bit-equal to the production kernel in both precisions, both BN
-        modes and both input modes; 40 launches a (W) call, 1 for nocoupnn."""
+        FULL (the parent's design) bit-equal to the production kernel in
+        running BN and held to it at the sampler's tolerance in batch BN
+        (production merges its moments in another order), in both
+        precisions and both input modes; 40 launches a (W) call in the
+        parent's design, 1 for nocoupnn."""
         res = sp.attribution(check=_sampler_check)
         rows = {f"{site}: {k}": r for site, e in res.items() for k, r in e["variants"].items()}
         bad = [k for k, r in rows.items()
@@ -2007,7 +2033,8 @@ def _sampler_phases(phase, programs, flow):
         held = sum(1 for r in rows.values() if "agrees" in r)
         calls = {k: r["launches_a_call"] for k, r in rows.items() if "launches_a_call" in r}
         wrong = [k for k, n in calls.items()
-                 if n != (1 if k.endswith(",R") or "nocoupnn" in k else BATCH_BN_LAUNCHES)]
+                 if n != (1 if k.endswith(",R") or "nocoupnn" in k
+                          else PARENT_BATCH_BN_LAUNCHES)]
         print(f"sampler probe variants held to their plain versions: {held}; bit-equal checks: "
               f"{sum(1 for r in rows.values() if 'bit_equal' in r)}; disagreeing: {bad}; "
               f"launches a call wrong: {wrong}")
@@ -2018,10 +2045,15 @@ def _sampler_phases(phase, programs, flow):
             if rng:
                 inp.update(seed=sp.SEED, x=None)
             for dt in sp.DTYPES:
-                if not torch.equal(sp.run_variant(inp, "full", dt), sp.run_production(inp, dt)):
-                    raise AssertionError(f"probe full is not production ({mode}, rng={rng}, {dt})")
-        print("sampler probe full: bit-equal to the production kernel in both precisions, both "
-              "BN modes, both input modes")
+                full, prod = sp.run_variant(inp, "full", dt), sp.run_production(inp, dt)
+                same = (torch.equal(full, prod) if mode == "running"
+                        else _sampler_check("sample", dt, prod, full))
+                if not same:
+                    raise AssertionError(f"probe full is not production ({mode}, rng={rng}, {dt}): "
+                                         f"normwise {_norm_rel(prod, full):.3e}")
+        print("sampler probe full (the parent's design): bit-equal to the production kernel in "
+              "running BN and within the sampler's tolerance of it in batch BN, in both "
+              "precisions and both input modes")
         out["probes"] = res
         out["production"] = _production_times(programs, flow)
     phase("sampler probe attribution", attribution)
@@ -2072,6 +2104,124 @@ def _sampler_phases(phase, programs, flow):
         if not all(caught.values()):
             raise AssertionError(f"a sampler probe comparison missed a planted fault: {caught}")
     phase("sampler probe planted faults", planted_faults)
+    return out
+
+
+# Phase 37: the sampler's redesign (one cooperative launch a batch-BN call,
+# merged moments, bf16 weights rounded once) against the parent's design
+# (the probe library's stage-by-stage launch_chain), in turns, at the main
+# paths' shapes. What it must show: faster at a request (b = 138, eps) and
+# at the DnCNN_NF step's call (b = 128, RNG) in both precisions; the frame
+# (b = bt = FRAME_B, float32) no slower than the parent by more than
+# REDESIGN_FRAME_SLACK; make_sampler's bf16 call (b = 8192, running BN) at
+# most REDESIGN_R_RATIO of the parent's time.
+REDESIGN_FRAME_SLACK = 1.03
+REDESIGN_R_RATIO = 0.75
+REDESIGN_ROUNDS = 5
+
+
+def _coop_registers():
+    """ptxas's registers and spills of the production coop_kernel<BF,
+    RESIDENT>, by (precision, resident or walk)."""
+    import re
+    from noise_flow_tpu_torch.ops import _build
+    out = {}
+    for k in _build.kernel_resources("fused_sample"):
+        m = re.search(r"coop_kernelILb(\d)ELb(\d)E", k["kernel"])
+        if m:
+            key = (f"{'bfloat16' if m.group(1) == '1' else 'float32'}, "
+                   f"{'resident' if m.group(2) == '1' else 'walk'}")
+            out[key] = {"registers": k.get("registers"), "spill_stores": k["spill_stores"]}
+    return out
+
+
+def _coop_phases(phase, programs):
+    """Phase 37 (see the module docstring): the sampler's redesign against
+    the parent's design in turns. Returns the rows for the kernels line's
+    sampler entry (``redesign``) and the production design by precision and
+    BN mode (``design``)."""
+    import torch
+    from noise_flow_tpu_torch.ops import fused_sample as fs
+    from noise_flow_tpu_torch.probes import sampler as sp
+    from noise_flow_tpu_torch.probes import train_template as tt
+
+    out = {"rows": {}, "design": {}}
+
+    def redesign():
+        regs = _coop_registers()
+        for key, r in regs.items():
+            print(f"ptxas coop_kernel [{key}]: {r['registers']} registers, spill "
+                  f"{r['spill_stores']} B")
+        w_in, r_in = sp.shape_inputs(programs, "W"), sp.shape_inputs(programs, "R")
+        d_in = dict(w_in, seed=sp.SEED, b=128, bt=128, x=None)    # the DnCNN_NF step's call
+        for key in ("clean", "sa", "sb"):
+            d_in[key] = d_in[key][:128].contiguous()
+        x, clean, sa, sb = _inputs(programs["batch"], FRAME_B, seed=FRAME_B + 7)
+        f_in = {"program": programs["batch"], "b": FRAME_B, "bt": FRAME_B, "x": x,
+                "clean": clean, "sa": sa, "sb": sb, "seed": None}
+        shapes = [("request", w_in, dt) for dt in sp.DTYPES] + \
+                 [("dncnn", d_in, dt) for dt in sp.DTYPES] + \
+                 [("frame", f_in, "float32"), ("make_sampler", r_in, "bfloat16")]
+        for name, inp, dt in shapes:
+            batch = inp["program"].bn_mode == "batch"
+            fns = {"parent": functools.partial(sp.run_variant, inp, "full", dt),
+                   "redesign": functools.partial(sp.run_production, inp, dt)}
+            ms = tt.alternated_ms(fns, REDESIGN_ROUNDS, 10 if inp["b"] <= 138 else 3)
+            before = fs.launch_counts["fused_sample"]
+            got = sp.run_production(inp, dt)
+            launches = fs.launch_counts["fused_sample"] - before
+            parent = sp.run_variant(inp, "full", dt)
+            plain = sp.run_variant(inp, "full", dt, kernel=False)
+            torch.cuda.synchronize()
+            check = _sampler_check("sample", dt, got, plain)
+            row = {"shape": f"b={inp['b']}, bt={inp['bt']}, {inp['program'].bn_mode} BN, "
+                            f"{'rng' if inp['seed'] is not None else 'eps'}, {dt}",
+                   "ms": ms["redesign"], "parent_ms": ms["parent"],
+                   "parent_over_redesign": ms["parent"] / ms["redesign"],
+                   "launches_a_call": launches, "agrees_with_plain": check,
+                   "max_abs_vs_plain": float((got - plain).abs().max()),
+                   "bits_equal_to_parent": bool(torch.equal(got, parent)),
+                   "normwise_vs_parent": _norm_rel(got, parent)}
+            if batch:
+                row["plan"] = fs.sample_plan(inp["b"], dt)
+                row["patches_a_cta"] = -(-inp["b"] // row["plan"]["grid"])
+            out["rows"][f"{name},{dt}"] = row
+            print(f"redesign {name} [{row['shape']}]: redesign {row['ms']:.4f} ms "
+                  f"({launches} launch), parent {row['parent_ms']:.4f} ms: "
+                  f"{row['parent_over_redesign']:.3f}x; plan {row.get('plan')}, up to "
+                  f"{row.get('patches_a_cta')} patches a CTA; vs plain "
+                  f"{'agrees' if check else 'DISAGREES'} (max abs {row['max_abs_vs_plain']:.3e}); "
+                  f"bits as parent {row['bits_equal_to_parent']} (normwise "
+                  f"{row['normwise_vs_parent']:.3e})")
+            if not check or launches != 1:
+                raise AssertionError(f"the redesign at {name} {dt}: plain {check}, {launches} "
+                                     "launches")
+            if not batch and not row["bits_equal_to_parent"]:
+                raise AssertionError(f"{name} {dt}: running BN is not the parent's bits")
+        rows = out["rows"]
+        fast = {k: r["parent_over_redesign"] for k, r in rows.items()
+                if k.split(",")[0] in ("request", "dncnn")}
+        frame = rows["frame,float32"]["ms"] / rows["frame,float32"]["parent_ms"]
+        r_ratio = rows["make_sampler,bfloat16"]["ms"] / rows["make_sampler,bfloat16"]["parent_ms"]
+        plan = rows["request,float32"]["plan"]
+        print(f"redesign against the parent: parent/redesign at b = 138 and 128 {fast} (each "
+              f"> 1); the frame {frame:.3f} of the parent (<= {REDESIGN_FRAME_SLACK}); "
+              f"make_sampler bf16 {r_ratio:.3f} of the parent (<= {REDESIGN_R_RATIO}); the rule: "
+              f"batch BN resident (one CTA a patch) where b <= {plan['per_sm']} CTAs an SM x "
+              f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs, else walk")
+        if min(fast.values()) <= 1 or frame > REDESIGN_FRAME_SLACK or r_ratio > REDESIGN_R_RATIO:
+            raise AssertionError("the redesign is not faster than the parent where it must be")
+        out["design"] = {
+            dt: {"running": "sample_kernel, one launch" + (
+                     ", weights rounded once (DESIGN_PRECAST)" if dt == "bfloat16" else ""),
+                 "batch": f"coop_kernel, {fs.H * fs.W // 4} threads: "
+                          "one cooperative launch, merged moments (one grid barrier a BN), "
+                          f"resident where b <= {plan['per_sm']} CTAs an SM x SMs, else walk"
+                          + (", weights rounded once" if dt == "bfloat16" else ""),
+                 "registers": {k: v for k, v in regs.items()
+                               if k.startswith(dt)}}
+            for dt in sp.DTYPES}
+    phase("sampler redesign against the parent's design", redesign)
     return out
 
 
@@ -2227,7 +2377,8 @@ def main() -> int:
 
     def planted_faults():
         """The comparison above must catch a wrong kernel: run the kernel
-        wrongly on purpose, each time against the right plain output."""
+        wrongly on purpose, each time against the right plain output; every
+        wrong run goes through the cooperative batch-BN launch."""
         b = BATCHES[0]
 
         def variant(prog, **fields):
@@ -2238,19 +2389,21 @@ def main() -> int:
             return v
 
         batch, running = programs["batch"], programs["running"]
-        skip = next(i for i, (kind, _) in enumerate(running.ops) if kind == fs.OP_COUPLING)
+        skip = next(i for i, (kind, _) in enumerate(batch.ops) if kind == fs.OP_COUPLING)
         faults = (
             ("BN groups halved", batch, batch, b // 2),
             ("BN mode swapped", running, variant(running, bn_mode="batch"), b),
-            ("a coupling skipped", running,
-             variant(running, ops=running.ops[:skip] + running.ops[skip + 1:]), b),
+            ("a coupling skipped", batch,
+             variant(batch, ops=batch.ops[:skip] + batch.ops[skip + 1:]), b),
         )
         for name, right, wrong, bt in faults:
             x, clean, sa, sb = _inputs(right, b, seed=b)
             p = fs.sample_chain_reference(right, x, clean, sa, sb, b)
+            before = fs.launch_counts["fused_sample"]
             k = fs.fused_sample_chain(wrong, x, clean, sa, sb, bt)
-            ok, _ = agree(f"planted fault ({name}) b={b}", k, p)
-            if ok:
+            n = fs.launch_counts["fused_sample"] - before
+            ok, _ = agree(f"planted fault ({name}) b={b}, {n} cooperative launch", k, p)
+            if ok or wrong.bn_mode != "batch" or n != BATCH_BN_LAUNCHES:
                 raise AssertionError(f"the comparison missed a planted fault: {name}")
     phase("planted faults are caught", planted_faults)
 
@@ -2371,6 +2524,7 @@ def main() -> int:
     bf16_modes = _bf16_phases(phase, programs)
     redesign = _redesign_phases(phase, agree, programs, nf)
     sampler = _sampler_phases(phase, programs, nf.flow)
+    coop = _coop_phases(phase, programs)
 
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
@@ -2409,6 +2563,7 @@ def main() -> int:
     }
     entry["by_mode"]["eps"]["whole_batch"] = {
         f"b={b},bt={b}": v for b, v in redesign["frame"].items()}
+    entry["design"], entry["redesign"] = coop["design"], coop["rows"]
     kernels = [entry] + train_out["entries"]
     for k in kernels:   # the bf16 modes beside each kernel's float32 ones
         k.setdefault("by_mode", {}).update(bf16_modes.get(k["name"], {}))

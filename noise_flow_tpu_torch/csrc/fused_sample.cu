@@ -29,22 +29,43 @@
 //
 // BatchNorm with batch statistics (the reference wrapper's default) needs,
 // at each of a coupling's two BNs, the moments over a group of `bt` patches,
-// i.e. over up to 256 CTAs. The kernel is then run stage by stage: for every
-// coupling, four statistics launches (mean and variance of each BN, two-pass)
-// and one apply launch, each CTA writing one partial sum per channel in a
-// fixed order and the next launch reducing the group's partials in a fixed
-// order (no float atomics: results are the same from run to run). The chain
-// state between launches lives in `out`. Patches past the end of the batch
-// do not exist here, so nothing but real patches enters a group's moments.
+// i.e. over up to b CTAs (the wrapper passes bt = b). The TPU kernel holds a
+// group in VMEM and takes its moments inside one pass; the Hopper
+// counterpart of "the group stays on chip" is one cooperative launch
+// (coop_kernel, launch_coop in sample_kernel.cuh) whose BN stages end in
+// grid.sync(): each patch writes its partials, and after the barrier each
+// CTA reduces its group's partials in a fixed order (no float atomics:
+// results are the same from run to run). The moments are merged in one
+// pass: each patch's sum and M2 about its own mean, merged over the group
+// as M2 = sum_p M2_p + NPIX (mean_p - mean)^2, float32 in both precisions
+// (the TPU kernel's too): one barrier a BN, two a coupling, where two
+// passes (mean, then variance) took four; the same moments in another
+// order of sums, within the plain version's tolerance.
+// Where the card holds every CTA
+// at once (b <= 2 x 132 at 256 threads and at most 128 registers: a
+// request, the DnCNN_NF step), each CTA keeps its patch on chip for the
+// whole chain: the chain state in registers, read or drawn once, conv1's
+// output and then conv2's in shared memory across the barriers, each
+// computed once. A larger batch (the frame) walks: each CTA owns patches
+// blockIdx.x + k gridDim.x, the chain state passes through `out` between
+// stages, each stage recomputes conv1 (and conv2) as the parent's stages
+// did, and each CTA reduces a group once a stage, not once a patch (the
+// parent's b^2 partial reads at bt = b). What bounds it at b = 138 is the
+// chain of dependent stages, not the card's rates: 8 couplings x 2 barriers
+// (~1.2 us each) with block reductions, a group reduction and the convs
+// between them, one patch an SM. Patches past the end of the batch do not
+// exist here, so nothing but real patches enters a group's moments. The
+// parent's design ran two passes as five launches a coupling (four
+// statistics launches and one apply launch, the chain state in `out`); the
+// probe library keeps it (launch_chain) for attribution.
 //
 // In-kernel RNG mode (the TPU kernel's use_prng branch, pallas_sample.py
 // `_make_kernel` with `_box_muller`): the chain input is drawn in registers
 // as normals(seed) * temp, in place of the read of eps, so device memory sees
 // 32 KiB a patch (clean in, noise out) in running-BN mode. The bits come from
 // a counter-based Philox-4x32-10 and are a pure function of (seed, patch,
-// row, channel), so every launch that starts from the chain input (the first
-// coupling's five batch-BN launches) draws the same numbers again, at 4
-// Philox calls and 8 Box-Muller pairs a thread, with no buffer for them.
+// row, channel), drawn once a patch at the chain's start (4 Philox calls and
+// 8 Box-Muller pairs a thread), with no buffer for them.
 // Counter and key, shared with rng_normals_reference in ops/fused_sample.py:
 //   key     = (seed, 0)
 //   counter = (32 * h + w, patch, j, 0),  h in [0, 16), w in [0, 32), j in {0, 1}
@@ -63,13 +84,17 @@
 // hidden maps at conv2 and the zero-conv, and the weights (BN-folded in
 // running mode); biases, the indicator taps, the batch-BN moments (float32 in
 // the TPU kernel too) and the coupling update stay float32. It is a
-// compile-time parameter of sample_kernel.
+// compile-time parameter of the kernels. Rounding is what bounds this mode,
+// not products (at 4 channels tensor cores pay nothing): each coupling's
+// record and the mixes are staged in shared memory with their weights
+// rounded once (DESIGN_PRECAST), not at every load, bit for bit the same.
 //
-// The kernel's template, its device helpers and the stage-by-stage launcher
-// live in sample_kernel.cuh; this file instantiates the production kernel
-// (ABL_FULL, DESIGN_PROD, PPT_PROD) only. The probe library
-// (sample_variants.cuh) instantiates the same template with the ablations
-// and designs that attribute its time.
+// The kernels' templates, their device helpers and launchers live in
+// sample_kernel.cuh; this file instantiates the production kernels only, at
+// PPT_PROD pixels a thread: running BN in one launch of sample_kernel
+// (DESIGN_PRECAST in bfloat16), batch BN in coop_kernel. The probe library
+// (sample_variants.cuh) instantiates the parent's design with the
+// ablations and designs that attribute its time.
 
 #include "sample_kernel.cuh"
 
@@ -97,16 +122,25 @@ extern "C" int nf_rng_normals(float* out, int B, unsigned seed, float temp,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Where a batch-BN call of B patches runs (see coop_plan in
+// sample_kernel.cuh): *grid CTAs, *per_sm of them an SM, *resident 1 if each
+// holds one patch for the whole chain, 0 if they walk. bf16 as in
+// nf_fused_sample. Returns the CUDA error, 0 if none.
+extern "C" int nf_sample_plan(int bf16, int B, int* grid, int* per_sm, int* resident) {
+  if (B <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (bf16) return coop_plan<true>(B, grid, per_sm, resident);
+  return coop_plan<false>(B, grid, per_sm, resident);
+}
+
 // Runs the whole chain: eps (already scaled by the temperature) -> out; with
 // use_rng != 0 the chain input is drawn in the kernel instead, normals(seed)
 // * temp, and eps is not read (it may be null). bf16 != 0 runs the bfloat16
 // mode (see the top of this file), 0 the float32 one. Running-BN mode is one
-// launch. Batch-BN mode (batch_bn != 0) runs, for each coupling, four
-// statistics launches and one apply launch, with BN groups of `bt`
-// consecutive patches. `part` is scratch of 2*B*4 floats, `mom` of
-// ceil(B/bt)*12 floats. Enqueues on `stream` without synchronising; sets
-// `*launched` to the number of kernel launches it issued and returns the
-// first launch error (cudaError_t), 0 if none.
+// launch; batch-BN mode (batch_bn != 0) is one cooperative launch, with BN
+// groups of `bt` consecutive patches. `part` is scratch of 2*B*8 floats,
+// `mom` of ceil(B/bt)*12 floats. Enqueues on `stream` without
+// synchronising; sets `*launched` to the number of kernel launches it
+// issued and returns the launch error (cudaError_t), 0 if none.
 extern "C" int nf_fused_sample(const float* eps, float* out, const float* clean,
                                const float* sa, const float* sb,
                                const float* mixes, const float* coup,
@@ -115,15 +149,17 @@ extern "C" int nf_fused_sample(const float* eps, float* out, const float* clean,
                                int use_rng, unsigned seed, float temp, int bf16,
                                void* stream, int* launched) {
   *launched = 0;
-  if (use_rng) eps = nullptr;  // every launch that starts the chain draws it
+  if (use_rng) eps = nullptr;  // the kernel draws the chain input
   Args a;
   const int err = chain_args(a, eps, out, clean, sa, sb, mixes, coup, mom, B, n_scale, bt,
                              batch_bn, ops, n_ops, use_rng, seed, temp);
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (batch_bn && bf16) return launch_coop<true>(a, eps, part, n_ops, s, launched);
+  if (batch_bn) return launch_coop<false>(a, eps, part, n_ops, s, launched);
   if (bf16)
-    return launch_chain<true, ABL_FULL, DESIGN_PROD, PPT_PROD>(a, eps, part, ops, n_ops, s,
+    return launch_chain<true, ABL_FULL, DESIGN_PRECAST, PPT_PROD>(a, eps, part, ops, n_ops, s,
+                                                                 launched);
+  return launch_chain<false, ABL_FULL, DESIGN_PARENT, PPT_PROD>(a, eps, part, ops, n_ops, s,
                                                                launched);
-  return launch_chain<false, ABL_FULL, DESIGN_PROD, PPT_PROD>(a, eps, part, ops, n_ops, s,
-                                                              launched);
 }

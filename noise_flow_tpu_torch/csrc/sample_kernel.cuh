@@ -1,17 +1,23 @@
-// The fused sampler's template sample_kernel<BF, ABL, DESIGN, PPT> and the
-// launcher that runs it stage by stage: fused_sample.cu describes the
-// function and the design and instantiates ABL_FULL, DESIGN_PROD and
-// PPT_PROD only (the production kernel); the probe library
-// (sample_variants.cuh) also instantiates the ablations and designs that
-// attribute the sampler's time, the Hopper counterparts of the TPU probes
-// experiments/kernel_probe.py and experiments/kernel_sweep.py.
+// The fused sampler's templates and launchers: sample_kernel<BF, ABL,
+// DESIGN, PPT>, the chain in one launch (running BN) or stage by stage
+// (launch_chain: the parent's batch-BN design, five launches a coupling),
+// and coop_kernel<BF, RESIDENT>, batch BN in one cooperative launch
+// (launch_coop). fused_sample.cu describes the function and the design and
+// instantiates the production kernels only (running BN: sample_kernel,
+// DESIGN_PRECAST in bfloat16; batch BN: coop_kernel). The probe library
+// (sample_variants.cuh) instantiates the parent's design with the ablations
+// and designs that attribute the sampler's time, the Hopper counterparts of
+// the TPU probes experiments/kernel_probe.py and experiments/kernel_sweep.py.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int H = 32, W = 32, NPIX = H * W;
 constexpr int PPT_PROD = 4;              // production pixels a thread
@@ -37,8 +43,10 @@ enum Ablation {
   ABL_NOCOUPNN = 3,  // couplings skipped: mixes and scales only
 };
 
-// Design features, the bits of DESIGN; the production design is 0. None of
-// them changes the function, only DESIGN_CONCAT_K the order of its sums.
+// Design features, the bits of DESIGN; the parent's design (the previous
+// production one: batch BN stage by stage, weights rounded at every load)
+// is 0. None of them changes the function, only DESIGN_CONCAT_K the order
+// of its sums.
 constexpr int DESIGN_INTERLEAVE = 1;  // two patches a CTA, their op streams
                                       // interleaved in each thread
 constexpr int DESIGN_CONCAT_K = 2;    // im2col in registers: each pixel's 3x3
@@ -47,8 +55,9 @@ constexpr int DESIGN_CONCAT_K = 2;    // im2col in registers: each pixel's 3x3
                                       // one dot loop against the [K, 4] weight
 constexpr int DESIGN_PRECAST = 4;     // bfloat16: weights rounded once into a
                                       // shared-memory copy of each record and
-                                      // of the mixes, not at every load
-constexpr int DESIGN_PROD = 0;
+                                      // of the mixes, not at every load (the
+                                      // production bfloat16 kernels')
+constexpr int DESIGN_PARENT = 0;
 
 struct Args {
   const float* src;      // [B, NPIX, 4] chain state at op_begin (may alias out);
@@ -62,7 +71,8 @@ struct Args {
   const float* mixes;    // [n_mix, 4, 4]
   const float* coup;     // [n_coupling, REC]
   const float* part_in;  // [B, 4] per-patch sums of the previous stage
-  float* part_out;       // [B, 4] per-patch sums of this stage
+  float* part_out;       // [B, 4] per-patch sums of this stage (coop_kernel:
+                         // both its buffers, [2, B, CPART])
   float* mom;            // [n_groups, 12]: mean1, var1, mean2 of the coupling
   int B, n_scale, bt, stage, op_begin, op_end, batch_bn;
   int ops[MAX_OPS];      // kind << 8 | index
@@ -393,6 +403,68 @@ __device__ __forceinline__ void conv3_im2col(const float4* hs, const float* rec,
   }
 }
 
+// The chain input of a patch: eps * temp read from a.src, or (a.src null)
+// normals(seed) * temp drawn in registers.
+template <int PPT>
+__device__ __forceinline__ void chain_input(const Args& a, int patch, float4 (&x)[PPT]) {
+  constexpr int NT = NPIX / PPT;
+  if (a.src == nullptr) {
+    draw_normals<PPT>(a.seed, patch, threadIdx.x / W, threadIdx.x % W, a.temp, x);
+    return;
+  }
+  const float4* s = reinterpret_cast<const float4*>(a.src + static_cast<size_t>(patch) * NPIX * 4);
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) x[k] = s[threadIdx.x + NT * k];
+}
+
+// A mix op on the thread's pixels; m is its matrix as the mode reads it.
+template <bool BF, bool SM, int PPT>
+__device__ __forceinline__ void mix_op(const float* m, float4 (&x)[PPT]) {
+  const float4 m0 = wld4<BF, SM>(m), m1 = wld4<BF, SM>(m + 4), m2 = wld4<BF, SM>(m + 8),
+               m3 = wld4<BF, SM>(m + 12);
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const float4 v = rnd4<BF>(x[k]);
+    x[k] = fma4(v.w, m3, fma4(v.z, m2, fma4(v.y, m1, scale4(m0, v.x))));
+  }
+}
+
+// Scale op idx on the thread's pixels of the patch: x *= sqrt(sa * clean + sb).
+template <int PPT>
+__device__ __forceinline__ void scale_op(const Args& a, int patch, int idx, float4 (&x)[PPT]) {
+  constexpr int NT = NPIX / PPT;
+  const size_t base = static_cast<size_t>(patch) * NPIX * 4;
+  const float sa = a.sa[(size_t)patch * a.n_scale + idx];
+  const float sb = a.sb[(size_t)patch * a.n_scale + idx];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const float4 cl = ldg4(a.clean + base + (size_t)(threadIdx.x + NT * k) * 4);
+    x[k] = make_float4(x[k].x * sqrtf(fmaf(sa, cl.x, sb)), x[k].y * sqrtf(fmaf(sa, cl.y, sb)),
+                       x[k].z * sqrtf(fmaf(sa, cl.z, sb)), x[k].w * sqrtf(fmaf(sa, cl.w, sb)));
+  }
+}
+
+// The coupling's update of channels {2,3} from the zero-conv's output t
+// (ABL_NOTRANS: tanh u -> 0.9 u, exp u -> 1 + u).
+template <int ABL, int PPT>
+__device__ __forceinline__ void coupling_update(const float4 (&t)[PPT], float rescale,
+                                                float4 (&x)[PPT]) {
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    if constexpr (ABL == ABL_NOTRANS) {
+      const float ls0 = rescale * (t[k].z * 0.9f);
+      const float ls1 = rescale * (t[k].w * 0.9f);
+      x[k].z = (x[k].z - t[k].x) * (1.f - ls0);
+      x[k].w = (x[k].w - t[k].y) * (1.f - ls1);
+    } else {
+      const float ls0 = rescale * tanhf(t[k].z);
+      const float ls1 = rescale * tanhf(t[k].w);
+      x[k].z = (x[k].z - t[k].x) * expf(-ls0);
+      x[k].w = (x[k].w - t[k].y) * expf(-ls1);
+    }
+  }
+}
+
 // Copies a coupling record (src) into shared memory (dst), its weights
 // rounded as the mode takes them (DESIGN_PRECAST); the caller synchronises.
 template <bool BF, int NT>
@@ -447,18 +519,11 @@ sample_kernel(const Args a) {
   float4 x[NP][PPT];
 #pragma unroll
   for (int j = 0; j < NP; ++j) {
-    const size_t base = static_cast<size_t>(patch[j]) * NPIX * 4;
-    if (!valid[j]) {
-#pragma unroll
-      for (int k = 0; k < PPT; ++k) x[j][k] = make_float4(0.f, 0.f, 0.f, 0.f);
-    } else if (a.src == nullptr) {
-      draw_normals<PPT>(a.seed, patch[j], r0, c, a.temp, x[j]);
+    if (valid[j]) {
+      chain_input<PPT>(a, patch[j], x[j]);
     } else {
 #pragma unroll
-      for (int k = 0; k < PPT; ++k) {
-        const int p = tid + NT * k;
-        x[j][k] = reinterpret_cast<const float4*>(a.src + base)[p];
-      }
+      for (int k = 0; k < PPT; ++k) x[j][k] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
 
@@ -562,32 +627,12 @@ sample_kernel(const Args a) {
   for (int i = a.op_begin; i < a.op_end; ++i) {
     const int kind = a.ops[i] >> 8, idx = a.ops[i] & 255;
     if (kind == OP_MIX) {
-      const float* m = (SM ? smix : a.mixes) + idx * 16;
-      const float4 m0 = wld4<BF, SM>(m), m1 = wld4<BF, SM>(m + 4), m2 = wld4<BF, SM>(m + 8),
-                   m3 = wld4<BF, SM>(m + 12);
 #pragma unroll
-      for (int j = 0; j < NP; ++j)
-#pragma unroll
-        for (int k = 0; k < PPT; ++k) {
-          const float4 v = rnd4<BF>(x[j][k]);
-          x[j][k] = fma4(v.w, m3, fma4(v.z, m2, fma4(v.y, m1, scale4(m0, v.x))));
-        }
+      for (int j = 0; j < NP; ++j) mix_op<BF, SM, PPT>((SM ? smix : a.mixes) + idx * 16, x[j]);
     } else if (kind == OP_SCALE) {
 #pragma unroll
-      for (int j = 0; j < NP; ++j) {
-        if (!valid[j]) continue;
-        const size_t base = static_cast<size_t>(patch[j]) * NPIX * 4;
-        const float sa = a.sa[(size_t)patch[j] * a.n_scale + idx];
-        const float sb = a.sb[(size_t)patch[j] * a.n_scale + idx];
-#pragma unroll
-        for (int k = 0; k < PPT; ++k) {
-          const float4 cl = ldg4(a.clean + base + (size_t)(tid + NT * k) * 4);
-          x[j][k] = make_float4(x[j][k].x * sqrtf(fmaf(sa, cl.x, sb)),
-                                x[j][k].y * sqrtf(fmaf(sa, cl.y, sb)),
-                                x[j][k].z * sqrtf(fmaf(sa, cl.z, sb)),
-                                x[j][k].w * sqrtf(fmaf(sa, cl.w, sb)));
-        }
-      }
+      for (int j = 0; j < NP; ++j)
+        if (valid[j]) scale_op<PPT>(a, patch[j], idx, x[j]);
     } else {  // OP_COUPLING
       if constexpr (ABL == ABL_NOCOUPNN) continue;
       const float* rec = a.coup + (size_t)idx * REC;
@@ -637,20 +682,7 @@ sample_kernel(const Args a) {
           conv3_im2col<BF, PPT, SM>(hs + j * NPIX, rec, r0, c, t);
         else
           conv3<BF, PPT, SM>(hs + j * NPIX, rec, r0, c, t);
-#pragma unroll
-        for (int k = 0; k < PPT; ++k) {
-          if constexpr (ABL == ABL_NOTRANS) {
-            const float ls0 = rescale * (t[k].z * 0.9f);
-            const float ls1 = rescale * (t[k].w * 0.9f);
-            x[j][k].z = (x[j][k].z - t[k].x) * (1.f - ls0);
-            x[j][k].w = (x[j][k].w - t[k].y) * (1.f - ls1);
-          } else {
-            const float ls0 = rescale * tanhf(t[k].z);
-            const float ls1 = rescale * tanhf(t[k].w);
-            x[j][k].z = (x[j][k].z - t[k].x) * expf(-ls0);
-            x[j][k].w = (x[j][k].w - t[k].y) * expf(-ls1);
-          }
-        }
+        coupling_update<ABL, PPT>(t, rescale, x[j]);
       }
     }
   }
@@ -752,6 +784,348 @@ inline int chain_args(Args& a, const float* eps, float* out, const float* clean,
   a.batch_bn = batch_bn;
   for (int i = 0; i < n_ops; ++i) a.ops[i] = ops[i];
   return 0;
+}
+
+
+// ---------------------------------------------------------------------------
+// coop_kernel: batch BN in one cooperative launch
+// ---------------------------------------------------------------------------
+
+constexpr int CPART = 8;   // floats a patch in each of launch_coop's two partials buffers
+
+__device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+
+// The patch's sum and M2 (the squared deviations from its own mean) of the
+// thread's values h, every thread gets both.
+template <int NT, int PPT>
+__device__ __forceinline__ void patch_moments(const float4 (&h)[PPT], float4* red, float4& s,
+                                              float4& q) {
+  s = zero4();
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) s = s + h[k];
+  s = block_sum4<NT>(s, red);
+  const float4 mp = scale4(s, 1.f / NPIX);
+  q = zero4();
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const float4 d = h[k] - mp;
+    q = q + d * d;
+  }
+  q = block_sum4<NT>(q, red);
+}
+
+// The group's mean and biased variance from its patches' (sum, M2), in
+// patch order: M2 = sum_p M2_p + NPIX * (mean_p - mean)^2.
+template <int NT>
+__device__ __forceinline__ void group_merge(const float* part, int g0, int count, float4* red,
+                                            float4& mean, float4& var) {
+  const float inv = 1.f / (static_cast<float>(count) * NPIX);
+  float4 s = zero4();
+  for (int i = threadIdx.x; i < count; i += NT)
+    s = s + *reinterpret_cast<const float4*>(part + (size_t)(g0 + i) * CPART);
+  mean = scale4(block_sum4<NT>(s, red), inv);
+  float4 q = zero4();
+  for (int i = threadIdx.x; i < count; i += NT) {
+    const float4* p = reinterpret_cast<const float4*>(part + (size_t)(g0 + i) * CPART);
+    const float4 d = scale4(p[0], 1.f / NPIX) - mean;
+    q = q + p[1] + scale4(d * d, static_cast<float>(NPIX));
+  }
+  var = scale4(block_sum4<NT>(q, red), inv);
+}
+
+// The whole chain in batch-BN mode, one cooperative launch at PPT_PROD
+// pixels a thread. A BN's moments need every patch of its group, so each BN
+// stage ends in grid.sync(), one barrier a BN, two a coupling: each patch
+// writes its sum and M2 (one partial a stage into a.part_out, two buffers
+// of B * CPART floats, swapped at each barrier), and after the barrier each
+// CTA merges its group's partials in patch order (group_merge), so the
+// result is the same from run to run.
+//   RESIDENT (grid = B, one patch a CTA): the chain state stays in registers
+//   from the first op to the last (read or drawn once); conv1's output h1
+//   and then h2 = conv2(relu(bn1(h1))) stay in the hidden tile hs across
+//   the barriers (the thread's own pixels), and the moments in registers.
+//   Walk (grid < B): CTA blockIdx.x owns patches blockIdx.x + k gridDim.x.
+//   The chain state passes through a.out between stages: the ops before the
+//   first coupling run (and draw the input) once, then each stage of a
+//   coupling reloads its patches and recomputes conv1 (and conv2), as
+//   launch_chain's stages do; BN1's moments go through a.mom, written by the
+//   CTA of the group's first patch, and each CTA merges a group once a
+//   stage, not once a patch. Every CTA reaches every barrier: the barriers
+//   are outside the loops over patches.
+template <bool BF, bool RESIDENT>
+__global__ void __launch_bounds__(THREADS, 2)
+coop_kernel(const Args a) {
+  constexpr int PPT = PPT_PROD, NT = THREADS;
+  constexpr bool SM = BF;   // the record and the mixes staged, weights rounded once
+  cg::grid_group grid = cg::this_grid();
+  __shared__ float2 xs[NPIX];   // x channels {0,1}: conv1 input
+  __shared__ float4 hs[NPIX];   // hidden map
+  __shared__ float4 red[NT / 32];
+  __shared__ __align__(16) float srec[SM ? REC : 4];
+  __shared__ __align__(16) float smix[SM ? MAX_OPS * 16 : 4];
+
+  const int tid = threadIdx.x, c = tid % W, r0 = tid / W;
+  const int n_ops = a.op_end;
+  float* part_w = a.part_out;                                  // written this stage
+  float* part_r = a.part_out + static_cast<size_t>(a.B) * CPART;  // read this stage
+  auto sync = [&]() {
+    grid.sync();
+    float* t = part_r;
+    part_r = part_w;
+    part_w = t;
+  };
+  auto put = [&](int patch, float4 s, float4 q) {
+    if (tid == 0) {
+      float4* p = reinterpret_cast<float4*>(part_w + static_cast<size_t>(patch) * CPART);
+      p[0] = s;
+      p[1] = q;
+    }
+  };
+  if constexpr (SM) {  // every mix of the op table, rounded once, at its op's slot
+    for (int i = tid; i < n_ops * 16; i += NT) {
+      const int op = a.ops[i / 16];
+      if ((op >> 8) == OP_MIX) smix[i] = rnd<BF>(__ldg(a.mixes + (op & 255) * 16 + i % 16));
+    }
+  }
+  auto mix_at = [&](int i) -> const float* {
+    return SM ? smix + i * 16 : a.mixes + (a.ops[i] & 255) * 16;
+  };
+  // the coupling's record as the convs read it; the caller synchronises
+  // before (the previous coupling is done with srec) and after
+  auto record = [&](int idx) -> const float* {
+    const float* rec = a.coup + static_cast<size_t>(idx) * REC;
+    if constexpr (SM) {
+      stage_record<BF, NT>(srec, rec);
+      return srec;
+    } else {
+      return rec;
+    }
+  };
+  // the coupling's zero-conv of hs and its update of x
+  auto zero_conv_update = [&](const float* rec, float4 (&x)[PPT]) {
+    float4 t[PPT];
+    conv3<BF, PPT, SM>(hs, rec, r0, c, t);
+    coupling_update<ABL_FULL, PPT>(t, SM ? rec[OFF_RESCALE] : __ldg(rec + OFF_RESCALE), x);
+  };
+  // conv1 of the chain state x (the thread's pixels) into h
+  auto conv1_of = [&](const float4 (&x)[PPT], const float* rec, float4 (&h)[PPT]) {
+    __syncthreads();  // xs and hs are no longer read
+#pragma unroll
+    for (int k = 0; k < PPT; ++k)
+      xs[tid + NT * k] = make_float2(rnd<BF>(x[k].x), rnd<BF>(x[k].y));
+    __syncthreads();
+    conv1<BF, PPT, SM>(xs, rec, r0, c, h);
+  };
+
+  if constexpr (RESIDENT) {
+    const int patch = blockIdx.x;
+    const int g0 = patch / a.bt * a.bt, count = min(a.bt, a.B - g0);
+    // a BN's moments of the values in hs (the thread's pixels)
+    auto moments = [&](float4& mean, float4& var) {
+      float4 h[PPT];
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) h[k] = hs[tid + NT * k];
+      float4 s, q;
+      patch_moments<NT, PPT>(h, red, s, q);
+      put(patch, s, q);
+      sync();
+      group_merge<NT>(part_r, g0, count, red, mean, var);
+    };
+    float4 x[PPT];
+    chain_input<PPT>(a, patch, x);
+    if constexpr (SM) __syncthreads();  // smix
+    for (int i = 0; i < n_ops; ++i) {
+      const int kind = a.ops[i] >> 8, idx = a.ops[i] & 255;
+      if (kind == OP_MIX) {
+        mix_op<BF, SM, PPT>(mix_at(i), x);
+        continue;
+      }
+      if (kind == OP_SCALE) {
+        scale_op<PPT>(a, patch, idx, x);
+        continue;
+      }
+      __syncthreads();  // the previous coupling's convs are done with srec
+      const float* rec = record(idx);
+      {
+        float4 h[PPT];
+        conv1_of(x, rec, h);
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) hs[tid + NT * k] = h[k];
+      }
+      float4 m1, v1;
+      moments(m1, v1);
+#pragma unroll
+      for (int k = 0; k < PPT; ++k)
+        hs[tid + NT * k] = conv2<BF, SM>(relu4(bn4(hs[tid + NT * k], m1, v1)), rec);
+      float4 m2, v2;
+      moments(m2, v2);
+#pragma unroll
+      for (int k = 0; k < PPT; ++k)
+        hs[tid + NT * k] = rnd4<BF>(relu4(bn4(hs[tid + NT * k], m2, v2)));
+      __syncthreads();
+      zero_conv_update(rec, x);
+    }
+    float4* o = reinterpret_cast<float4*>(a.out + static_cast<size_t>(patch) * NPIX * 4);
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) o[tid + NT * k] = x[k];
+  } else {
+    auto state = [&](int patch) {
+      return reinterpret_cast<float4*>(a.out + static_cast<size_t>(patch) * NPIX * 4);
+    };
+    auto load = [&](int patch, float4 (&x)[PPT]) {
+      const float4* o = state(patch);
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) x[k] = o[tid + NT * k];
+    };
+    auto store = [&](int patch, const float4 (&x)[PPT]) {
+      float4* o = state(patch);
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) o[tid + NT * k] = x[k];
+    };
+    // the mix and scale ops [i, j) of the patch
+    auto plain_ops = [&](int i, int j, int patch, float4 (&x)[PPT]) {
+      for (; i < j; ++i) {
+        if ((a.ops[i] >> 8) == OP_MIX)
+          mix_op<BF, SM, PPT>(mix_at(i), x);
+        else
+          scale_op<PPT>(a, patch, a.ops[i] & 255, x);
+      }
+    };
+    auto next_coupling = [&](int i) {
+      while (i < n_ops && (a.ops[i] >> 8) != OP_COUPLING) ++i;
+      return i;
+    };
+    if constexpr (SM) __syncthreads();  // smix
+    int p = next_coupling(0);
+    for (int patch = blockIdx.x; patch < a.B; patch += gridDim.x) {
+      float4 x[PPT];
+      chain_input<PPT>(a, patch, x);
+      plain_ops(0, p, patch, x);
+      store(patch, x);
+    }
+    while (p < n_ops) {
+      const int q = next_coupling(p + 1);
+      __syncthreads();  // the previous coupling's convs are done with srec
+      const float* rec = record(a.ops[p] & 255);
+      // the thread's h of the patch at a statistics stage: h1, or h2 with
+      // BN1's moments (m1, v1)
+      auto stage_h = [&](int patch, bool second, float4 m1, float4 v1, float4 (&h)[PPT]) {
+        float4 x[PPT];
+        load(patch, x);
+        conv1_of(x, rec, h);
+        if (second) {
+#pragma unroll
+          for (int k = 0; k < PPT; ++k) h[k] = conv2<BF, SM>(relu4(bn4(h[k], m1, v1)), rec);
+        }
+      };
+      int cached = -1;   // the group whose moments the CTA holds
+      float4 gm = zero4(), gv = zero4();
+      for (int patch = blockIdx.x; patch < a.B; patch += gridDim.x) {
+        float4 h[PPT], s, sq;
+        stage_h(patch, false, gm, gv, h);
+        patch_moments<NT, PPT>(h, red, s, sq);
+        put(patch, s, sq);
+      }
+      sync();
+      for (int patch = blockIdx.x; patch < a.B; patch += gridDim.x) {
+        const int g = patch / a.bt, g0 = g * a.bt;
+        if (g != cached) {
+          group_merge<NT>(part_r, g0, min(a.bt, a.B - g0), red, gm, gv);
+          cached = g;
+        }
+        if (patch == g0 && tid < 4) {
+          a.mom[g * 12 + tid] = get4(gm, tid);
+          a.mom[g * 12 + 4 + tid] = get4(gv, tid);
+        }
+        float4 h[PPT], s, sq;
+        stage_h(patch, true, gm, gv, h);
+        patch_moments<NT, PPT>(h, red, s, sq);
+        put(patch, s, sq);
+      }
+      sync();
+      // apply: the coupling, then the mix and scale ops up to the next one
+      cached = -1;
+      for (int patch = blockIdx.x; patch < a.B; patch += gridDim.x) {
+        const int g = patch / a.bt, g0 = g * a.bt;
+        const float* m = a.mom + static_cast<size_t>(g) * 12;
+        if (g != cached) {
+          group_merge<NT>(part_r, g0, min(a.bt, a.B - g0), red, gm, gv);
+          cached = g;
+        }
+        const float4 m1 = *reinterpret_cast<const float4*>(m);
+        const float4 v1 = *reinterpret_cast<const float4*>(m + 4);
+        float4 x[PPT], h[PPT];
+        load(patch, x);
+        conv1_of(x, rec, h);
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          float4 v = bn4(h[k], m1, v1);
+          v = conv2<BF, SM>(relu4(v), rec);
+          v = bn4(v, gm, gv);
+          hs[tid + NT * k] = rnd4<BF>(relu4(v));
+        }
+        __syncthreads();
+        zero_conv_update(rec, x);
+        plain_ops(p + 1, q, patch, x);
+        store(patch, x);
+      }
+      p = q;
+    }
+  }
+}
+
+// Where launch_coop runs a batch of B patches: the resident kernel, one CTA a
+// patch, if the card holds B of its CTAs at once (per_sm an SM, from the
+// occupancy API), else the walk kernel on as many CTAs as the card holds.
+// Returns the CUDA error, 0 if none; a card without cooperative launches
+// is refused (cudaErrorNotSupported).
+template <bool BF>
+int coop_plan(int B, int* grid, int* per_sm, int* resident) {
+  int dev = 0, sms = 0, coop = 0, n = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, coop_kernel<BF, true>, THREADS, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  *resident = B <= n * sms;
+  if (!*resident) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, coop_kernel<BF, false>, THREADS, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (n < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  *per_sm = n;
+  *grid = B < n * sms ? B : n * sms;
+  return 0;
+}
+
+// Runs the chain on a's inputs in batch-BN mode as one cooperative launch of
+// coop_kernel (coop_plan picks the resident or the walk kernel); a.src is
+// set here: eps, or null to draw the chain input in the kernel. `part` is
+// scratch of 2*B*CPART floats. Sets *launched to the kernel launches it
+// issued and returns the launch error (cudaError_t), 0 if none; a refused
+// launch is not retried in any other way.
+template <bool BF>
+int launch_coop(Args a, const float* eps, float* part, int n_ops, cudaStream_t s,
+                int* launched) {
+  *launched = 0;
+  int grid = 0, per_sm = 0, resident = 0;
+  const int err = coop_plan<BF>(a.B, &grid, &per_sm, &resident);
+  if (err) return err;
+  a.stage = APPLY;
+  a.op_begin = 0;
+  a.op_end = n_ops;
+  a.src = eps;
+  a.part_in = nullptr;
+  a.part_out = part;
+  void* args[] = {&a};
+  void* fn = resident ? reinterpret_cast<void*>(coop_kernel<BF, true>)
+                      : reinterpret_cast<void*>(coop_kernel<BF, false>);
+  cudaError_t e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(THREADS), args, 0, s);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e == cudaSuccess) ++*launched;
+  return static_cast<int>(e);
 }
 
 }  // namespace

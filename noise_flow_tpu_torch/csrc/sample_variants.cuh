@@ -36,12 +36,12 @@ extern "C" int nf_sample_variant(int abl, int design, int ppt, const float* eps,
 #define SAMPLE_VARIANT(A, D, P)                                                 \
   if (abl == (A) && design == (D) && ppt == (P))                                \
     return launch_chain<BF, (A), (D), (P)>(a, eps, part, ops, n_ops, s, launched);
-  SAMPLE_VARIANT(ABL_FULL, DESIGN_PROD, 4)
-  SAMPLE_VARIANT(ABL_FULL, DESIGN_PROD, 2)
-  SAMPLE_VARIANT(ABL_FULL, DESIGN_PROD, 8)
-  SAMPLE_VARIANT(ABL_NOTRANS, DESIGN_PROD, 4)
-  SAMPLE_VARIANT(ABL_NOSHIFT, DESIGN_PROD, 4)
-  SAMPLE_VARIANT(ABL_NOCOUPNN, DESIGN_PROD, 4)
+  SAMPLE_VARIANT(ABL_FULL, DESIGN_PARENT, 4)
+  SAMPLE_VARIANT(ABL_FULL, DESIGN_PARENT, 2)
+  SAMPLE_VARIANT(ABL_FULL, DESIGN_PARENT, 8)
+  SAMPLE_VARIANT(ABL_NOTRANS, DESIGN_PARENT, 4)
+  SAMPLE_VARIANT(ABL_NOSHIFT, DESIGN_PARENT, 4)
+  SAMPLE_VARIANT(ABL_NOCOUPNN, DESIGN_PARENT, 4)
   SAMPLE_VARIANT(ABL_FULL, DESIGN_INTERLEAVE, 4)
   SAMPLE_VARIANT(ABL_FULL, DESIGN_CONCAT_K, 4)
   SAMPLE_VARIANT(ABL_FULL, DESIGN_CONCAT_K | DESIGN_INTERLEAVE, 4)

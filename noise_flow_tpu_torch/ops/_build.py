@@ -9,7 +9,9 @@ source or header is rebuilt. ``train_probe`` and the four
 ``probes/train_template.py``: the attribution probes, and the train
 kernels' template in the parent's design and the production one with its
 ablations, one library a design and precision so that they build in
-parallel. The build runs at first use; ``build_all`` starts one nvcc per
+parallel; ``sample_variants_<precision>`` those of ``probes/sampler.py``:
+the sampler's template in the parent's design with its ablations and
+designs. The build runs at first use; ``build_all`` starts one nvcc per
 source, all at once.
 Nothing is built or imported when this module is imported.
 """
@@ -38,6 +40,7 @@ SIGNATURES = {
         "nf_fused_sample": ([_P] * 9 + [_I] * 4 + [ctypes.POINTER(_I), _I, _I, ctypes.c_uint,
                              ctypes.c_float, _I, _P, ctypes.POINTER(_I)], _I),
         "nf_rng_normals": ([_P, _I, ctypes.c_uint, ctypes.c_float, _P], _I),
+        "nf_sample_plan": ([_I, _I] + [ctypes.POINTER(_I)] * 3, _I),
     },
     "fused_train": {
         "nf_train_step": ([_P] * 16 + [_I] * 5 + [ctypes.c_float] * 2 + [ctypes.POINTER(_I),

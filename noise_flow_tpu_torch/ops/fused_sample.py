@@ -3,7 +3,9 @@
 Port of noise_flow_tpu.ops.pallas_sample. The published flow (arch
 ``sdn5|unc x4|gain4|unc x4``) is ten small bijectors over 32x32x4 patches;
 the kernel (``csrc/fused_sample.cu``) runs the chain with each patch held on
-chip, reading eps and clean once and writing the noise once.
+chip, reading eps and clean once and writing the noise once. Every call is
+one launch: in batch-BN mode one cooperative launch whose BN stages end in
+grid-wide barriers (``sample_plan`` says where it runs).
 
 The program build folds a ``NoiseFlow`` into what the kernel takes:
 
@@ -68,6 +70,7 @@ H, W, C = 32, 32, 4
 OP_MIX, OP_SCALE, OP_COUPLING = 0, 1, 2
 MAX_OPS = 64    # the kernel's op table (csrc/fused_sample.cu: MAX_OPS)
 MAX_BN_BLOCK = 256
+COOP_PART = 8   # floats a patch in each partials buffer (csrc/sample_kernel.cuh: CPART)
 
 # name -> (offset, shape) inside one coupling record; must match the
 # OFF_* constants of csrc/fused_sample.cu. Offsets are multiples of 4 floats
@@ -326,6 +329,25 @@ def _group_bn(h, bt: int):
     return torch.cat(out, 0)
 
 
+def merged_group_moments(h, bt: int):
+    """The batch-BN moments as the kernel's production design merges them
+    (``coop_kernel``): each patch's sum and M2 (squared deviations from its
+    own mean), merged over each group of ``bt`` consecutive patches in patch
+    order, M2 = sum_p M2_p + NPIX * (mean_p - mean)^2. h [B, 32, 32, C] ->
+    (mean, biased variance), each [n_groups, C]. The same moments as
+    ``_group_bn``'s two passes, in another order of float32 sums."""
+    npix = h.shape[1] * h.shape[2]
+    sums = h.sum(dim=(1, 2))                                       # [B, C]
+    m2 = ((h - (sums / npix)[:, None, None]) ** 2).sum(dim=(1, 2))
+    means, vars_ = [], []
+    for s, q in zip(torch.split(sums, bt), torch.split(m2, bt)):
+        n = s.shape[0] * npix
+        mean = s.sum(0) / n
+        means.append(mean)
+        vars_.append((q.sum(0) + npix * ((s / npix - mean) ** 2).sum(0)) / n)
+    return torch.stack(means), torch.stack(vars_)
+
+
 def _zero_conv(h, rec, rnd):
     """The coupling's zero-conv of the hidden map h: taps inside the patch
     are a product of rnd(h) and rnd(w3); taps outside add the indicator
@@ -401,7 +423,7 @@ def _launch_kernel(program: SampleProgram, x, clean, sa, sb, bt: int,
         raise ValueError(f"bad sizes: batch {b}, bt {bt}, n_scale {ns}")
     lib = load_library("fused_sample")
     out = torch.empty_like(clean)
-    part = torch.empty((2, b, 4), dtype=torch.float32, device=clean.device)
+    part = torch.empty((2, b, COOP_PART), dtype=torch.float32, device=clean.device)
     mom = torch.empty((-(-b // bt), 12), dtype=torch.float32, device=clean.device)
     ops = (ctypes.c_int * len(program.ops_code))(*program.ops_code)
     launched = ctypes.c_int(0)
@@ -414,7 +436,8 @@ def _launch_kernel(program: SampleProgram, x, clean, sa, sb, bt: int,
             int(program.bn_mode == "batch"), ops, len(program.ops_code),
             int(seed is not None), 0 if seed is None else seed, float(temp), int(bf16),
             stream, ctypes.byref(launched))
-    # one per kernel launch: the C entry runs the batch-BN chain stage by stage
+    # one per kernel launch, as the C entry reports them: one a call in
+    # either BN mode (batch BN is one cooperative launch)
     launch_counts["fused_sample"] += launched.value
     if seed is not None:
         launch_counts["fused_sample_rng"] += launched.value
@@ -423,6 +446,26 @@ def _launch_kernel(program: SampleProgram, x, clean, sa, sb, bt: int,
     if err != 0:
         raise RuntimeError(f"fused_sample kernel launch failed: CUDA error {err}")
     return out
+
+
+def sample_plan(b: int, mm_dtype="float32", device="cuda") -> Dict[str, int]:
+    """Where the kernel runs a batch-BN call of ``b`` patches on the card
+    (``nf_sample_plan``, from the occupancy API): ``grid`` CTAs, ``per_sm``
+    of them an SM, ``resident`` 1 if each CTA holds one patch for the whole
+    chain (b <= the CTAs the card holds at once), 0 if each CTA walks
+    patches ``blockIdx.x + k * gridDim.x``."""
+    from noise_flow_tpu_torch.ops._build import load_library
+
+    device = torch.device(device)
+    if device.type != "cuda" or b < 1:
+        raise ValueError(f"sample_plan takes b >= 1 on a CUDA device, got {b} on {device}")
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        err = load_library("fused_sample").nf_sample_plan(int(is_bf16(mm_dtype)), b,
+                                                          *map(ctypes.byref, vals))
+    if err != 0:
+        raise RuntimeError(f"nf_sample_plan failed: CUDA error {err}")
+    return dict(zip(("grid", "per_sm", "resident"), (v.value for v in vals)))
 
 
 def _default_bt(program: SampleProgram, b: int, bt: Optional[int]) -> int:

@@ -17,10 +17,17 @@ with the question it asked):
   ``mma.sync`` (``csrc/sample_probe.cu``), the same chain at the sampler's
   4 channels, and the dense rate factor k and sampler ratio R that read it.
 
+The sampler's production design (batch BN in one cooperative launch with
+merged moments, ``coop_kernel``; bfloat16 weights rounded once) is not
+among them: the template's "full" variant is the parent's design (batch BN
+stage by stage, 40 launches a call), kept to attribute and to time
+against.
+
 Every variant runs at two shapes of the flagship ``experiments/sidd/
 prod_exact_150``: (R) running BN with in-kernel RNG at b = 8192, the TPU
 probes' own shape and ``make_sampler``'s; (W) batch BN on a given eps at b
-= bt = 138, the wrapper's request (40 launches a call).
+= bt = 138, the wrapper's request (40 launches a call in the parent's
+design).
 
 On the card, from the root of a checkout::
 
@@ -465,8 +472,10 @@ def attribution(check: Optional[Check] = None) -> Dict[str, dict]:
     notrans ablation's, "mm_chain" and "px_chain" for the product chains),
     recorded as ``agrees``; the literal chain is held over its first
     ``CHAIN_PREFIX`` products too (kind "mm_chain_prefix"). Variants of FULL's (or concat-K's) arithmetic
-    record ``bit_equal`` to that kernel's output, and FULL records
-    ``bit_equal_to_production``."""
+    record ``bit_equal`` to that kernel's output. FULL (the parent's design)
+    records ``bit_equal_to_production`` in running BN, where production has
+    its arithmetic, and in batch BN, where production merges its moments in
+    another order, ``normwise_vs_production``."""
     programs = flagship_programs()
     res: Dict[str, dict] = {}
 
@@ -511,8 +520,10 @@ def attribution(check: Optional[Check] = None) -> Dict[str, dict]:
                            plains[VARIANTS[n][0]])
                 if n in SAME_BITS and (shape == "R" or n not in ("ppt2", "ppt8")):
                     row["bit_equal"] = bool(torch.equal(outs[n], outs[SAME_BITS[n]]))
-                if n == "full":
+                if n == "full" and shape == "R":
                     row["bit_equal_to_production"] = bool(torch.equal(outs[n], prod))
+                elif n == "full":
+                    row["normwise_vs_production"] = tt._errors(outs[n], prod)[0]
                 rows[f"{n},{dt},{shape}"] = row
                 print(f"probe sampler {n:>27} {dt} ({shape}): {row['ms']:.4f} ms "
                       f"({row['launches_a_call']} launches), {row['ms'] / ms['full']:.3f} of "
@@ -521,7 +532,9 @@ def attribution(check: Optional[Check] = None) -> Dict[str, dict]:
                       + (f"; bits as {SAME_BITS[n]}: {row['bit_equal']}"
                          if "bit_equal" in row else "")
                       + (f"; bits as production: {row['bit_equal_to_production']}"
-                         if n == "full" else ""))
+                         if "bit_equal_to_production" in row else "")
+                      + (f"; normwise vs production {row['normwise_vs_production']:.2e}"
+                         if "normwise_vs_production" in row else ""))
     for site, runs, head in (("probe_sampler_ablations", ABLATION_RUNS, "full,bfloat16,R"),
                              ("probe_sampler_folds", {"R": FOLD_RUNS}, "concat_k,bfloat16,R")):
         variants = {k: v for k, v in rows.items()

@@ -300,7 +300,7 @@ def test_variant_codes_are_the_kernel_template():
     assert {k: int(px[f"PX_{k.upper()}"]) for k in sp.PX_VARIANTS} == sp.PX_VARIANTS
     inst = (_build.CSRC / "sample_variants.cuh").read_text()
     common, bf16 = inst.split("#if VARIANT_BF")
-    names = {"DESIGN_PROD": 0, **{f"DESIGN_{k.upper()}": v for k, v in sp.DESIGN_BITS.items()}}
+    names = {"DESIGN_PARENT": 0, **{f"DESIGN_{k.upper()}": v for k, v in sp.DESIGN_BITS.items()}}
 
     def instantiated(part):
         out = set()
