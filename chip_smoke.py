@@ -143,7 +143,8 @@ Phases, each of which fails the run if it fails:
    probes, which compute nothing to compare, and ``one_op_ms`` is one small
    PyTorch call beside them), and last the three sampler-group sites of
    phase 35 (the sampler's entry also carries ``design``, its production
-   design by precision and BN mode, and ``redesign``, phase 37's rows);
+   design by precision and BN mode, and ``redesign``, phase 37's rows; the
+   eval forward's running modes carry phase 38's rows as ``redesign``);
    before it, a ``{"rank": [...]}`` line: each kernel and mode
    with main-path launches, calls x (device ms a call - bound a call)
    summed over the shapes its calls ran at (the wrapper's requests and its
@@ -185,12 +186,28 @@ Phases, each of which fails the run if it fails:
    each output's distance to the parent; the redesign must agree with the
    plain version, be one launch a call, be faster at b = 138 and 128, no
    more than 3% slower at the frame and at most 0.75 of the parent at
-   make_sampler; the running-BN kernel must give the parent's bits.
+   make_sampler; the running-BN kernel must give the parent's bits;
+38. the running-BN eval forward's redesign (each coupling's record staged
+   in shared memory once, bf16 weights rounded once, two barriers a
+   coupling, two CTAs an SM) against the parent's design (the probe
+   library's ``segment_kernel_parent``, ``csrc/segment_probe.cu``) in turns,
+   as device times of one eval call (both flagship segments) at b = 1, 138
+   and 4096 in both precisions. It prints each ratio, the CTAs an SM of
+   both designs (occupancy API) and the waves at each batch, ptxas's
+   registers and spills of both designs' kernels, and whether z and ldj are
+   the parent's bits; the redesign must agree with the plain version, be
+   one launch a segment, give the parent's bits, be faster than the parent
+   at b = 138 in bf16 and no more than 3% slower at any timed batch. Then
+   planted faults that the comparison with the plain version must catch:
+   the barrier before conv3 left out (a race, at b = 138 and 4096), the
+   running variances staged in place of 1/sqrt(var + eps), and a bf16
+   record rounded toward zero.
 
 The train template's redesigned step, segment backward and ghost forward
 keep one launch a call, so the exact launch counts of phases 9, 15 and 28
 are those of its parent's design; the sampler's batch-BN calls went from
-40 launches to one.
+40 launches to one; the redesigned eval forward keeps one launch a
+segment.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; it is printed
 only if every phase passed. Exit code 0 then, non-zero otherwise.
@@ -2225,6 +2242,138 @@ def _coop_phases(phase, programs):
     return out
 
 
+# Phase 38: the running-BN eval forward's redesign (each coupling's record
+# staged in shared memory once, bf16 weights rounded once, two barriers a
+# coupling, two CTAs an SM) against the parent's design (the probe library's
+# segment_kernel_parent), in turns, as device times of one eval call (both
+# flagship segments). What it must show: z and ldj the parent's bits, one
+# launch a segment, faster than the parent at b = 138 in bf16, and no slower
+# than the parent by more than EVAL_REDESIGN_SLACK at any timed batch.
+EVAL_REDESIGN_BATCHES = (1, 138, 4096)
+EVAL_REDESIGN_SLACK = 1.03
+
+
+def _eval_check(dt: str, got, ref) -> bool:
+    """An eval call's (z, ldj) against its plain version's: float32 z
+    elementwise within SEG_TOL and ldj within LDJ_RTOL; bf16 both normwise
+    within BF16_Z_RTOL and BF16_LDJ_RTOL."""
+    import torch
+    (zk, lk), (zp, lp) = got, ref
+    if not bool(torch.isfinite(zk).all()) or not bool(torch.isfinite(lk).all()):
+        return False
+    if dt == "float32":
+        atol, rtol = SEG_TOL
+        return (bool(((zk - zp).abs() <= atol + rtol * zp.abs()).all())
+                and float(((lk - lp).abs() / lp.abs().clamp_min(1.0)).max()) <= LDJ_RTOL)
+    return _norm_rel(zk, zp) <= BF16_Z_RTOL and _norm_rel(lk, lp) <= BF16_LDJ_RTOL
+
+
+def _segment_registers():
+    """ptxas's registers and spills of the production eval kernel
+    (segment_kernel<BF, E_PROD> in fused_train) and of the parent's
+    (segment_kernel_parent<BF> in segment_probe), by "design, precision"."""
+    import re
+    from noise_flow_tpu_torch.ops import _build
+    out = {}
+    for lib, pattern, design in (("fused_train", r"\d+segment_kernelILb(\d)ELi0E", "redesign"),
+                                 ("segment_probe", r"segment_kernel_parentILb(\d)E", "parent")):
+        for k in _build.kernel_resources(lib):
+            m = re.search(pattern, k["kernel"])
+            if m:
+                out[f"{design}, {'bfloat16' if m.group(1) == '1' else 'float32'}"] = {
+                    "registers": k.get("registers"), "spill_stores": k["spill_stores"],
+                    "spill_loads": k["spill_loads"]}
+    return out
+
+
+def _eval_phases(phase):
+    """Phase 38 (see the module docstring): the eval forward's redesign
+    against the parent's design in turns, then its planted faults. Returns
+    the rows for the kernels line's running modes (``redesign``), by
+    precision."""
+    import torch
+    from noise_flow_tpu_torch.ops import fused_train as ft
+    from noise_flow_tpu_torch.probes import train_template as tt
+
+    out = {dt: {} for dt in tt.DTYPES}
+
+    def redesign():
+        regs = _segment_registers()
+        for key, r in regs.items():
+            print(f"ptxas segment kernel [{key}]: {r['registers']} registers, spill "
+                  f"{r['spill_stores']} B stores / {r['spill_loads']} B loads")
+        if len(regs) != 4:
+            raise AssertionError(f"ptxas reported {sorted(regs)}, not both designs' two kernels")
+        rows = tt.eval_times(EVAL_REDESIGN_BATCHES, REDESIGN_ROUNDS, check=_eval_check)
+        bad = []
+        for key, row in rows.items():
+            dt, b = key.split(",b=")
+            row["registers"] = {d: regs[f"{d}, {dt}"] for d in (tt.PARENT, tt.PROD)}
+            out[dt][f"b={b}"] = row
+            if not (row["agrees_with_plain"] and row["launches_a_call"] == row["segments"]
+                    and row["z_bits_as_parent"] and row["ldj_bits_as_parent"]
+                    and row["ms"] <= EVAL_REDESIGN_SLACK * row["parent_ms"]):
+                bad.append(key)
+        fast = rows["bfloat16,b=138"]["parent_over_redesign"]
+        sms = rows["float32,b=138"]["sms"]
+        print(f"eval redesign against the parent: parent/redesign "
+              + ", ".join(f"{k} {r['parent_over_redesign']:.3f}x" for k, r in rows.items())
+              + f"; the rule: one CTA a patch, one wave where b <= CTAs an SM x {sms} SMs "
+              f"(redesign {[rows[f'{dt},b=138']['per_sm'][tt.PROD] for dt in tt.DTYPES]}, parent "
+              f"{[rows[f'{dt},b=138']['per_sm'][tt.PARENT] for dt in tt.DTYPES]} CTAs an SM, "
+              "float32 and bf16)")
+        if bad or fast <= 1:
+            raise AssertionError(f"the eval redesign fails at {bad} (plain, launches, bits or "
+                                 f"> {EVAL_REDESIGN_SLACK} of the parent), or bf16 at b = 138 "
+                                 f"is not faster ({fast:.3f}x)")
+    phase("eval forward redesign against the parent's design", redesign)
+
+    def planted_faults():
+        """Each must fail _eval_check against the plain version: the
+        barrier before conv3 left out (a race; at b = 138 and 4096, caught
+        if either disagrees), the running variances staged in place of
+        1/sqrt(var + eps) (bf16, which applies them), and a bf16 record
+        whose weights are rounded toward zero (staged through production)."""
+        flow = tt.flagship_flow()
+        caught = {}
+        for name, dt, batches in (("nosync", "float32", (138, 4096)),
+                                  ("moments", "bfloat16", (138,))):
+            segs = tt.eval_segments(flow, dt)
+            seen = []
+            for b in batches:
+                z = torch.randn((b, 32, 32, 4), device="cuda",
+                                generator=torch.Generator(device="cuda").manual_seed(b + 1))
+                got = tt.eval_chain(segs, functools.partial(tt.segment_forward_fault, name), z, dt)
+                ref = tt.eval_chain(segs, ft.segment_forward_reference, z, dt)
+                torch.cuda.synchronize()
+                seen.append(not _eval_check(dt, got, ref))
+                print(f"planted eval fault {name} ({dt}, b={b}): z normwise "
+                      f"{_norm_rel(got[0], ref[0]):.3e}, max abs "
+                      f"{float((got[0] - ref[0]).abs().max()):.3e} -> "
+                      f"{'DISAGREES' if seen[-1] else 'agrees'}")
+            caught[f"{name} ({dt})"] = any(seen)
+        segs = tt.eval_segments(flow, "bfloat16")
+        weights = torch.zeros(ft.REC, dtype=torch.bool, device="cuda")
+        for field in ("w1", "w2", "w3"):
+            off, shape = ft._REC_LAYOUT[field]
+            weights[off:off + math.prod(shape)] = True
+        trunc = [(torch.where(weights, (sg[0].view(torch.int32) & -65536).view(torch.float32),
+                              sg[0]).contiguous(), *sg[1:]) for sg in segs]
+        z = torch.randn((138, 32, 32, 4), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(139))
+        got = tt.eval_chain(trunc, ft.fused_segment_forward, z, "bfloat16")
+        ref = tt.eval_chain(segs, ft.segment_forward_reference, z, "bfloat16")
+        caught["record rounded toward zero (bfloat16)"] = not _eval_check("bfloat16", got, ref)
+        print(f"planted eval fault record rounded toward zero (bfloat16, b=138): z normwise "
+              f"{_norm_rel(got[0], ref[0]):.3e} -> "
+              f"{'DISAGREES' if caught['record rounded toward zero (bfloat16)'] else 'agrees'}")
+        print(f"eval forward planted faults (each must be caught): {caught}")
+        if not all(caught.values()):
+            raise AssertionError(f"the eval comparison missed a planted fault: {caught}")
+    phase("eval forward planted faults", planted_faults)
+    return out
+
+
 # the kernels line's (kernel, mode) by the production rows of
 # _production_times that time its calls; and the redesign rows (phase 33) by
 # (kernel, mode, kind, launches a call: both segments are two launches)
@@ -2525,6 +2674,7 @@ def main() -> int:
     redesign = _redesign_phases(phase, agree, programs, nf)
     sampler = _sampler_phases(phase, programs, nf.flow)
     coop = _coop_phases(phase, programs)
+    eval_rows = _eval_phases(phase)
 
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
@@ -2565,6 +2715,10 @@ def main() -> int:
         f"b={b},bt={b}": v for b, v in redesign["frame"].items()}
     entry["design"], entry["redesign"] = coop["design"], coop["rows"]
     kernels = [entry] + train_out["entries"]
+    for k in kernels:   # phase 38's rows beside the eval forward's running modes
+        if k["name"] == "fused_segment_forward":
+            k["by_mode"]["running"]["redesign"] = eval_rows["float32"]
+            bf16_modes[k["name"]]["running_bf16"]["redesign"] = eval_rows["bfloat16"]
     for k in kernels:   # the bf16 modes beside each kernel's float32 ones
         k.setdefault("by_mode", {}).update(bf16_modes.get(k["name"], {}))
         kind = {"fused_train_step": "step", "fused_segment_backward": "segment_backward",

@@ -116,94 +116,17 @@
 // mode takes the records without BN folded in and normalises with the
 // running moments after each conv, as the TPU kernel's ghost_bn=False does;
 // rounding BN-folded weights would be another function.
+//
+// The running-statistics forward (nf_segment_forward) is segment_kernel of
+// segment_kernel.cuh, which describes its design: one CTA a patch, each
+// coupling's record staged in shared memory once (bfloat16 weights rounded
+// once), two barriers a coupling, two CTAs an SM. The parent's kernel
+// (weights read, and rounded, at every tap) is kept in the probe library
+// segment_probe.cu.
 
-#include "train_kernel.cuh"
+#include "segment_kernel.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// running-statistics segment forward
-// ---------------------------------------------------------------------------
-
-struct SegArgs {
-  const float4* x;      // [B, NPIX]
-  float4* z;            // [B, NPIX]
-  float* ldj;           // [B]
-  const float* rec;     // [nc, REC]: BN folded into w1/b1 and w2/b2, or not (bnrun)
-  const float4* offs;   // [nc, NPIX]
-  const float* mixes;   // [nm, 16]
-  const float4* bnrun;  // [nc, 4]: mean1, var1, mean2, var2 of each coupling's
-                        // running BN, applied after each conv; null: folded in rec
-  int B, n_ops;
-  int ops[MAX_OPS];
-};
-
-template <bool BF>
-__global__ void __launch_bounds__(THREADS)
-segment_kernel(const SegArgs a) {
-  __shared__ float4 xs[NPIX];
-  __shared__ float4 hs[NPIX];
-  __shared__ float4 red[WARPS];
-  const int patch = blockIdx.x, tid = threadIdx.x;
-  const int c = tid % W, r0 = tid / W;
-  float4 x[PPT];
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) x[k] = a.x[slot(patch) + pix(k)];
-  float lsum = 0.f;
-  for (int i = 0; i < a.n_ops; ++i) {
-    const int kind = a.ops[i] >> 8, idx = a.ops[i] & 255;
-    if (kind == OP_MIX) {
-      const float* m = a.mixes + idx * 16;
-      const float4 m0 = wld4<BF>(m), m1 = wld4<BF>(m + 4), m2 = wld4<BF>(m + 8),
-                   m3 = wld4<BF>(m + 12);
-#pragma unroll
-      for (int k = 0; k < PPT; ++k) {
-        const float4 v = rnd4<BF>(x[k]);
-        x[k] = fma4(v.w, m3, fma4(v.z, m2, fma4(v.y, m1, scale4(m0, v.x))));
-      }
-      continue;
-    }
-    const float* rec = a.rec + static_cast<size_t>(idx) * REC;
-    __syncthreads();  // the previous coupling is done reading xs and hs
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) xs[pix(k)] = rnd4<BF>(x[k]);
-    __syncthreads();
-    float4 h[PPT];
-    conv1_fwd<BF>(xs, rec, r0, c, h);
-    const bool bn = a.bnrun != nullptr;
-    float4 m1 = zero4(), is1 = zero4(), m2 = zero4(), is2 = zero4();
-    if (bn) {
-      const float4* r = a.bnrun + static_cast<size_t>(idx) * 4;
-      m1 = r[0];
-      is1 = inv_sd4(r[1]);
-      m2 = r[2];
-      is2 = inv_sd4(r[3]);
-    }
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) {
-      float4 v = h[k];
-      if (bn) v = (v - m1) * is1;
-      v = conv2_fwd<BF>(relu4(v), rec);
-      if (bn) v = (v - m2) * is2;
-      hs[pix(k)] = rnd4<BF>(relu4(v));
-    }
-    __syncthreads();
-    float4 t[PPT];
-    conv3_fwd<BF>(hs, rec, a.offs + static_cast<size_t>(idx) * NPIX, r0, c, t);
-    const float rescale = __ldg(rec + OFF_RESCALE);
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) {
-      const float ls2 = rescale * tanhf(t[k].z), ls3 = rescale * tanhf(t[k].w);
-      x[k].z = fmaf(x[k].z, expf(ls2), t[k].x);
-      x[k].w = fmaf(x[k].w, expf(ls3), t[k].y);
-      lsum += ls2 + ls3;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) a.z[slot(patch) + pix(k)] = x[k];
-  const float4 l = block_sum4(make_float4(lsum, 0.f, 0.f, 0.f), red);
-  if (tid == 0) a.ldj[patch] = l.x;
-}
 
 template <int MODE>
 int launch_prod(StepArgs a, int bf16, void* stream, int* launched) {
@@ -300,35 +223,28 @@ extern "C" int nf_segment_backward(const float* x, const float* gz, const float*
   return err ? err : launch_prod<SEG_BWD>(a, bf16, stream, launched);
 }
 
+// The CTAs an SM of the running-statistics forward (bf16 != 0: its bfloat16
+// mode) in *per_sm, from the occupancy API: a batch of up to per_sm x SMs
+// patches runs in one wave. Returns the CUDA error, 0 if none.
+extern "C" int nf_segment_occupancy(int bf16, int* per_sm) {
+  return bf16 ? segment_occupancy<true, E_PROD>(per_sm) : segment_occupancy<false, E_PROD>(per_sm);
+}
+
 // Running-statistics forward of one [mix, coupling]* segment: x -> z and the
 // per-patch log-det ldj [B]. rec holds the records with BN folded in and
 // bnrun is null, or rec holds them without BN and bnrun [nc, 4, 4] the
 // running mean1, var1, mean2, var2 of each coupling (the bfloat16 mode rounds
 // the unfolded weights, as the TPU kernel does). One launch of B CTAs on
-// `stream`; *launched, bf16 and the return value as above.
+// `stream`; nm <= MAX_OPS. *launched, bf16 and the return value as above.
 extern "C" int nf_segment_forward(const float* x, float* z, float* ldj, const float* rec,
                                   const float* offs, const float* mixes, const float* bnrun,
                                   int B, int nc, int nm, const int* ops, int n_ops, int bf16,
                                   void* stream, int* launched) {
   *launched = 0;
-  if (B <= 0 || nc <= 0 || nm <= 0 || check_ops(ops, n_ops, nc, nm, 0, false))
-    return static_cast<int>(cudaErrorInvalidValue);
-  SegArgs a{};
-  a.x = reinterpret_cast<const float4*>(x);
-  a.z = reinterpret_cast<float4*>(z);
-  a.ldj = ldj;
-  a.rec = rec;
-  a.offs = reinterpret_cast<const float4*>(offs);
-  a.mixes = mixes;
-  a.bnrun = reinterpret_cast<const float4*>(bnrun);
-  a.B = B;
-  a.n_ops = n_ops;
-  for (int i = 0; i < n_ops; ++i) a.ops[i] = ops[i];
-  if (bf16)
-    segment_kernel<true><<<B, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  else
-    segment_kernel<false><<<B, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err == 0) ++*launched;
-  return err;
+  SegArgs a;
+  const int err = segment_args(a, x, z, ldj, rec, offs, mixes, bnrun, B, nc, nm, ops, n_ops);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_segment<true, E_PROD>(a, s, launched)
+              : launch_segment<false, E_PROD>(a, s, launched);
 }

@@ -9,7 +9,9 @@ source or header is rebuilt. ``train_probe`` and the four
 ``probes/train_template.py``: the attribution probes, and the train
 kernels' template in the parent's design and the production one with its
 ablations, one library a design and precision so that they build in
-parallel; ``sample_variants_<precision>`` those of ``probes/sampler.py``:
+parallel; ``segment_probe`` the running-statistics eval forward's parent
+design and its redesign with planted faults;
+``sample_variants_<precision>`` those of ``probes/sampler.py``:
 the sampler's template in the parent's design with its ablations and
 designs. The build runs at first use; ``build_all`` starts one nvcc per
 source, all at once.
@@ -48,6 +50,7 @@ SIGNATURES = {
         "nf_train_scratch": ([_I] * 6 + [ctypes.POINTER(ctypes.c_longlong)], _I),
         "nf_segment_forward": ([_P] * 7 + [_I] * 3 + [ctypes.POINTER(_I), _I, _I, _P,
                                ctypes.POINTER(_I)], _I),
+        "nf_segment_occupancy": ([_I, ctypes.POINTER(_I)], _I),
         "nf_segment_train_forward": ([_P] * 9 + [_I] * 4 + [ctypes.POINTER(_I), _I, _I, _P,
                                      ctypes.POINTER(_I)], _I),
         "nf_segment_backward": ([_P] * 12 + [_I] * 4 + [ctypes.POINTER(_I), _I, _I, _P,
@@ -59,6 +62,11 @@ SIGNATURES = {
         "nf_probe_launch": ([_I] * 3 + [_P] * 16 + [_I] * 5 + [ctypes.POINTER(_I), _I, _P,
                             ctypes.POINTER(_I)], _I),
     },
+}
+SIGNATURES["segment_probe"] = {
+    "nf_segment_forward_parent": SIGNATURES["fused_train"]["nf_segment_forward"],
+    "nf_segment_fault": ([_I] + SIGNATURES["fused_train"]["nf_segment_forward"][0], _I),
+    "nf_segment_parent_occupancy": ([_I, ctypes.POINTER(_I)], _I),
 }
 _CHAIN = ([_I] + [_P] * 3 + [_I] * 2 + [_P, ctypes.POINTER(_I)], _I)
 SIGNATURES["sample_probe"] = {"nf_mm_chain": _CHAIN, "nf_px_chain": _CHAIN}

@@ -548,13 +548,38 @@ def fused_train_step(x, clean, sa, sb, rec, offs, mixes, ops_code, bt: int,
     return _launch_step(x, clean, sa, sb, rec, offs, mixes, ops_code, bt, ldj_seed, bf16)
 
 
-def _launch_segment(x, rec, offs, mixes, ops_code, bf16, bnrun):
+def segment_occupancy(device="cuda", mm_dtype="float32") -> int:
+    """CTAs an SM of the running-statistics forward kernel on a CUDA device
+    (``nf_segment_occupancy``, the occupancy API): a batch of up to that
+    many times the SMs patches runs in one wave."""
     from noise_flow_tpu_torch.ops._build import load_library
 
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"segment_occupancy reads a CUDA device, got {device}")
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = load_library("fused_train").nf_segment_occupancy(int(is_bf16(mm_dtype)),
+                                                               ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"nf_segment_occupancy failed: CUDA error {err}")
+    return n.value
+
+
+def _check_eval(x, rec, offs, mixes, ops_code, bnrun):
     b, nc, nm = _check_segment(x, rec, offs, mixes, ops_code)
     if bnrun is not None:
         _check("bnrun", bnrun, (nc, 4, C))
         _same_device(x, bnrun)
+    if nm > MAX_OPS:
+        raise ValueError(f"a segment holds at most {MAX_OPS} mixes, got {nm}")
+    return b, nc, nm
+
+
+def _launch_segment(x, rec, offs, mixes, ops_code, bf16, bnrun):
+    from noise_flow_tpu_torch.ops._build import load_library
+
+    b, nc, nm = _check_eval(x, rec, offs, mixes, ops_code, bnrun)
     lib = load_library("fused_train")
     z = torch.empty_like(x)
     ldj = torch.empty((b,), dtype=torch.float32, device=x.device)
@@ -568,7 +593,7 @@ def _launch_segment(x, rec, offs, mixes, ops_code, bf16, bnrun):
 def fused_segment_forward(x, rec, offs, mixes, ops_code, mm_dtype="float32", bnrun=None):
     """Running-statistics forward of one segment: x [B,32,32,4] -> (z, ldj),
     ``rec`` and ``bnrun`` as in ``segment_forward_reference``. CUDA tensors
-    go through the kernel (or raise); CPU tensors through
+    go through the kernel (or raise), one launch; CPU tensors through
     ``segment_forward_reference``."""
     bf16 = is_bf16(mm_dtype)
     if x.device.type == "cpu":

@@ -16,7 +16,11 @@ On the card, from the root of a checkout::
 
 prints one line per variant and, with ``--out``, writes the table as JSON.
 ``--frame`` also times the fused sampler's batch-BN frame with the whole
-batch as one BN group (the wrapper's ``bt = b``).
+batch as one BN group (the wrapper's ``bt = b``). Every run first times the
+running-statistics eval forward's redesign against its parent's design
+(``csrc/segment_probe.cu``, which also holds the redesign with planted
+faults) at ``EVAL_BATCHES`` in both precisions (``eval_times``); ``--eval``
+runs that alone.
 
 Each wrapper takes CUDA tensors and launches its kernel. On CPU tensors it
 runs the plain version of the function its full variant computes; the
@@ -66,6 +70,16 @@ N_BN = 8                      # chained normalisations of the bn probe
 SYNC_COUNTS = (25, 49)        # grid.sync() of a segment backward and of a step (parent)
 PEAK_FP32_FLOPS, PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 67e12, 989e12, 3.35e12
 SLEEP_CYCLES_PER_MS = 2_000_000   # the H100's SM clock is at most 1.98 GHz
+# the planted faults of the redesigned eval forward in the probe library
+# (csrc/segment_probe.cu; their codes are the E_FAULT_* bits of
+# csrc/segment_kernel.cuh): the barrier before conv3 left out (conv3 reads
+# the other warps' rows in a race), the running variances staged in place of
+# 1/sqrt(var + eps)
+SEG_FAULTS = {"nosync": 1, "moments": 2}
+# the eval forward's timed batches: one patch (the latency path), the SMs'
+# count and one over it, the flagship's eval batch, two CTAs an SM and one
+# over it, and a large batch
+EVAL_BATCHES = (1, 132, 133, 138, 264, 265, 4096)
 
 
 class Site(NamedTuple):
@@ -245,6 +259,57 @@ def segment_train_forward(design, ablation, x, rec, offs, mixes, ops_code, bt,
     return z, rows[:, 0], bnmom
 
 
+# ---------------------------------------------------------------------------
+# the running-statistics eval forward's probe library (csrc/segment_probe.cu)
+# ---------------------------------------------------------------------------
+
+def _seg_lib():
+    from noise_flow_tpu_torch.ops._build import load_library
+    return load_library("segment_probe")
+
+
+def segment_forward_parent(x, rec, offs, mixes, ops_code, mm_dtype="float32", bnrun=None):
+    """``fused_train.fused_segment_forward`` in the parent's design (one CTA
+    a patch, the record read in device memory at every tap, three barriers a
+    coupling): (z, ldj [B]). CPU tensors: its plain version."""
+    if x.device.type == "cpu":
+        return ft.segment_forward_reference(x, rec, offs, mixes, ops_code, mm_dtype, bnrun)
+    if x.device.type != "cuda":
+        raise ValueError(f"segment_forward_parent runs on CUDA or CPU tensors, got {x.device}")
+    b, nc, nm = ft._check_eval(x, rec, offs, mixes, ops_code, bnrun)
+    z = torch.empty_like(x)
+    ldj = torch.empty((b,), dtype=torch.float32, device=x.device)
+    _launch("segment_probe_parent", _seg_lib().nf_segment_forward_parent, x.device,
+            x.data_ptr(), z.data_ptr(), ldj.data_ptr(), rec.data_ptr(), offs.data_ptr(),
+            mixes.data_ptr(), None if bnrun is None else bnrun.data_ptr(), b, nc, nm,
+            ft._ops_array(ops_code), len(ops_code), int(fs.is_bf16(mm_dtype)))
+    return z, ldj
+
+
+def segment_forward_fault(fault, x, rec, offs, mixes, ops_code, mm_dtype="float32", bnrun=None):
+    """The redesigned running-statistics forward with a ``SEG_FAULTS``
+    fault planted: (z, ldj [B]). It breaks the function on purpose, so it
+    has no plain version (CUDA only)."""
+    _cuda_only("segment_forward_fault", x)
+    b, nc, nm = ft._check_eval(x, rec, offs, mixes, ops_code, bnrun)
+    z = torch.empty_like(x)
+    ldj = torch.empty((b,), dtype=torch.float32, device=x.device)
+    _launch("segment_probe_fault", _seg_lib().nf_segment_fault, x.device, SEG_FAULTS[fault],
+            x.data_ptr(), z.data_ptr(), ldj.data_ptr(), rec.data_ptr(), offs.data_ptr(),
+            mixes.data_ptr(), None if bnrun is None else bnrun.data_ptr(), b, nc, nm,
+            ft._ops_array(ops_code), len(ops_code), int(fs.is_bf16(mm_dtype)))
+    return z, ldj
+
+
+def segment_parent_occupancy(mm_dtype="float32") -> int:
+    """CTAs an SM of the parent's eval forward kernel (the occupancy API)."""
+    n = ctypes.c_int(0)
+    err = _seg_lib().nf_segment_parent_occupancy(int(fs.is_bf16(mm_dtype)), ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"nf_segment_parent_occupancy failed: CUDA error {err}")
+    return n.value
+
+
 def bn_chain_reference(x, bt: int, n: int = N_BN, mm_dtype="float32"):
     """n chained ghost-BN normalisations (two-pass biased moments of each
     group of bt patches, as the train kernels); bfloat16 rounds each lane's
@@ -380,18 +445,23 @@ def _errors(got, ref):
             max(float((k - p).abs().max()) for k, p in pairs))
 
 
+def flagship_flow(device="cuda"):
+    """The published model (``MODEL``) with its checkpoint's weights."""
+    from noise_flow_tpu_torch.config import load_hps
+    from noise_flow_tpu_torch.models.flow import NoiseFlow
+    from noise_flow_tpu_torch.utils.checkpoint import load_checkpoint
+
+    flow = NoiseFlow((32, 32, 4), load_hps(str(MODEL / "hps.txt")), device=device)
+    load_checkpoint(str(MODEL / "ckpt" / "model.ckpt-best.npz"), flow)
+    return flow
+
+
 def flagship_inputs(seed: int = 11):
     """The flagship flow on the card and its fixed inputs: the one-shot
     step's (x, clean, sa, sb, rec, offs, mixes, ops_code) at B = 138, bt 69,
     in float32 and bfloat16 (the fold differs only in BN's moments), and the
     two segments' (rec, offs, mixes, ops_code) with seeded z, gz, gldj."""
-    from noise_flow_tpu_torch.config import load_hps
-    from noise_flow_tpu_torch.models.flow import NoiseFlow
-    from noise_flow_tpu_torch.utils.checkpoint import load_checkpoint
-
-    cfg = load_hps(str(MODEL / "hps.txt"))
-    flow = NoiseFlow((32, 32, 4), cfg, device="cuda")
-    load_checkpoint(str(MODEL / "ckpt" / "model.ckpt-best.npz"), flow)
+    flow = flagship_flow()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     clean = 0.01 + 0.89 * torch.rand((B, 32, 32, 4), generator=gen, device="cuda")
     x = torch.randn((B, 32, 32, 4), generator=gen, device="cuda") * torch.sqrt(5e-4 * clean + 2e-6)
@@ -606,6 +676,95 @@ def attribution(iters: int = 20, log=print, designs=DESIGNS,
     return res
 
 
+def eval_segments(flow, mm_dtype):
+    """Both flagship segments as ``FusedFlow.inverse(train=False)`` hands
+    them to the eval kernel: (rec, offs, mixes, ops_code, bnrun), the records
+    with BN folded in and bnrun None in float32, unfolded with the running
+    moments in bfloat16."""
+    ff = ft.FusedFlow(flow, mm_dtype=mm_dtype)
+    bf16 = fs.is_bf16(mm_dtype)
+    out = []
+    with torch.no_grad():
+        for _, seg, lo, hi in (it for it in ff.plan if it[0] == "segment"):
+            rec, offs, mixes, _ = ff.fold_segment(lo, hi, fold_bn=not bf16)
+            out.append((rec, offs, mixes, ft._ops_code(seg.ops),
+                        ff.running_moments(lo, hi) if bf16 else None))
+    return out
+
+
+EvalCheck = Callable[[str, tuple, tuple], bool]
+
+
+def _max_rel(k, p) -> float:
+    return float(((k - p).abs() / p.abs().clamp_min(1e-30)).max())
+
+
+def eval_chain(segs, fn, z, mm_dtype):
+    """One eval call of the running-statistics forward: ``fn`` (the wrapper,
+    the parent's, a fault's or the plain version) on each of ``segs`` (as
+    ``eval_segments`` gives them) in turn, the first's z into the second:
+    (z, summed ldj)."""
+    ldj = 0.0
+    for sg in segs:
+        z, lj = fn(z, *sg[:4], mm_dtype, sg[4])
+        ldj = ldj + lj
+    return z, ldj
+
+
+def eval_times(batches=EVAL_BATCHES, rounds: int = 5, log=print,
+               check: Optional[EvalCheck] = None) -> Dict[str, dict]:
+    """The running-statistics eval forward of both flagship segments (one
+    eval call of ``Trainer(use_pallas=True)``: the first segment's z into
+    the second) at each batch and precision, the parent's design and the
+    redesign timed in turns (``alternated_ms``, device times), with the
+    CTAs an SM of each and the redesign's outputs against the parent's (z
+    and ldj bit for bit, else the largest distance) and the plain version's
+    (z max abs and normwise, ldj relative), with ``check(precision, (z,
+    ldj), plain (z, ldj))``'s verdict, and the redesign's launches in one
+    call. Returns "{precision},b={b}" -> row."""
+    flow = flagship_flow()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for dt in DTYPES:
+        segs = eval_segments(flow, dt)
+        per_sm = {PARENT: segment_parent_occupancy(dt), PROD: ft.segment_occupancy("cuda", dt)}
+        for b in batches:
+            z = torch.randn((b, 32, 32, 4), generator=torch.Generator(device="cuda").manual_seed(b),
+                            device="cuda")
+            fns = {PARENT: functools.partial(eval_chain, segs, segment_forward_parent, z, dt),
+                   PROD: functools.partial(eval_chain, segs, ft.fused_segment_forward, z, dt)}
+            ms = alternated_ms(fns, rounds, 20 if b <= 512 else 5)
+            zp, lp = fns[PARENT]()
+            before = fs.launch_counts["fused_segment_forward"]
+            zk, lk = fns[PROD]()
+            launches = fs.launch_counts["fused_segment_forward"] - before
+            zr, lr = eval_chain(segs, ft.segment_forward_reference, z, dt)
+            torch.cuda.synchronize()
+            row = {"ms": ms[PROD], "parent_ms": ms[PARENT], "parent_over_redesign":
+                   ms[PARENT] / ms[PROD], "per_sm": per_sm, "sms": sms,
+                   "waves": {k: -(-b // (n * sms)) for k, n in per_sm.items()},
+                   "z_bits_as_parent": bool(torch.equal(zk, zp)),
+                   "ldj_bits_as_parent": bool(torch.equal(lk, lp)),
+                   "z_max_abs_vs_parent": float((zk - zp).abs().max()),
+                   "ldj_max_rel_vs_parent": _max_rel(lk, lp),
+                   "z_max_abs_vs_plain": float((zk - zr).abs().max()),
+                   "z_normwise_vs_plain": float((zk - zr).norm() / zr.norm()),
+                   "ldj_max_rel_vs_plain": _max_rel(lk, lr),
+                   "launches_a_call": launches, "segments": len(segs)}
+            if check is not None:
+                row["agrees_with_plain"] = bool(check(dt, (zk, lk), (zr, lr)))
+            out[f"{dt},b={b}"] = row
+            log(f"eval forward {dt} b={b}: redesign {row['ms']:.4f} ms ({launches} launches), "
+                f"parent {row['parent_ms']:.4f} ms ({row['parent_over_redesign']:.3f}x); CTAs an "
+                f"SM {per_sm}, waves {row['waves']}; z as parent {row['z_bits_as_parent']}, ldj "
+                f"as parent {row['ldj_bits_as_parent']}; vs plain z "
+                f"{row['z_max_abs_vs_plain']:.2e} abs {row['z_normwise_vs_plain']:.2e} normwise, "
+                f"ldj {row['ldj_max_rel_vs_plain']:.2e} rel"
+                + (f", {'agrees' if row['agrees_with_plain'] else 'DISAGREES'}"
+                   if check is not None else ""))
+    return out
+
+
 def frame_times(rounds: int = 3, iters: int = 5, log=print) -> Dict[str, dict]:
     """The fused sampler's batch-BN chain at a 1500x2000 frame (b = 2961)
     and at b = 4096, with the whole batch as one BN group (the wrapper's bt =
@@ -641,6 +800,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", help="write the table as JSON here")
     p.add_argument("--frame", action="store_true", help="also time the sampler's frame at bt = b")
+    p.add_argument("--eval", action="store_true",
+                   help="time the eval forward's redesign against its parent only")
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--designs", default=",".join(DESIGNS),
                    help="the template's designs to probe (parent, redesign)")
@@ -654,13 +815,16 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
     from noise_flow_tpu_torch.ops import _build
-    _build.build_all(["fused_sample", "fused_train", "train_probe", *_build.VARIANT_LIBRARIES])
+    _build.build_all(["fused_train", "segment_probe"] if args.eval else
+                     ["fused_sample", "fused_train", "train_probe", "segment_probe",
+                      *_build.VARIANT_LIBRARIES])
     for name in _build.build_logs:
         for k in _build.kernel_resources(name):
             print(f"ptxas[{name}] {k['kernel']}: {k.get('registers')} registers, spill "
                   f"{k['spill_stores']} B stores / {k['spill_loads']} B loads")
-    table = {"device": smi,
-             "probes": attribution(args.iters, designs=tuple(args.designs.split(",")))}
+    table = {"device": smi, "eval": eval_times()}
+    if not args.eval:
+        table["probes"] = attribution(args.iters, designs=tuple(args.designs.split(",")))
     if args.frame:
         table["frame"] = frame_times()
     if args.out:

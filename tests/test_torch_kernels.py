@@ -20,6 +20,7 @@ from noise_flow_tpu_torch.config import load_hps
 from noise_flow_tpu_torch.models.flow import NoiseFlow
 from noise_flow_tpu_torch.ops import fused_sample as fs
 from noise_flow_tpu_torch.ops import fused_train as ft
+from noise_flow_tpu_torch.probes import train_template as tt
 from noise_flow_tpu_torch.utils.checkpoint import load_checkpoint
 from noise_flow_tpu_torch.wrapper import NoiseFlowWrapper
 
@@ -208,30 +209,81 @@ def test_train_step_kernel_rejects_bad_inputs(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 138])
-def test_segment_forward_kernel_matches_plain(cuda_device, b):
-    flow = _flagship(cuda_device)
-    ff = ft.FusedFlow(flow)
+@pytest.mark.parametrize("mm_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b", tt.EVAL_BATCHES)
+def test_segment_forward_kernel_matches_plain(cuda_device, mm_dtype, b):
+    """The running-BN eval forward on both flagship segments, one launch a
+    segment: float32 with BN folded into the records (z elementwise, ldj
+    relative), bf16 with the running moments (both normwise: a bf16
+    rounding flips under another summation order)."""
+    segs = tt.eval_segments(_flagship(cuda_device), mm_dtype)
     z = torch.randn((b, 32, 32, 4), generator=torch.Generator(device="cpu").manual_seed(b))
     z = z.to(cuda_device)
-    for _, seg, lo, hi in (item for item in ff.plan if item[0] == "segment"):
-        with torch.no_grad():
-            coups = [flow.layers[i] for i in range(lo, hi) if flow.specs[i].kind == "coupling"]
-            mi = [i for i in range(lo, hi) if flow.specs[i].kind != "coupling"]
-            rec, offs = ft.fold_couplings(coups, fold_bn=True)
-            mixes, _ = ft.fold_mixes([flow.specs[i] for i in mi], [flow.layers[i] for i in mi],
-                                     cuda_device)
-        code = ft._ops_code(seg.ops)
+    for rec, offs, mixes, code, bnrun in segs:
         before = ft.launch_counts["fused_segment_forward"]
-        zk, lk = ft.fused_segment_forward(z, rec, offs, mixes, code)
+        zk, lk = ft.fused_segment_forward(z, rec, offs, mixes, code, mm_dtype, bnrun)
         assert ft.launch_counts["fused_segment_forward"] == before + 1
-        zp, lp = ft.segment_forward_reference(z, rec, offs, mixes, code)
+        zp, lp = ft.segment_forward_reference(z, rec, offs, mixes, code, mm_dtype, bnrun)
         torch.cuda.synchronize()
-        # N(0, 1) input: see chip_smoke.py SEG_TOL, LDJ_RTOL
-        np.testing.assert_allclose(zk.cpu().numpy(), zp.cpu().numpy(), atol=5e-5, rtol=1e-5)
-        np.testing.assert_allclose(lk.cpu().numpy(), lp.cpu().numpy(), rtol=2e-6, atol=1e-3)
-        assert torch.equal(zk, ft.fused_segment_forward(z, rec, offs, mixes, code)[0])
+        assert torch.isfinite(zk).all() and torch.isfinite(lk).all()
+        if mm_dtype == "float32":   # N(0, 1) input: see chip_smoke.py SEG_TOL, LDJ_RTOL
+            np.testing.assert_allclose(zk.cpu().numpy(), zp.cpu().numpy(), atol=5e-5, rtol=1e-5)
+            np.testing.assert_allclose(lk.cpu().numpy(), lp.cpu().numpy(), rtol=2e-6, atol=1e-3)
+        else:   # chip_smoke.py BF16_Z_RTOL, BF16_LDJ_RTOL
+            assert _nrel(zk, zp) <= BF16_Z_RTOL and _nrel(lk, lp) <= 1e-5
+        assert torch.equal(zk, ft.fused_segment_forward(z, rec, offs, mixes, code, mm_dtype,
+                                                        bnrun)[0])
         z = zk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mm_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b", [1, 138, 265])
+def test_segment_forward_is_the_parent_bit_for_bit(cuda_device, mm_dtype, b):
+    """The redesign (records staged once, two barriers a coupling) gives
+    the parent's design's z and ldj bit for bit (the probe library's
+    segment_kernel_parent): each product reads the same values, every FMA
+    runs in the same order."""
+    segs = tt.eval_segments(_flagship(cuda_device), mm_dtype)
+    z = torch.randn((b, 32, 32, 4), generator=torch.Generator(device="cpu").manual_seed(b + 5))
+    z = z.to(cuda_device)
+    for rec, offs, mixes, code, bnrun in segs:
+        zk, lk = ft.fused_segment_forward(z, rec, offs, mixes, code, mm_dtype, bnrun)
+        zp, lp = tt.segment_forward_parent(z, rec, offs, mixes, code, mm_dtype, bnrun)
+        torch.cuda.synchronize()
+        assert torch.equal(zk, zp) and torch.equal(lk, lp)
+        z = zk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mm_dtype", ["float32", "bfloat16"])
+def test_segment_forward_is_resident_at_the_eval_batch(cuda_device, mm_dtype):
+    """__launch_bounds__(256, 2): two CTAs an SM, so the flagship's eval
+    batch of 138 patches runs in one wave."""
+    per_sm = ft.segment_occupancy(cuda_device, mm_dtype)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert per_sm >= 2 and per_sm * sms >= 138
+
+
+@pytest.mark.cuda
+def test_segment_forward_planted_faults_disagree(cuda_device):
+    """The comparison with the plain version catches the redesign with its
+    running variances staged in place of 1/sqrt(var + eps), and a bf16
+    record whose weights are rounded toward zero."""
+    segs = tt.eval_segments(_flagship(cuda_device), "bfloat16")
+    z = torch.randn((138, 32, 32, 4), generator=torch.Generator(device="cpu").manual_seed(3))
+    z = z.to(cuda_device)
+    rec, offs, mixes, code, bnrun = segs[0]
+    zp, _ = ft.segment_forward_reference(z, rec, offs, mixes, code, "bfloat16", bnrun)
+    wrong, _ = tt.segment_forward_fault("moments", z, rec, offs, mixes, code, "bfloat16", bnrun)
+    weights = torch.zeros(fs.REC, dtype=torch.bool, device=cuda_device)
+    for field in ("w1", "w2", "w3"):
+        off, shape = fs._REC_LAYOUT[field]
+        weights[off:off + int(np.prod(shape))] = True
+    trunc = torch.where(weights, (rec.view(torch.int32) & -65536).view(torch.float32), rec)
+    zt, _ = ft.fused_segment_forward(z, trunc.contiguous(), offs, mixes, code, "bfloat16", bnrun)
+    torch.cuda.synchronize()
+    assert _nrel(wrong, zp) > BF16_Z_RTOL and _nrel(zt, zp) > BF16_Z_RTOL
 
 
 @pytest.mark.cuda
