@@ -201,7 +201,28 @@ Phases, each of which fails the run if it fails:
    planted faults that the comparison with the plain version must catch:
    the barrier before conv3 left out (a race, at b = 138 and 4096), the
    running variances staged in place of 1/sqrt(var + eps), and a bf16
-   record rounded toward zero.
+   record rounded toward zero;
+39. the flagship data path at a cut of scale: ``cli.make_sidd_scale``
+   writes the SIDD-scale generator's first 2 train and 1 test scenes (their
+   ids, round-robin cells and seeds; v7.3 .MAT where h5py is installed,
+   else v5) at a 1024x2048 Bayer frame in place of 3000x5328, then
+   ``cli.train.main`` runs the ``prod-exact`` flags (exact batch BN on the
+   plain path, b 138, the npy cache, the native loader, staged data, the
+   sample phase) for 2 epochs: both rows written and finite, the fit on the
+   card with no kernel launched, the cache read back without decoding a
+   .MAT; then the exact-BN train step at b = 138 timed (host clock);
+40. ``cli.kld_sweep.main`` on the flagship over that test scene at two
+   temperatures: the fused sampler launched once a (group, temperature,
+   batch) and nowhere else; one sweep call's kernel output against the
+   plain ``sample_chain_reference`` on a shared eps, within TOL; KLD_G and
+   KLD_NLF as printed against a numpy recomputation from the reference's
+   definition;
+41. ``analysis.ref_parity.run_grid`` on the flagship at b = 1024 (the
+   cooperative kernel walks): 15 cells x 3 levels, one launch a call; one
+   cell's kernel samples against the plain version on a shared eps within
+   TOL, the summary printed; then ``sample_noise_frame_spatial`` on the
+   1500x2000 frame timed (the plain flow at frame size, no kernel). The
+   kernels line's sampler entry counts these launches too (``flagship``).
 
 The train template's redesigned step, segment backward and ghost forward
 keep one launch a call, so the exact launch counts of phases 9, 15 and 28
@@ -2374,6 +2395,234 @@ def _eval_phases(phase):
     return out
 
 
+# phases 39-41: the flagship run's path at a cut of scale. The SIDD-scale
+# generator's first 2 train and 1 test scenes (their ids and round-robin
+# cells) at a Bayer frame of 1024x2048 instead of 3000x5328
+FLAGSHIP_BAYER = (1024, 2048)
+FLAGSHIP_EPOCHS = 2
+SWEEP_SMOKE = ["--temps", "0.6,1.0", "--n_patches_per_image", "512"]
+GRID_B = 1024        # ref_parity's CLI batch: one walk-mode launch a call
+
+
+def _numpy_kld_g_nlf(mb, sc_sd: float, step: int = 5):
+    """KLD_G and KLD_NLF of one sweep batch recomputed in numpy from the
+    reference's definition (ref:sidd_utils.py:995-1058): every step-th
+    patch unpacked to Bayer, Gaussian then NLF draws from default_rng(0),
+    density histograms over the reference's bins, forward KLD of the real
+    noise's histogram against each over the bins where both are positive."""
+    import numpy as np
+    edges = np.concatenate(([-1000.0], np.arange(-0.1, 0.1 + 1e-9, 0.2 / 64), [1000.0]))
+
+    def bayer(p):
+        h, w, _ = p.shape
+        out = np.zeros((2 * h, 2 * w), np.float32)
+        out[0::2, 0::2], out[0::2, 1::2] = p[..., 0], p[..., 1]
+        out[1::2, 1::2], out[1::2, 0::2] = p[..., 2], p[..., 3]
+        return out
+
+    def hist(v):
+        return np.histogram(v, edges)[0] / v.size
+
+    def kl(p, q):
+        m = (p > 0) & (q > 0)
+        return float(np.sum(p[m] * np.log(p[m] / q[m])))
+    rng = np.random.default_rng(0)
+    rows = []
+    for i in range(0, len(mb["_x"]), step):
+        y = bayer(mb["_y"][i])
+        sd = np.sqrt(float(mb["nlf0"][i]) * y + float(mb["nlf1"][i]))
+        ng = rng.normal(0, sc_sd, y.shape)
+        nl = sd * rng.normal(0, 1, y.shape)
+        hn = hist(bayer(mb["_x"][i]))
+        rows.append((kl(hn, hist(ng)), kl(hn, hist(nl))))
+    return np.mean(rows, axis=0)
+
+
+def _flagship_phases(phase, agree, nf, frame):
+    """Phases 39-41 (see the module docstring): the flagship data path and
+    the exact-BN train step, the KLD sweep and the parity grid through the
+    fused sampler, and the frame-size sampler. Returns the main paths'
+    sampler launches, the kernel's distances to its plain version and the
+    times, for the kernels line."""
+    import numpy as np
+    import torch
+    from noise_flow_tpu_torch.analysis import ref_parity
+    from noise_flow_tpu_torch.cli import flagship, kld_sweep, make_sidd_scale
+    from noise_flow_tpu_torch.cli import train as cli_train
+    from noise_flow_tpu_torch.cli.args import parse_config
+    from noise_flow_tpu_torch.models.flow import NoiseFlow
+    from noise_flow_tpu_torch.ops import fused_sample as fs
+    from noise_flow_tpu_torch.training.trainer import Trainer
+
+    work = os.path.join(ROOT, "build", "flagship_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, "SIDD_Medium_Raw", "Data")
+    out = {"launches": {}, "max_abs_err": {}}
+
+    def data_path():
+        version = make_sidd_scale.available_mat_version()
+        h, w = FLAGSHIP_BAYER
+        t0 = time.time()
+        make_sidd_scale.main(["--root", root, "--n_train", "2", "--n_test", "1", "--height",
+                              str(h), "--width", str(w), "--mat_version", version])
+        t_gen = time.time() - t0
+        argv = flagship.PROD_EXACT + [
+            "--epochs", str(FLAGSHIP_EPOCHS), "--sidd_path", root, "--device", "cuda",
+            "--cache_dir", os.path.join(work, "cache"), "--native_loader",
+            "--logdir", os.path.join(work, "prefix")]
+        fs.launch_counts.clear()
+        t0 = time.time()
+        if cli_train.main(argv) != 0:
+            raise AssertionError("cli.train failed")
+        t_fit = time.time() - t0
+        counts = _main_path(dict(fs.launch_counts))
+        logdir = os.path.join(work, "prefix")
+        rows = {s: flagship.read_tsv(os.path.join(logdir, f"{s}.txt"))
+                for s in ("train", "test", "sample")}
+        if [len(rows["train"]), len(rows["test"])] != [FLAGSHIP_EPOCHS] * 2 or not all(
+                math.isfinite(float(r[c])) for s in rows.values() for r in s
+                for c in ("NLL", "sdz")):
+            raise AssertionError(f"bad rows: {rows}")
+        hps = dict(ln.rstrip("\n").split(",", 1) for ln in open(os.path.join(logdir, "hps.txt"))
+                   if "," in ln)
+        if not hps.get("device", "").startswith("cuda") or hps.get("use_pallas") != "False":
+            raise AssertionError(f"the fit ran on {hps.get('device')}, use_pallas "
+                                 f"{hps.get('use_pallas')}")
+        if counts:   # exact BN trains on the plain path, as JAX's flagship
+            raise AssertionError(f"the exact-BN fit launched kernels: {counts}")
+        # the cache is reused: a second load never decodes a .MAT
+        args, cfg = parse_config(argv)
+        index = os.path.join(work, "cache", "train", "index.json")
+        mtime = os.path.getmtime(index)
+        decode = cli_train.load_image_tuple
+        cli_train.load_image_tuple = None
+        try:
+            tr = cli_train.load_split(args, cfg, "train")
+        finally:
+            cli_train.load_image_tuple = decode
+        n_img = (h // 2 // 32) * (w // 2 // 32)
+        if len(tr) != 2 * 2 * n_img or os.path.getmtime(index) != mtime:
+            raise AssertionError(f"cache reload: {len(tr)} patches, not {4 * n_img}")
+        # the exact-BN train step at b = 138 on the card, host clock
+        trainer = Trainer(NoiseFlow(cfg.x_shape, cfg, device="cuda", seed=cfg.seed), cfg)
+        batch = trainer._put(next(tr.batches(138)))
+        for _ in range(3):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        out["step_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+        timers = open(os.path.join(logdir, "phase_timers.txt")).read().strip()
+        print(f"flagship data path: {version} .MAT, 2 train + 1 test scenes of {h}x{w} Bayer "
+              f"(a cut of scale from 3000x5328), written in {t_gen:.1f} s; cli.train prod-exact "
+              f"{FLAGSHIP_EPOCHS} epochs in {t_fit:.1f} s ({len(tr)} train patches); rows "
+              + "; ".join(f"{s} " + ", ".join(f"{float(r['NLL']):.1f}/{float(r['sdz']):.3f}"
+                                            for r in rows[s]) for s in ("train", "test"))
+              + f"; {timers}; cache reused; exact-BN train step b=138: "
+              f"{out['step_ms']:.3f} ms (host clock, 20 steps)")
+    phase("flagship data path: generator, cli.train prod-exact (exact BN), cache", data_path)
+
+    def sweep():
+        args = ["--model_dir", MODEL, "--sidd_path", root, "--logdir",
+                os.path.join(work, "kld_sweep"), "--device", "cuda"] + SWEEP_SMOKE
+        a = kld_sweep.parse_args(args)
+        temps = [float(t) for t in a.temps.split(",")]
+        ds = kld_sweep.load_patches(a, nf.cfg)
+        keys = sorted({(float(c), float(i)) for c, i in zip(ds.cam, ds.iso)})
+        sels = {k: kld_sweep.group_batches(ds, *k, a.n_batch, a.max_batches_per_group)
+                for k in keys}
+        expected = sum(map(len, sels.values())) * len(temps) * BATCH_BN_LAUNCHES
+        fs.launch_counts.clear()
+        if kld_sweep.main(args) != 0:
+            raise AssertionError("cli.kld_sweep failed")
+        launches = _main_path(dict(fs.launch_counts)).get("fused_sample", 0)
+        out["launches"]["sweep"] = launches
+        if launches != expected:
+            raise AssertionError(f"the sweep launched the sampler {launches} times, "
+                                 f"not {expected} (one a group, temperature and batch)")
+        # one sweep call, kernel against plain on a shared eps
+        mb = kld_sweep.minibatch(ds, sels[keys[0]][0])
+        b = len(mb["_x"])
+        eps = torch.randn((b, 32, 32, 4), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(40))
+        k = torch.as_tensor(kld_sweep.sample_minibatch(nf._program, mb, temps[0], "cuda",
+                                                       eps=eps), device="cuda")
+        cond = {c: torch.as_tensor(mb[s], device="cuda") for c, s in (
+            ("clean", "_y"), ("nlf0", "nlf0"), ("nlf1", "nlf1"), ("iso", "iso"), ("cam", "cam"))}
+        sa, sb = nf._program.scale_ab(cond, b)
+        p = fs.sample_chain_reference(nf._program, (eps * temps[0]).contiguous(),
+                                      cond["clean"].contiguous(), sa, sb, b)
+        ok, out["max_abs_err"]["sweep"] = agree(f"sweep call b={b} bt={b} (resident)", k, p)
+        # KLD_G and KLD_NLF against a numpy recomputation, as printed
+        sc_sd = float(np.sqrt(ds.x.astype(np.float64).var()))
+        rows = flagship.read_tsv(os.path.join(work, "kld_sweep", "kld_vs_temp.txt"))
+        bad = []
+        for r in rows:
+            key = (float(r["cam"]), float(r["iso"]))
+            g, nlf = np.mean([_numpy_kld_g_nlf(kld_sweep.minibatch(ds, s), sc_sd)
+                              for s in sels[key]], axis=0)
+            if (r["KLD_G"], r["KLD_NLF"]) != (f"{g:g}", f"{nlf:g}"):
+                bad.append((r, g, nlf))
+        print(f"sweep: {len(keys)} (cam, iso) groups x {len(temps)} temperatures, "
+              f"{launches} sampler launches ({expected} expected); rows " + "; ".join(
+                  f"cam {r['cam']} iso {r['iso']} t {r['temp']}: G {r['KLD_G']} NLF "
+                  f"{r['KLD_NLF']} NF {r['KLD_NF']}" for r in rows)
+              + f"; KLD_G and KLD_NLF against numpy: {len(rows) - len(bad)}/{len(rows)} equal")
+        if not ok or bad or len(rows) != len(keys) * len(temps):
+            raise AssertionError(f"sweep: kernel agrees {ok}, rows differing from numpy {bad}")
+    phase("kld sweep through the fused sampler", sweep)
+
+    def grid():
+        plan = fs.sample_plan(GRID_B)
+        fs.launch_counts.clear()
+        rows = ref_parity.run_grid(MODEL, out_dir=os.path.join(work, "grid"), batch=GRID_B,
+                                   temp=1.0, device="cuda", verbose=False)
+        launches = _main_path(dict(fs.launch_counts)).get("fused_sample", 0)
+        out["launches"]["grid"] = launches
+        expected = len(rows) * len(ref_parity.CLEAN_LEVELS) * BATCH_BN_LAUNCHES
+        # one cell, kernel against plain on a shared eps
+        cam_iso, b1 = rows[0]["cam_iso"], rows[0]["beta1"]
+        cam_s, iso_s = cam_iso.split("_")
+        full = lambda v: torch.full((GRID_B,), float(v), device="cuda")  # noqa: E731
+        cond = {"clean": torch.full((GRID_B, 32, 32, 4), ref_parity.CLEAN_LEVELS[0],
+                                    device="cuda"),
+                "nlf0": full(b1), "nlf1": full(b1), "iso": full(int(iso_s)),
+                "cam": full(ref_parity.CAM_IDS.index(cam_s))}
+        eps = torch.randn((GRID_B, 32, 32, 4), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(41))
+        k = fs.fused_sample(nf._program, cond, temp=1.0, eps=eps, bt=GRID_B)
+        sa, sb = nf._program.scale_ab(cond, GRID_B)
+        p = fs.sample_chain_reference(nf._program, eps, cond["clean"], sa, sb, GRID_B)
+        ok, out["max_abs_err"]["grid"] = agree(f"grid cell {cam_iso} b={GRID_B} (walk)", k, p)
+        ratios = np.asarray([r["std_ratio"] for r in rows])
+        klds = np.asarray([r["kld_nf_vs_nlf"] for r in rows])
+        print(f"grid: {len(rows)} cells x {len(ref_parity.CLEAN_LEVELS)} levels at b={GRID_B}, "
+              f"plan {plan}, {launches} sampler launches ({expected} expected); std_ratio mean "
+              f"{ratios.mean():.4f} min {ratios.min():.4f} max {ratios.max():.4f}; KLD vs NLF "
+              f"mean {klds.mean():.5f} max {klds.max():.5f}")
+        if (not ok or launches != expected or plan["resident"] != 0
+                or not np.all(np.isfinite(klds)) or not np.all((ratios > 0.5) & (ratios < 2))):
+            raise AssertionError(f"grid: kernel agrees {ok}, {launches} launches, plan {plan}, "
+                                 f"ratios {ratios}")
+    phase("reference-parity grid through the fused sampler", grid)
+
+    def frame_spatial():
+        fs.launch_counts.clear()
+        nf.sample_noise_frame_spatial(frame, 0.0, 0.0, 800.0, 2.0)
+        t0 = time.perf_counter()
+        noise = nf.sample_noise_frame_spatial(frame, 0.0, 0.0, 800.0, 2.0)
+        out["frame_spatial_ms"] = (time.perf_counter() - t0) * 1e3
+        print(f"sample_noise_frame_spatial {FRAME_HW}: {out['frame_spatial_ms']:.1f} ms "
+              f"(host clock, plain flow.sample at frame size), noise sd {noise.std():.5f}")
+        if noise.shape != frame.shape or not np.isfinite(noise).all() or fs.launch_counts:
+            raise AssertionError(f"frame noise {noise.shape}, launches {dict(fs.launch_counts)}")
+    phase("frame-size sampler", frame_spatial)
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 # the kernels line's (kernel, mode) by the production rows of
 # _production_times that time its calls; and the redesign rows (phase 33) by
 # (kernel, mode, kind, launches a call: both segments are two launches)
@@ -2675,6 +2924,7 @@ def main() -> int:
     sampler = _sampler_phases(phase, programs, nf.flow)
     coop = _coop_phases(phase, programs)
     eval_rows = _eval_phases(phase)
+    flagship = _flagship_phases(phase, agree, nf, frame[0])
 
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
@@ -2703,8 +2953,9 @@ def main() -> int:
         "route": "cuda",
         "source": "noise_flow_tpu_torch/csrc/fused_sample.cu",
         "replaces": "noise_flow_tpu/ops/pallas_sample.py:374",
-        "launches": launches + rng_out["launches"],
-        "max_abs_err": max(max(errs.values()), rng_mode["max_abs_err"]),
+        "launches": launches + rng_out["launches"] + sum(flagship["launches"].values()),
+        "max_abs_err": max(max(errs.values()), rng_mode["max_abs_err"],
+                           *flagship["max_abs_err"].values()),
         "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
         "library_ms": None,
@@ -2714,6 +2965,11 @@ def main() -> int:
     entry["by_mode"]["eps"]["whole_batch"] = {
         f"b={b},bt={b}": v for b, v in redesign["frame"].items()}
     entry["design"], entry["redesign"] = coop["design"], coop["rows"]
+    # phases 40-41: the sweep (b <= 138, resident) and the grid (b = 1024, walk)
+    entry["flagship"] = {"launches": flagship["launches"],
+                         "max_abs_err": flagship["max_abs_err"],
+                         "exact_bn_step_ms": flagship["step_ms"],
+                         "frame_spatial_ms": flagship["frame_spatial_ms"]}
     kernels = [entry] + train_out["entries"]
     for k in kernels:   # phase 38's rows beside the eval forward's running modes
         if k["name"] == "fused_segment_forward":

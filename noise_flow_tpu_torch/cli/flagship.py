@@ -1,0 +1,218 @@
+"""The flagship run of the port, end to end, held to the JAX run's records.
+
+Steps (``--steps``, in this order):
+
+- ``generate``: the SIDD-scale corpus through ``cli.make_sidd_scale``
+  (v7.3 .MAT where h5py is installed, else v5);
+- ``train``: a prefix of the ``prod-exact`` recipe (jobs/job_noise_flow.sh
+  prod-exact: exact batch BN on the plain path, b 138, staged data) through
+  ``cli.train``, without the recipe's npy cache and native loader (they
+  change the staged order of the patches, not the patches): the .MAT
+  corpus and its cache are ~50 GB written, more than a card machine of
+  45 GiB takes in one run (chip_smoke.py drives both at a cut of scale);
+- ``sweep``: ``cli.kld_sweep`` over the test split at the recorded
+  temperatures, on experiments/sidd/prod_exact_150 (seed 0 and
+  ``--sweep_seeds``) and on the prefix model;
+- ``grid``: ``analysis.ref_parity`` on prod_exact_150 at b = 1024;
+- ``frame``: ``NoiseFlowWrapper.sample_noise_frame_spatial`` on a packed
+  1500x2000 frame, timed;
+- ``report``: every step's outputs beside prod_exact_150's train.txt,
+  test.txt and kld_sweep/kld_vs_temp.txt, as one JSON file.
+
+Run on the card (about 30 GB of .MAT under --work):
+    python -m noise_flow_tpu_torch.cli.flagship --work data/flagship \
+        --report chiprun_out/flagship.json
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import shutil
+import sys
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+JAX_RUN = os.path.join(REPO, "experiments", "sidd", "prod_exact_150")
+SWEEP_TEMPS = "0.2,0.4,0.5,0.6,0.7,0.8,1.0"
+FRAME_HW = (1500, 2000)
+# jobs/job_noise_flow.sh prod-exact, less --epochs, the paths, the cache
+# and --steps_per_call (each step is one eager call here); use_pallas off
+PROD_EXACT = ["--arch", "sdn5|unc|unc|unc|unc|gain4|unc|unc|unc|unc", "--width", "4",
+              "--lr", "1e-4", "--n_batch_train", "138", "--patch_height", "32",
+              "--shuffle_patches", "--n_patches_per_image", "2898",
+              "--epochs_full_valid", "10", "--temp", "0.6", "--do_sample",
+              "--device_resident_data"]
+STEPS = ("generate", "train", "sweep", "grid", "frame", "report")
+
+
+def read_tsv(path: str) -> List[Dict[str, str]]:
+    with open(path) as f:
+        head = f.readline().rstrip("\n").split("\t")
+        return [dict(zip(head, ln.rstrip("\n").split("\t"))) for ln in f if ln.strip()]
+
+
+def _du_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def compare_rows(port_tsv: str, jax_tsv: str, cols=("NLL", "sdz")) -> List[Dict]:
+    """The port's per-epoch rows beside the JAX run's at the same epochs."""
+    jax = {r["epoch"]: r for r in read_tsv(jax_tsv)}
+    out = []
+    for r in read_tsv(port_tsv):
+        row = {"epoch": int(r["epoch"])}
+        for c in cols:
+            row[c] = float(r[c])
+            if r["epoch"] in jax:
+                row[f"jax_{c}"] = float(jax[r["epoch"]][c])
+        out.append(row)
+    return out
+
+
+def compare_sweep(port_tsv: str, jax_tsv: str) -> Dict:
+    """KLD_G and KLD_NLF as printed against the recorded sweep, and the
+    best-temperature KLD_NF of each (cam, iso) cell against its KLD_G."""
+    key = lambda r: (r["cam"], r["iso"], r["temp"])  # noqa: E731
+    jax = {key(r): r for r in read_tsv(jax_tsv)}
+    rows = read_tsv(port_tsv)
+    diff = [key(r) for r in rows if key(r) not in jax
+            or any(r[c] != jax[key(r)][c] for c in ("KLD_G", "KLD_NLF"))]
+    cells = {}
+    for r in rows:
+        cells.setdefault((r["cam"], r["iso"]), []).append(r)
+    best = {f"cam{c}_iso{i}": min(((float(r["KLD_NF"]), float(r["temp"]), float(r["KLD_G"]))
+                                   for r in rs)) for (c, i), rs in cells.items()}
+    jcells = {}
+    for r in jax.values():
+        jcells.setdefault((r["cam"], r["iso"]), []).append(float(r["KLD_NF"]))
+    return {
+        "rows": len(rows), "recorded_rows": len(jax),
+        "g_nlf_rows_differing": [list(k) for k in diff],
+        "best": {c: {"kld_nf": v[0], "temp": v[1], "kld_g": v[2]} for c, v in best.items()},
+        "cells_nf_below_g": sum(v[0] < v[2] for v in best.values()),
+        "cells": len(best),
+        "mean_best_kld_nf": float(np.mean([v[0] for v in best.values()])),
+        "recorded_mean_best_kld_nf": float(np.mean([min(v) for v in jcells.values()])),
+        "mean_kld_g": float(np.mean([v[2] for v in best.values()])),
+    }
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--work", default=os.path.join(REPO, "data", "flagship"))
+    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--sweep_seeds", default="1,2,3")
+    p.add_argument("--steps", default=",".join(STEPS))
+    p.add_argument("--report", default=None, help="JSON report (default <work>/flagship.json)")
+    p.add_argument("--device", default="cuda")
+    a = p.parse_args(argv)
+    steps = a.steps.split(",")
+    if set(steps) - set(STEPS):
+        raise SystemExit(f"--steps takes {STEPS}, got {steps}")
+    corpus = os.path.join(a.work, "SIDD_Medium_Raw_synth", "Data")
+    prefix = os.path.join(a.work, "prefix")
+    sweeps = os.path.join(a.work, "kld_sweep")
+    report_path = a.report or os.path.join(a.work, "flagship.json")
+    report = (json.load(open(report_path)) if os.path.exists(report_path) else {})
+    os.makedirs(a.work, exist_ok=True)
+
+    def timed(name, fn):
+        t0 = time.time()
+        fn()
+        report.setdefault("seconds", {})[name] = time.time() - t0
+        print(f"[flagship] {name}: {report['seconds'][name]:.1f} s", flush=True)
+        with open(report_path, "w") as f:
+            json.dump(report, f, indent=1)
+
+    if "generate" in steps:
+        from noise_flow_tpu_torch.cli import make_sidd_scale
+        version = make_sidd_scale.available_mat_version()
+
+        def generate():
+            make_sidd_scale.main(["--root", corpus, "--mat_version", version])
+            report["corpus"] = {"mat_version": version, "bytes": _du_bytes(corpus),
+                                "scenes": len(os.listdir(corpus)),
+                                "disk_free_bytes": shutil.disk_usage(a.work).free}
+        timed("generate", generate)
+
+    if "train" in steps:
+        from noise_flow_tpu_torch.cli import train as cli_train
+
+        def train():
+            if cli_train.main(PROD_EXACT + [
+                    "--epochs", str(a.epochs), "--seed", str(a.seed), "--sidd_path", corpus,
+                    "--logdir", prefix, "--device", a.device]):
+                raise RuntimeError("cli.train failed")
+        timed("train", train)
+
+    if "sweep" in steps:
+        from noise_flow_tpu_torch.cli import kld_sweep
+        runs = [(f"jax_seed{s}", JAX_RUN, s) for s in [0] + [
+            int(s) for s in a.sweep_seeds.split(",") if s]] + [("prefix_seed0", prefix, 0)]
+        for name, model, seed in runs:
+            timed(f"sweep_{name}", lambda m=model, s=seed, n=name: kld_sweep.main([
+                "--model_dir", m, "--sidd_path", corpus, "--temps", SWEEP_TEMPS,
+                "--seed", str(s), "--logdir", os.path.join(sweeps, n), "--device", a.device]))
+
+    if "grid" in steps:
+        from noise_flow_tpu_torch.analysis import ref_parity
+        timed("grid", lambda: ref_parity.main([
+            "--model_dir", JAX_RUN, "--batch", "1024", "--device", a.device,
+            "--out_dir", os.path.join(a.work, "ref_parity")]))
+
+    if "frame" in steps:
+        from noise_flow_tpu_torch.data.synthetic import make_synthetic_samples
+        from noise_flow_tpu_torch.wrapper import NoiseFlowWrapper
+
+        def frame():
+            nf = NoiseFlowWrapper(JAX_RUN, device=a.device)
+            clean = make_synthetic_samples(1, *FRAME_HW, iso=800, seed=1)[0]["clean"][0]
+            nf.sample_noise_frame_spatial(clean, 0.0, 0.0, 800.0, 2.0)
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                noise = nf.sample_noise_frame_spatial(clean, 0.0, 0.0, 800.0, 2.0)
+                times.append((time.perf_counter() - t0) * 1e3)
+            if noise.shape != clean.shape or not np.isfinite(noise).all():
+                raise RuntimeError(f"bad frame noise {noise.shape}")
+            report["frame_spatial"] = {"hw": list(FRAME_HW), "ms_host_clock": times,
+                                       "noise_sd": float(noise.std())}
+        timed("frame", frame)
+
+    if "report" in steps:
+        def summarize():
+            report["train_rows"] = compare_rows(os.path.join(prefix, "train.txt"),
+                                                os.path.join(JAX_RUN, "train.txt"))
+            report["test_rows"] = compare_rows(os.path.join(prefix, "test.txt"),
+                                               os.path.join(JAX_RUN, "test.txt"))
+            with open(os.path.join(prefix, "phase_timers.txt")) as f:
+                report["phase_timers"] = f.read().strip()
+            recorded = os.path.join(JAX_RUN, "kld_sweep", "kld_vs_temp.txt")
+            report["sweeps"] = {n: compare_sweep(os.path.join(sweeps, n, "kld_vs_temp.txt"),
+                                                 recorded)
+                                for n in sorted(os.listdir(sweeps))}
+            jax_runs = [s for n, s in report["sweeps"].items() if n.startswith("jax_")]
+            report["sweep_seed_spread"] = {
+                "mean_best_kld_nf": [s["mean_best_kld_nf"] for s in jax_runs],
+                "sd": float(np.std([s["mean_best_kld_nf"] for s in jax_runs]))}
+            with open(os.path.join(a.work, "ref_parity", "summary.txt")) as f:
+                report["grid_summary"] = dict(ln.rstrip("\n").split("\t", 1) for ln in f)
+            last = {r: report[f"{r}_rows"][-1] for r in ("train", "test")}
+            report["epoch_gap"] = {
+                r: {"epoch": v["epoch"], "nll_minus_jax": v["NLL"] - v.get("jax_NLL", math.nan),
+                    "sdz": v["sdz"]} for r, v in last.items()}
+        timed("report", summarize)
+        print(json.dumps({k: report[k] for k in ("epoch_gap", "sweep_seed_spread")}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -125,3 +125,37 @@ class NoiseFlowWrapper:
         noise = np.concatenate(outs).reshape(hh // ph, ww // ph, ph, ph, c)
         noise = noise.transpose(0, 2, 1, 3, 4).reshape(hh, ww, c)
         return noise[:h, :w]
+
+    @torch.no_grad()
+    def sample_noise_frame_spatial(self, clean_frame: np.ndarray, b1: float,
+                                   b2: float, iso: float, cam: float,
+                                   temp: Optional[float] = None) -> np.ndarray:
+        """Sample noise for a FULL frame [H, W, 4] (or [1, H, W, 4]) with the
+        flow run AT frame size on one device.
+
+        The flow is fully convolutional, so the 32x32-trained weights apply
+        at any (H, W): a flow is built at the frame's size with this
+        wrapper's weights and sampled through the plain
+        ``flow.sample(train=bn_batch_stats)``. Unlike ``sample_noise_frame``
+        (independent 32x32 tiles), the noise has no tile seams. The frame is
+        reflect-padded to multiples of 8, as JAX's with one device. No
+        kernel runs: the fused sampler is a 32x32-patch kernel.
+        """
+        x = np.asarray(clean_frame, np.float32)
+        if x.ndim == 3:
+            x = x[None]
+        h, w = x.shape[1], x.shape[2]
+        xp = np.pad(x, ((0, 0), (0, (-h) % 8), (0, (-w) % 8), (0, 0)), mode="reflect")
+        flow = NoiseFlow(xp.shape[1:], self.cfg, device=self.device)
+        flow.load_state_dict(self.flow.state_dict())
+        flow.eval()
+
+        def full(v):
+            return torch.full((1,), float(v), dtype=torch.float32, device=self.device)
+
+        cond = {"clean": torch.as_tensor(xp, device=self.device),
+                "nlf0": full(b1), "nlf1": full(b2), "iso": full(iso), "cam": full(cam)}
+        t = self.temp if temp is None else float(temp)
+        out = flow.sample(cond, temp=t, batch=1, train=self.bn_batch_stats,
+                          generator=self._gen)
+        return out[0, :h, :w].cpu().numpy()
