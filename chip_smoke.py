@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive noise_flow_tpu_torch's sampling, training and DnCNN paths on one NVIDIA GPU.
+"""Drive noise_flow_tpu_torch's sampling, training, DnCNN and model-family paths on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one CUDA
 card and the CUDA toolkit (nvcc); it imports neither JAX nor noise_flow_tpu.
@@ -222,7 +222,30 @@ Phases, each of which fails the run if it fails:
    cell's kernel samples against the plain version on a shared eps within
    TOL, the summary printed; then ``sample_noise_frame_spatial`` on the
    1500x2000 frame timed (the plain flow at frame size, no kernel). The
-   kernels line's sampler entry counts these launches too (``flagship``).
+   kernels line's sampler entry counts these launches too (``flagship``);
+42. the model family, no kernel on any of its paths (the fused envelopes
+   exclude every flow below but the oracle of phase 43, as JAX's do, and
+   that runs without ``--use_pallas`` and samples nothing): each of the 24
+   layer kinds of ``tests/test_bijectors.py::ALL_KINDS`` and the coupling
+   with the dense template, weights moved off init as
+   ``tests/test_torch_layers.py`` moves them, at b = 138, 32x32x4, width 4: ``inverse`` (with its train-mode
+   BatchNorm state) and ``forward`` in train and eval mode on the card and
+   on the CPU, held to each other at the layer tolerances, the largest
+   distances printed;
+43. the camera-NLF oracle ``experiments/sidd/condsdn_scale`` (the flow that
+   generated the SIDD-scale corpus): the ``condsdn-baseline`` recipe through
+   ``cli.train`` on the card for 2 epochs over phase 39's cut corpus,
+   starting from the oracle's checkpoint (``--init_checkpoint``); its
+   train rows equal within ORACLE_ROW_ATOL (it never trains), and one train
+   batch's NLL from the checkpoint on the card and on the CPU within
+   ORACLE_CPU_TOL;
+44. ``cli.train`` on the card for 2 epochs over that corpus: a 2-level
+   ``unc|unc|unc|unc`` flow (``--n_levels 2 --squeeze_factor 2
+   --do_sample``, so the sample phase goes through the multi-level
+   ``sample``) and a legacy ``--arch "" --sidd_cond condXY --depth 4``
+   flow: the train NLL falls, every row finite, ``hps.txt`` says ``cuda``;
+45. on every path of phases 42-44 the launch counters read zero
+   (``no_launch``), and the earlier phases' counts are as they were.
 
 The train template's redesigned step, segment backward and ghost forward
 keep one launch a call, so the exact launch counts of phases 9, 15 and 28
@@ -2619,7 +2642,220 @@ def _flagship_phases(phase, agree, nf, frame):
         if noise.shape != frame.shape or not np.isfinite(noise).all() or fs.launch_counts:
             raise AssertionError(f"frame noise {noise.shape}, launches {dict(fs.launch_counts)}")
     phase("frame-size sampler", frame_spatial)
-    shutil.rmtree(work, ignore_errors=True)
+    out["work"], out["root"] = work, root   # the corpus stays for phases 42-44
+    return out
+
+
+# Phases 42-45: every flow the JAX package builds, on the card. None has a
+# kernel (the fused envelopes exclude them all, as JAX's), so each path runs
+# the plain PyTorch flow, and every one is held to the CPU. Layer kinds at the
+# layer tolerances of tests/test_torch_layers.py: x and y elementwise within
+# rtol 1e-4 and atol 1e-6 (times the largest |x| for the ISO-affine kinds,
+# whose weights are multiplied by iso[0]), the log-dets within rtol 1e-5 and
+# atol 1e-3; train-mode BN state within rtol 1e-5, atol 1e-6.
+FAMILY_KINDS = ("perm_reverse", "conv1x1", "coupling", "sdn", "sdn1", "sdn2", "sdn3", "sdn4",
+                "sdn5", "sdn6", "gain", "gain1", "gain2", "gain3", "gain4", "fitSDN", "fitSDN2",
+                "condSDN", "condY", "condYG", "condXY", "condXYG", "batch_norm", "leaky_relu",
+                "coupling:dense")
+FAMILY_B = 138
+ORACLE_ROW_ATOL = 0.01   # the oracle never trains: its train rows of 2 epochs, nats
+ORACLE_CPU_TOL = (5e-2, 1e-5)   # one batch's NLL on the card and on the CPU (atol, rtol)
+FAMILY_CLI = {
+    "two_level": ["--arch", "unc|unc|unc|unc", "--n_levels", "2", "--squeeze_factor", "2",
+                  "--do_sample"],
+    "revnet_condXY": ["--arch", "", "--sidd_cond", "condXY", "--depth", "4"],
+}
+
+
+def _family_layer(kind, seed):
+    """The port's layer of a FAMILY_KINDS entry at 32x32x4, width 4, its
+    weights moved off init as tests/test_torch_layers.py::_pair moves them
+    (parameters + 0.05 N, BatchNorm moments |m + 0.3 N| + 0.5), and the
+    shared sdn/gain group + 0.1 N."""
+    import numpy as np
+    import torch
+    from noise_flow_tpu_torch.config import default_config
+    from noise_flow_tpu_torch.models import cond_params as cp
+    from noise_flow_tpu_torch.models.layers import make_layer
+
+    name, _, template = kind.partition(":")
+    kw = dict(arch="", flow_permutation=1, decomp="LU")
+    if template:
+        kw["coupling_nn"] = template
+    cfg = default_config(**kw)
+    layer = make_layer(name, (32, 32, 4), cfg, np.random.default_rng(seed))
+    rng = np.random.default_rng(seed + 1)
+    params = set(dict(layer.named_parameters()))
+    sd = {}
+    for k, v in layer.state_dict().items():
+        n = torch.as_tensor(rng.standard_normal(tuple(v.shape)), dtype=torch.float32)
+        if k in params:
+            sd[k] = v + 0.05 * n
+        elif k.endswith(("mean", "var")):
+            sd[k] = (v + 0.3 * n).abs() + 0.5
+        else:
+            sd[k] = v
+    layer.load_state_dict(sd)
+    shared, c_i = cp.sdn_gain_shared_init(cfg.gain_init, None, 1 if name == "sdn6" else 3)
+    shared = {k: torch.as_tensor(np.asarray(v, np.float32) + 0.1 * rng.standard_normal(
+        np.shape(v)).astype(np.float32)) for k, v in shared.items()}
+    return layer, shared, c_i
+
+
+def _model_family_phases(phase, flagship):
+    """Phases 42-45 (see the module docstring). Returns what they printed,
+    for the summary."""
+    import numpy as np
+    import torch
+    from noise_flow_tpu_torch.cli import flagship as cli_flagship
+    from noise_flow_tpu_torch.cli import train as cli_train
+    from noise_flow_tpu_torch.cli.args import parse_config
+    from noise_flow_tpu_torch.config import load_hps
+    from noise_flow_tpu_torch.models.flow import NoiseFlow
+    from noise_flow_tpu_torch.ops import fused_sample as fs
+    from noise_flow_tpu_torch.training.trainer import Trainer, batch_to_cond
+    from noise_flow_tpu_torch.utils.checkpoint import load_checkpoint
+
+    out = {"seconds": {}}
+
+    def no_launch(label):
+        counts = _main_path(dict(fs.launch_counts))
+        if counts:
+            raise AssertionError(f"{label} launched kernels: {counts}")
+
+    def layers():
+        t0 = time.time()
+        rng = np.random.default_rng(42)
+        b = FAMILY_B
+        cond_np = {"clean": rng.uniform(0.01, 0.9, (b, 32, 32, 4)).astype(np.float32),
+                   "iso": np.resize(np.array([100, 800, 200, 3200], np.float32), b),
+                   "cam": np.resize(np.array([0, 2, 4, 7], np.float32), b),
+                   "nlf0": np.full(b, 5e-4, np.float32), "nlf1": np.full(b, 2e-6, np.float32)}
+        y_np = (0.05 * rng.standard_normal((b, 32, 32, 4))).astype(np.float32)
+        worst = {"x": (0.0, ""), "ldj": (0.0, ""), "bn": (0.0, "")}
+        bad = []
+        fs.launch_counts.clear()
+        for seed, kind in enumerate(FAMILY_KINDS):
+            layer, shared, c_i = _family_layer(kind, seed)
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                lay = copy.deepcopy(layer).to(dev)
+                sh = {"sdn_gain": {k: v.to(dev) for k, v in shared.items()}, "c_i": c_i}
+                cond = {k: torch.as_tensor(v, device=dev) for k, v in cond_np.items()}
+                y = torch.as_tensor(y_np, device=dev)
+                with torch.no_grad():
+                    for train in (False, True):
+                        st = {}
+                        x, ildj = lay.inverse(y, cond, train, sh, st)
+                        y2, fldj = lay.forward(y, cond, train, sh)
+                        runs[(dev, train)] = {"x": x.cpu(), "y": y2.cpu(), "ildj": ildj.cpu(),
+                                              "fldj": fldj.cpu(),
+                                              **{f"bn:{k}": v.cpu() for k, v in st.items()}}
+            for train in (False, True):
+                k_, p_ = runs[("cuda", train)], runs[("cpu", train)]
+                scale = (float(p_["x"].abs().max()) if kind in ("condYG", "condXYG") else 1.0)
+                for key in k_:
+                    d = (k_[key] - p_[key]).abs()
+                    if key in ("x", "y"):
+                        atol, rtol, slot = 1e-6 * scale, 1e-4, "x"
+                    elif key in ("ildj", "fldj"):
+                        atol, rtol, slot = 1e-3, 1e-5, "ldj"
+                    else:
+                        atol, rtol, slot = 1e-6, 1e-5, "bn"
+                    if not bool((d <= atol + rtol * p_[key].abs()).all()):
+                        bad.append((kind, train, key, float(d.max())))
+                    m = float(d.max()) if d.numel() else 0.0
+                    if m > worst[slot][0]:
+                        worst[slot] = (m, f"{kind} train={train} {key}")
+            if kind in ("condY", "condYG", "condXY", "condXYG", "batch_norm", "coupling",
+                        "coupling:dense") and not any(
+                            k.startswith("bn:") for k in runs[("cuda", True)]):
+                bad.append((kind, True, "no BN state", 0.0))
+        no_launch("the layer kinds")
+        out["seconds"]["layers"] = time.time() - t0
+        print(f"model family: {len(FAMILY_KINDS)} layer kinds (dense coupling included) at "
+              f"b={b}, 32x32x4, width 4, card against CPU, train and eval, inverse and forward: "
+              + "; ".join(f"largest |d| {slot} {v:.3e} ({where})" for slot, (v, where) in
+                          worst.items()) + f"; {len(bad)} out of tolerance")
+        if bad:
+            raise AssertionError(f"layer kinds disagree between card and CPU: {bad}")
+    phase("model family: every layer kind, card against CPU", layers)
+
+    def oracle():
+        t0 = time.time()
+        logdir = os.path.join(flagship["work"], "oracle")
+        shutil.rmtree(logdir, ignore_errors=True)
+        argv = cli_flagship.CONDSDN + ["--sidd_path", flagship["root"], "--logdir", logdir,
+                                       "--device", "cuda"]
+        fs.launch_counts.clear()
+        if cli_train.main(argv) != 0:
+            raise AssertionError("cli.train failed")
+        no_launch("the condsdn-baseline run")
+        rows = {s: cli_flagship.read_tsv(os.path.join(logdir, f"{s}.txt"))
+                for s in ("train", "test")}
+        train = [float(r["NLL"]) for r in rows["train"]]
+        # one train batch's NLL from the oracle's checkpoint, card and CPU
+        args, cfg = parse_config(argv)
+        batch = next(cli_train.load_split(args, cfg, "train").batches(FAMILY_B))
+        nll = {}
+        for dev in ("cuda", "cpu"):
+            flow = NoiseFlow(cfg.x_shape, load_hps(os.path.join(cli_flagship.JAX_ORACLE,
+                                                                "hps.txt")), device=dev)
+            load_checkpoint(os.path.join(cli_flagship.JAX_ORACLE, "ckpt",
+                                         "model.ckpt-best.npz"), flow)
+            t = {k: torch.as_tensor(np.asarray(batch[k]), dtype=torch.float32, device=dev)
+                 for k in ("_x", "_y", "nlf0", "nlf1", "iso", "cam")}
+            with torch.no_grad():
+                nll[dev] = float(flow.nll_per_sample(t["_x"], batch_to_cond(t)).mean())
+        no_launch("the oracle's batch")
+        out["seconds"]["oracle"] = time.time() - t0
+        out["oracle"] = {"rows": rows, "batch_nll": nll}
+        print("condsdn-baseline (condsdn_scale's weights) through cli.train on the card, "
+              f"{len(rows['train'])} epochs over the cut corpus: rows " + "; ".join(
+                  f"{s} " + ", ".join(f"{float(r['NLL']):.4f}/{float(r['sdz']):.5f}"
+                                      for r in rows[s]) for s in ("train", "test"))
+              + f"; first train batch NLL card {nll['cuda']:.4f}, CPU {nll['cpu']:.4f}")
+        hps = dict(ln.rstrip("\n").split(",", 1)
+                   for ln in open(os.path.join(logdir, "hps.txt")) if "," in ln)
+        if (len(train) != 2 or not np.isfinite(train).all()
+                or abs(train[0] - train[1]) > ORACLE_ROW_ATOL
+                or not hps.get("device", "").startswith("cuda")
+                or abs(nll["cuda"] - nll["cpu"]) > ORACLE_CPU_TOL[0]
+                + ORACLE_CPU_TOL[1] * abs(nll["cpu"])):
+            raise AssertionError(f"oracle rows {rows}, batch NLL {nll}, device {hps.get('device')}")
+    phase("model family: the condsdn_scale oracle through cli.train", oracle)
+
+    def fits():
+        for name, flags in FAMILY_CLI.items():
+            t0 = time.time()
+            logdir = os.path.join(flagship["work"], name)
+            argv = flags + ["--n_batch_train", "138", "--patch_height", "32",
+                            "--n_patches_per_image", "2898", "--epochs", "2",
+                            "--epochs_full_valid", "1", "--temp", "0.6", "--device_resident_data",
+                            "--sidd_path", flagship["root"], "--logdir", logdir,
+                            "--device", "cuda"]
+            fs.launch_counts.clear()
+            if cli_train.main(argv) != 0:
+                raise AssertionError(f"cli.train {name} failed")
+            no_launch(f"cli.train {name}")
+            rows = {s: cli_flagship.read_tsv(os.path.join(logdir, f"{s}.txt"))
+                    for s in ("train", "test", "sample")}
+            train = [float(r["NLL"]) for r in rows["train"]]
+            hps = dict(ln.rstrip("\n").split(",", 1)
+                       for ln in open(os.path.join(logdir, "hps.txt")) if "," in ln)
+            out["seconds"][name] = time.time() - t0
+            print(f"cli.train {name} on the card, 2 epochs over the cut corpus in "
+                  f"{out['seconds'][name]:.1f} s: train {train}, test "
+                  f"{[float(r['NLL']) for r in rows['test']]}, sample rows "
+                  f"{[(float(r['NLL']), float(r['KLD_NF'])) for r in rows['sample']]}")
+            finite = all(math.isfinite(float(r[c])) for s in rows.values() for r in s
+                         for c in ("NLL", "sdz"))
+            want_samples = 2 if "--do_sample" in flags else 0
+            if (len(train) != 2 or not finite or not train[1] < train[0]
+                    or len(rows["sample"]) != want_samples
+                    or not hps.get("device", "").startswith("cuda")):
+                raise AssertionError(f"{name}: rows {rows}, device {hps.get('device')}")
+    phase("model family: cli.train of a 2-level flow and a legacy condXY flow", fits)
     return out
 
 
@@ -2925,6 +3161,9 @@ def main() -> int:
     coop = _coop_phases(phase, programs)
     eval_rows = _eval_phases(phase)
     flagship = _flagship_phases(phase, agree, nf, frame[0])
+    family = _model_family_phases(phase, flagship)
+    shutil.rmtree(flagship["work"], ignore_errors=True)
+    print(f"model_family_seconds {json.dumps(family['seconds'])}")
 
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)

@@ -1,8 +1,9 @@
 """CLI flag surface.
 
 Port of noise_flow_tpu.cli.args: the same flags, plus ``--device`` (default
-``cuda``). ``--mesh`` above 1 and ``--coordinator_address`` are parsed and
-raise when used (multi-card training is ROADMAP.md queue 1, item 8).
+``cuda``) and ``--init_checkpoint``. ``--mesh`` above 1 and
+``--coordinator_address`` are parsed and raise when used (multi-card
+training is ROADMAP.md queue 1, item 8).
 
 Keeps the reference's flag names (ref:sidd/ArgParser.py:11-167) so the
 canonical run commands (ref:job_noise_flow.sh:35-75) work verbatim, and maps
@@ -178,6 +179,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="recorded only: each train step is one eager call")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train on (cuda, cuda:N or cpu)")
+    p.add_argument("--init_checkpoint", type=str, default="",
+                   help="npz checkpoint (the JAX package's format) whose "
+                        "params and state the new flow starts from; the run "
+                        "itself is new: epoch 1, new logs, fresh optimizer")
     return p
 
 

@@ -4,6 +4,12 @@ Steps (``--steps``, in this order):
 
 - ``generate``: the SIDD-scale corpus through ``cli.make_sidd_scale``
   (v7.3 .MAT where h5py is installed, else v5);
+- ``oracle``: the ``condsdn-baseline`` recipe (jobs/job_noise_flow.sh; the
+  non-trainable camera-NLF flow that generated the corpus) through
+  ``cli.train`` at experiments/sidd/condsdn_scale's settings, starting from
+  that run's checkpoint (``--init_checkpoint``), staged data as its run,
+  without its npy cache and native loader (``probes.oracle`` reads the
+  rest of the gap to its rows);
 - ``train``: a prefix of the ``prod-exact`` recipe (jobs/job_noise_flow.sh
   prod-exact: exact batch BN on the plain path, b 138, staged data) through
   ``cli.train``, without the recipe's npy cache and native loader (they
@@ -17,7 +23,8 @@ Steps (``--steps``, in this order):
 - ``frame``: ``NoiseFlowWrapper.sample_noise_frame_spatial`` on a packed
   1500x2000 frame, timed;
 - ``report``: every step's outputs beside prod_exact_150's train.txt,
-  test.txt and kld_sweep/kld_vs_temp.txt, as one JSON file.
+  test.txt and kld_sweep/kld_vs_temp.txt, as one JSON file (the oracle's
+  rows beside condsdn_scale's go there in their own step).
 
 Run on the card (about 30 GB of .MAT under --work):
     python -m noise_flow_tpu_torch.cli.flagship --work data/flagship \
@@ -48,7 +55,22 @@ PROD_EXACT = ["--arch", "sdn5|unc|unc|unc|unc|gain4|unc|unc|unc|unc", "--width",
               "--shuffle_patches", "--n_patches_per_image", "2898",
               "--epochs_full_valid", "10", "--temp", "0.6", "--do_sample",
               "--device_resident_data"]
-STEPS = ("generate", "train", "sweep", "grid", "frame", "report")
+JAX_ORACLE = os.path.join(REPO, "experiments", "sidd", "condsdn_scale")
+# jobs/job_noise_flow.sh condsdn-baseline at condsdn_scale/hps.txt's settings,
+# less the paths, the cache and the native loader; staged data, as its run.
+# Its NLL_G and NLL_SDN columns are prod_exact_150's to the last digit, so it
+# ran with --shuffle_patches; but those columns come from the Python loader,
+# while its rows come from the native loader, which takes the centred run of
+# the unshuffled grid (native/patch_loader.cc). The rows' patches are the
+# Python loader's without --shuffle_patches, which this run takes. The flow
+# never trains, so its NLL is that of its 1x1 conv's initial weights, which
+# JAX drew with its own RNG: the run starts from the recorded checkpoint.
+CONDSDN = ["--arch", "", "--sidd_cond", "condSDN", "--depth", "1", "--lr", "1e-4",
+           "--n_batch_train", "138", "--patch_height", "32", "--n_patches_per_image", "2898",
+           "--epochs", "2", "--epochs_full_valid", "1", "--temp", "1.0", "--seed", "0",
+           "--device_resident_data",
+           "--init_checkpoint", os.path.join(JAX_ORACLE, "ckpt", "model.ckpt-best.npz")]
+STEPS = ("generate", "oracle", "train", "sweep", "grid", "frame", "report")
 
 
 def read_tsv(path: str) -> List[Dict[str, str]]:
@@ -142,6 +164,23 @@ def main(argv: Optional[List[str]] = None) -> int:
                                 "scenes": len(os.listdir(corpus)),
                                 "disk_free_bytes": shutil.disk_usage(a.work).free}
         timed("generate", generate)
+
+    if "oracle" in steps:
+        from noise_flow_tpu_torch.cli import train as cli_train
+        oracle = os.path.join(a.work, "oracle")
+
+        def run_oracle():
+            shutil.rmtree(oracle, ignore_errors=True)
+            if cli_train.main(CONDSDN + ["--sidd_path", corpus, "--logdir", oracle,
+                                         "--device", a.device]):
+                raise RuntimeError("cli.train failed")
+            report["oracle_rows"] = {
+                r: compare_rows(os.path.join(oracle, f"{r}.txt"),
+                                os.path.join(JAX_ORACLE, f"{r}.txt"),
+                                cols=("NLL", "NLL_G", "NLL_SDN", "sdz"))
+                for r in ("train", "test")}
+        timed("oracle", run_oracle)
+        print(json.dumps(report["oracle_rows"]), flush=True)
 
     if "train" in steps:
         from noise_flow_tpu_torch.cli import train as cli_train

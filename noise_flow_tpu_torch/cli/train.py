@@ -1,9 +1,10 @@
 """Training CLI.
 
 Port of noise_flow_tpu.cli.train (ref:train_noise_flow.py:217-541): the same
-flags plus ``--device``, the same artifacts (hps.txt / model_vars.txt dumps,
-TSV logs train/test/sample.txt, per-epoch console line, baseline NLL columns,
-best-model checkpoints). Single process, one card.
+flags plus ``--device`` and ``--init_checkpoint``, the same artifacts
+(hps.txt / model_vars.txt dumps, TSV logs train/test/sample.txt, per-epoch
+console line, baseline NLL columns, best-model checkpoints). Single
+process, one card.
 
 Run (the published config on the card, fused kernels):
     python -m noise_flow_tpu_torch.cli.train \
@@ -120,9 +121,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
 
     from noise_flow_tpu_torch.models.flow import NoiseFlow
-    from noise_flow_tpu_torch.utils.checkpoint import _format_path, _key_to_path
+    from noise_flow_tpu_torch.utils.checkpoint import _format_path, _key_to_path, load_checkpoint
 
     flow = NoiseFlow(cfg.x_shape, cfg, device=device, seed=cfg.seed)
+    if args.init_checkpoint:
+        load_checkpoint(args.init_checkpoint, flow)
+        logging.info("initial weights from %s", args.init_checkpoint)
     trainer = Trainer(flow, cfg)
     n_params = flow.num_params()
     logging.info("model: %s | %d params | device %s", cfg.arch, n_params, device)

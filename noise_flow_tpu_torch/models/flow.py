@@ -1,19 +1,38 @@
-"""NoiseFlow model: arch-DSL -> layer stack; NLL loss, sampling.
+"""NoiseFlow model: arch-DSL -> layer stack; NLL loss, sampling, priors.
 
 Port of noise_flow_tpu.models.flow (ref:borealisflows/noise_flow_model.py).
-``NoiseFlow`` is an ``nn.Module`` whose ``layers`` hold the bijectors in
-spec order and whose ``shared.sdn_gain`` holds the group that sdn4/5/6 and
-gain4 share. ``state_dict`` keys mirror the JAX trees: the JAX leaf
-``params['layers'][0][i]['nn']['l1_w']`` is ``layers.i.nn.l1_w`` here.
+``NoiseFlow`` is an ``nn.Module`` that holds the bijectors of each level in
+spec order, the split priors between levels, and in ``shared.sdn_gain`` the
+group that sdn4/5/6 and gain4 share.
+
+``state_dict`` keys mirror the JAX trees (``utils.checkpoint`` maps them):
+- level 0 is ``layers``: the JAX leaf
+  ``params['layers'][0][i]['nn']['l1_w']`` is ``layers.i.nn.l1_w``, so every
+  key of a single-level flow names its leaf without the level index;
+- a level li >= 1 is ``levels.<li>``: ``params['layers'][li][i][...]`` is
+  ``levels.li.i....`` (``levels`` is empty for a single-level flow);
+- the split prior after level li is ``splits.<li>``: the JAX
+  ``params['splits'][li]['w']`` is ``splits.li.w`` (with ``b`` and ``logs``);
+- ``shared.sdn_gain.*`` is ``params['shared']['sdn_gain']``.
+BatchNorm buffers take the same names as the parameters beside them.
 
 Direction naming follows the reference: ``inverse`` maps data -> latent (the
-NLL), ``forward`` maps latent -> data (sampling runs the specs reversed).
+NLL), ``forward`` maps latent -> data (sampling runs the levels and the
+specs reversed).
 
 Arch DSL (ref:noise_flow_model.py:71-235): tokens split on '|'; ``unc``
 expands to [permutation, affine coupling] where the permutation is a channel
 reverse (flow_permutation=0), an invertible 1x1 conv (=1), or nothing; other
-tokens are single conditional bijectors. Single-level flows only: multi-level
-``split2d`` and the legacy revnet specs (empty ``cfg.arch``) raise.
+tokens are single conditional bijectors. An empty ``cfg.arch`` takes the
+legacy revnet2d specs (ref:noise_flow_model.py:237-392), chosen by
+``cfg.sidd_cond`` and ``cfg.depth``.
+
+Multi-level flows (``cfg.n_levels > 1``) squeeze at every level and split
+half the channels off between levels, scored by a zero-init conv prior
+(ref:noise_flow_model.py:544-574). A reference limitation is kept: at a
+level above 0 the squeezed clean image no longer matches the latent, so a
+flow whose layers read ``cond['clean']`` fails there, in JAX with a shape
+error and here with a ``ValueError`` when the flow is built.
 """
 
 from __future__ import annotations
@@ -25,8 +44,14 @@ import torch
 from torch import nn
 
 from noise_flow_tpu_torch.models import cond_params as cp
-from noise_flow_tpu_torch.models.layers import SHARED_SDN_GAIN_KINDS, ParamTree, make_layer
+from noise_flow_tpu_torch.models.layers import (
+    CLEAN_KINDS,
+    SHARED_SDN_GAIN_KINDS,
+    ParamTree,
+    make_layer,
+)
 from noise_flow_tpu_torch.ops.gaussian import diag_gaussian_logp, diag_gaussian_sample
+from noise_flow_tpu_torch.ops.nn import conv_zeros_apply, conv_zeros_init
 from noise_flow_tpu_torch.ops.squeeze import squeeze2d, unsqueeze2d
 from noise_flow_tpu_torch.utils.device import resolve_device
 
@@ -56,6 +81,43 @@ def _arch_to_specs(cfg) -> List[LayerSpec]:
     return specs
 
 
+def _revnet_specs(cfg) -> List[LayerSpec]:
+    """Legacy Glow-style path (ref:noise_flow_model.py:237-392)."""
+    specs: List[LayerSpec] = []
+    if cfg.append_sdn2:
+        specs.append(LayerSpec("fitSDN2", f"ac_fitSdnGain2_{cfg.depth}"))
+    if cfg.append_sdn_first:
+        specs.append(LayerSpec("fitSDN", f"ac_fitSdnGain_{cfg.depth}"))
+    if cfg.append_cY:
+        specs.append(LayerSpec("condY", "ac_cY_first"))
+    names = {"condY": "cY", "condYG": "cYG", "condXY": "cXY", "condXYG": "cXYG",
+             "condSDN": "cSDN", "fitSDN": "fitSDN"}
+    cond_kind = cfg.sidd_cond if cfg.sidd_cond in names else "coupling"
+    for i in range(max(cfg.depth, 0)):
+        if cfg.flow_permutation == 0:
+            specs.append(LayerSpec("perm_reverse", f"Permute_{i}"))
+        elif cfg.flow_permutation == 1:
+            specs.append(LayerSpec("conv1x1", f"Conv2d_1x1_{i}"))
+        specs.append(LayerSpec(cond_kind, f"ac_{names.get(cond_kind, 'unc')}_{i}"))
+    if cfg.append_sdn:
+        specs.append(LayerSpec("fitSDN", f"ac_fitSDN_{cfg.depth}"))
+    return specs
+
+
+def _level_shapes(x_shape, cfg) -> List[Tuple[int, int, int]]:
+    """Per-level latent shapes (ref:noise_flow_model.py:54-69): the first
+    level squeezes (H, W, C) to (H/f, W/f, C f^2), each later one halves the
+    spatial size and doubles the channels."""
+    shapes, shape = [], tuple(x_shape)
+    f = cfg.squeeze_factor
+    for i in range(cfg.n_levels):
+        if f != 1:
+            c = shape[2] * f * f if i == 0 else shape[2] * 2
+            shape = (shape[0] // f, shape[1] // f, c)
+        shapes.append(shape)
+    return shapes
+
+
 class NoiseFlow(nn.Module):
     """Conditional normalizing flow over [B,H,W,C] noise tensors.
 
@@ -67,26 +129,27 @@ class NoiseFlow(nn.Module):
                  seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
-        if cfg.n_levels != 1:
-            raise NotImplementedError(
-                "multi-level flows (split2d) are not ported yet: ROADMAP.md "
-                "queue 1, 'Multi-level flows'")
-        if not cfg.arch:
-            raise NotImplementedError(
-                "the legacy revnet specs (empty cfg.arch) are not ported yet: "
-                "ROADMAP.md queue 1, 'Remaining layer kinds'")
         self.cfg = cfg
         self.x_shape = tuple(x_shape)
-        f = cfg.squeeze_factor
-        shape = self.x_shape
-        if f != 1:
-            shape = (shape[0] // f, shape[1] // f, shape[2] * f * f)
-        self.level_shapes: List[Tuple[int, int, int]] = [shape]
-        self.specs: List[LayerSpec] = _arch_to_specs(cfg)
-        rng = np.random.default_rng(seed)
-        self.layers = nn.ModuleList(
-            [make_layer(s.kind, shape, cfg, rng) for s in self.specs])
+        self.n_levels = cfg.n_levels
+        self.level_shapes = _level_shapes(x_shape, cfg)
+        self.specs: List[LayerSpec] = _arch_to_specs(cfg) if cfg.arch else _revnet_specs(cfg)
         kinds = {s.kind for s in self.specs}
+        if self.n_levels > 1 and kinds & set(CLEAN_KINDS):
+            f = cfg.squeeze_factor
+            raise ValueError(
+                f"layer kinds {sorted(kinds & set(CLEAN_KINDS))} read the clean image, "
+                f"which at level 1 is squeezed to {self.x_shape[2] * f ** 4} channels "
+                f"against the latent's {self.level_shapes[0][2] // 2 * f * f}; the JAX "
+                "flow fails there too")
+        rng = np.random.default_rng(seed)
+        levels = [nn.ModuleList([make_layer(s.kind, shape, cfg, rng) for s in self.specs])
+                  for shape in self.level_shapes]
+        self.layers = levels[0]
+        self.levels = nn.ModuleDict({str(li): lv for li, lv in enumerate(levels) if li})
+        self.splits = nn.ModuleList([
+            ParamTree(conv_zeros_init(shape[-1] // 2, 2 * (shape[-1] // 2), 3, edge_bias=True))
+            for shape in self.level_shapes[:-1]])
         self.c_i = 1.0  # (ref:train_noise_flow.py:207)
         if kinds & set(SHARED_SDN_GAIN_KINDS):
             npcam = 1 if "sdn6" in kinds else 3
@@ -94,7 +157,8 @@ class NoiseFlow(nn.Module):
             self.shared = ParamTree({"sdn_gain": shared})
         else:
             self.shared = None
-        self._is_cond = bool(kinds - {"perm_reverse", "conv1x1", "coupling"})
+        self._is_cond = bool(kinds - {"perm_reverse", "conv1x1", "coupling",
+                                      "batch_norm", "leaky_relu"})
         self.to(dev)
 
     @property
@@ -107,42 +171,71 @@ class NoiseFlow(nn.Module):
             sh["sdn_gain"] = self.shared.sdn_gain
         return sh
 
-    def _squeezed_cond(self, cond):
-        cond = dict(cond)
-        if cond.get("clean") is not None:
-            cond["clean"] = squeeze2d(cond["clean"], self.cfg.squeeze_factor,
-                                      self.cfg.squeeze_type)
-        return cond
+    def _level_layers(self, li: int):
+        """(state_dict prefix, layer modules) of level ``li``."""
+        if li == 0:
+            return "layers", self.layers
+        return f"levels.{li}", self.levels[str(li)]
+
+    def _squeeze(self, x):
+        return squeeze2d(x, self.cfg.squeeze_factor, self.cfg.squeeze_type)
 
     # ------------------------------------------------------------- inverse
     def inverse(self, x, cond, train: bool, state_out=None):
-        """data -> latent; returns (z, objective[B]) where the objective is
-        the sum of the inverse log-det-jacobians (ref:noise_flow_model.py:394-428).
+        """data -> latent; returns (z, objective[B]) where the objective sums
+        the inverse log-det-jacobians and, between levels, the split priors'
+        log-probs (ref:noise_flow_model.py:394-428).
 
         Given a dict ``state_out``, puts there the new BatchNorm running
-        statistics of every coupling, keyed as the flow's ``state_dict``
-        buffers (``layers.1.nn.bn1.mean``, ...)."""
+        statistics of every layer with BatchNorm, keyed as the flow's
+        ``state_dict`` buffers (``layers.1.nn.bn1.mean``, ...)."""
         shared = self.shared_view()
-        z = squeeze2d(x, self.cfg.squeeze_factor, self.cfg.squeeze_type)
-        cond = self._squeezed_cond(cond)
+        z = x
+        cond = dict(cond)
         obj = x.new_zeros((x.shape[0],))
-        for i, layer in enumerate(self.layers):
-            sub = {} if state_out is not None else None
-            z, ildj = layer.inverse(z, cond, train, shared, sub)
-            obj = obj + ildj
-            if sub:
-                state_out.update({f"layers.{i}.{k}": v for k, v in sub.items()})
+        for li in range(self.n_levels):
+            z = self._squeeze(z)
+            if cond.get("clean") is not None:
+                cond["clean"] = self._squeeze(cond["clean"])
+            prefix, layers = self._level_layers(li)
+            for i, layer in enumerate(layers):
+                sub = {} if state_out is not None else None
+                z, ildj = layer.inverse(z, cond, train, shared, sub)
+                obj = obj + ildj
+                if sub:
+                    state_out.update({f"{prefix}.{i}.{k}": v for k, v in sub.items()})
+            if li < self.n_levels - 1:
+                z, logp2 = _split2d(self.splits[li], z)
+                obj = obj + logp2
         return z, obj
 
     # ------------------------------------------------------------- forward
-    def forward(self, z, cond, train: bool):
-        """latent -> data (sampling direction, ref:noise_flow_model.py:430-447)."""
+    def forward(self, z, cond, train: bool, split_eps=None, temp: float = 1.0,
+                generator: Optional[torch.Generator] = None):
+        """latent -> data (sampling direction, ref:noise_flow_model.py:430-447).
+
+        ``z`` is the top level's latent, already scaled by the temperature.
+        Between levels the split prior draws the other half of the channels,
+        ``mean + exp(logs) * eps * temp``: ``split_eps[li]`` is the standard
+        normal ``eps`` of the split after level ``li`` (shape: level ``li``'s
+        latent with half its channels); without it, eps is drawn from
+        ``generator``, from the top level down."""
         shared = self.shared_view()
-        cond = self._squeezed_cond(cond)
         x = z
-        for layer in reversed(self.layers):
-            x, _ = layer.forward(x, cond, train, shared)
-        return unsqueeze2d(x, self.cfg.squeeze_factor, self.cfg.squeeze_type)
+        for li in reversed(range(self.n_levels)):
+            if li < self.n_levels - 1:
+                mean, logs = _split_prior(self.splits[li], x)
+                eps = (split_eps[li] if split_eps is not None else torch.randn(
+                    x.shape, generator=generator, device=x.device, dtype=x.dtype))
+                x = torch.cat([x, mean + torch.exp(logs) * (eps * temp)], dim=-1)
+            lvl_cond = dict(cond)
+            if lvl_cond.get("clean") is not None:
+                for _ in range(li + 1):
+                    lvl_cond["clean"] = self._squeeze(lvl_cond["clean"])
+            for layer in reversed(self._level_layers(li)[1]):
+                x, _ = layer.forward(x, lvl_cond, train, shared)
+            x = unsqueeze2d(x, self.cfg.squeeze_factor, self.cfg.squeeze_type)
+        return x
 
     # ---------------------------------------------------------------- loss
     def _nll(self, x, cond, train, state_out=None):
@@ -189,11 +282,27 @@ class NoiseFlow(nn.Module):
         z = diag_gaussian_sample((batch,) + tuple(self.level_shapes[-1]), temp,
                                  generator=generator, device=self.device)
         c = cond if self._is_cond else {"clean": None}
-        return self.forward(z, c, train)
+        return self.forward(z, c, train, temp=temp, generator=generator)
 
     # ------------------------------------------------------------- utility
     def get_layer_names(self) -> List[str]:
-        return [s.name for s in self.specs]
+        return [s.name for s in self.specs] * self.n_levels
 
     def num_params(self) -> int:
         return int(sum(p.numel() for p in self.parameters()))
+
+
+# ---------------------------------------------------------------------------
+# multi-scale split (ref:noise_flow_model.py:544-574)
+# ---------------------------------------------------------------------------
+
+def _split_prior(p_conv, z1):
+    h = conv_zeros_apply(p_conv, z1)
+    return h[..., 0::2], h[..., 1::2]
+
+
+def _split2d(p_conv, z):
+    c = z.shape[-1]
+    z1, z2 = z[..., : c // 2], z[..., c // 2:]
+    mean, logs = _split_prior(p_conv, z1)
+    return z1, diag_gaussian_logp(z2, mean, logs)

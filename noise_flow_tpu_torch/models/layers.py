@@ -12,11 +12,12 @@ level index dropped. Each layer has
 ``cond`` is a dict {'clean':[B,H,W,C], 'nlf0','nlf1','iso','cam': [B]}.
 ``shared`` is the flow's shared view {'sdn_gain': ParamTree, 'c_i': float}.
 With ``train=True`` BatchNorm normalises with batch moments. A layer with
-BatchNorm (the coupling) changes none of its buffers: given a dict
-``state_out`` it puts its new running statistics there, keyed as its
-``state_dict`` buffers (``nn.bn1.mean``, ...), ``s - 0.1 * (s - batch_stat)``
-in train mode and the current values otherwise, as the JAX layers return
-their new state.
+BatchNorm (the couplings, condY/condYG/condXY/condXYG and the ``batch_norm``
+bijector) changes none of its buffers: given a dict ``state_out`` it puts
+its new running statistics there, keyed as its ``state_dict`` buffers
+(``nn.bn1.mean``, ``nn.bn0.var``, ``bn.mean``, ...),
+``s - 0.1 * (s - batch_stat)`` in train mode and the current values
+otherwise, as the JAX layers return their new state.
 
 Faithfulness quirks preserved (they change NLL numbers):
 - gain/gain1/gain2/gain3 log-dets carry NO pixel-count factor
@@ -28,6 +29,8 @@ Faithfulness quirks preserved (they change NLL numbers):
 - sdn4/5/6 and gain4 share trainables through the 'sdn_gain' group.
 - every conditional layer owns a (mostly unused) ``rescale`` trainable
   initialized to 1e-4 (ref:AffineCouplingSdnEx5.py:44-46).
+- condYG and condXYG condition their ISO-affine convs on the batch's first
+  ISO, ``iso[0]`` (ref:borealisflows/layers.py:633).
 """
 
 from __future__ import annotations
@@ -44,11 +47,17 @@ from noise_flow_tpu_torch.ops.conv1x1 import (
     matrix_param_init,
     orthogonal_init,
 )
-from noise_flow_tpu_torch.ops.nn import conv2d_nhwc, coupling_nn_apply, coupling_nn_init
-
-# Layer kinds of the JAX package that this port does not run yet.
-_NOT_PORTED = ("condY", "condYG", "condXY", "condXYG", "batch_norm", "leaky_relu")
-_NOT_PORTED_ITEM = "ROADMAP.md queue 1, 'Remaining layer kinds'"
+from noise_flow_tpu_torch.ops.nn import (
+    BN_DECAY,
+    batch_norm_init,
+    conv2d_nhwc,
+    coupling_mlp_apply,
+    coupling_mlp_init,
+    coupling_nn_apply,
+    coupling_nn_init,
+    coupling_nn_iso_apply,
+    coupling_nn_iso_init,
+)
 
 
 class ParamTree(nn.Module):
@@ -141,37 +150,131 @@ class Conv1x1(Layer):
 
 
 # ---------------------------------------------------------------------------
-# unconditional affine coupling (ref:borealisflows/layers.py:251-375)
+# affine couplings: the unconditional one (ref:borealisflows/layers.py:251-375)
+# with the conv or the dense template, and the ones driven by the clean image
+# (condY / condXY families, ref:noise_flow_model.py:275-279)
 # ---------------------------------------------------------------------------
 
-class Coupling(Layer):
-    kind = "coupling"
+class _AffineCoupling(Layer):
+    """x = y * exp(ls) + shift on the coupled channels (all of them, or the
+    second half), where the network reads ``_net_input`` and
+    ``ls = rescale * tanh(log_scale)``; the ldj reduces over (H, W, C)."""
 
-    def __init__(self, x_shape, cfg, rng: np.random.Generator):
-        c = x_shape[-1]
-        nn_p, nn_s = coupling_nn_init(rng, c // 2, cfg.width, 2 * (c - c // 2))
-        super().__init__({"nn": nn_p, "rescale": np.float32(1e-4)},
-                         {"nn": nn_s})
+    halves = True
 
-    def net(self, x0, train, state_out=None):
-        shift, log_scale, new = coupling_nn_apply(self.nn, self.nn, x0, train)
+    def __init__(self, nn_p, nn_s):
+        super().__init__({"nn": nn_p, "rescale": np.float32(1e-4)}, {"nn": nn_s})
+
+    def _net_input(self, y0, cond):
+        return y0
+
+    def _apply_nn(self, inp, cond, train):
+        return coupling_nn_apply(self.nn, self.nn, inp, train)
+
+    def net(self, y0, cond, train, state_out=None):
+        shift, log_scale, new = self._apply_nn(self._net_input(y0, cond), cond, train)
         if state_out is not None:
             for bn, st in new.items():
                 for k, v in st.items():
                     state_out[f"nn.{bn}.{k}"] = v.detach()
         return shift, self.rescale * torch.tanh(log_scale)
 
-    def inverse(self, y, cond, train, shared, state_out=None):
+    def _split(self, y):
+        if not self.halves:
+            return y[..., :0], y
         c = y.shape[-1]
-        y0, y1 = y[..., : c // 2], y[..., c // 2:]
-        shift, ls = self.net(y0, train, state_out)
+        return y[..., : c // 2], y[..., c // 2:]
+
+    def inverse(self, y, cond, train, shared, state_out=None):
+        y0, y1 = self._split(y)
+        shift, ls = self.net(y0, cond, train, state_out)
         return torch.cat([y0, y1 * torch.exp(ls) + shift], -1), _sum_hwc(ls)
 
     def forward(self, x, cond, train, shared):
-        c = x.shape[-1]
-        x0, x1 = x[..., : c // 2], x[..., c // 2:]
-        shift, ls = self.net(x0, train)
+        x0, x1 = self._split(x)
+        shift, ls = self.net(x0, cond, train)
         return torch.cat([x0, (x1 - shift) * torch.exp(-ls)], -1), -_sum_hwc(ls)
+
+
+class Coupling(_AffineCoupling):
+    kind = "coupling"
+
+    def __init__(self, x_shape, cfg, rng: np.random.Generator):
+        c = x_shape[-1]
+        super().__init__(*coupling_nn_init(rng, c // 2, cfg.width, 2 * (c - c // 2)))
+
+
+class DenseCoupling(_AffineCoupling):
+    """The coupling with the dense-MLP template
+    (ref:borealisflows/layers.py:404-449, real_nvp_default_template), chosen
+    by ``cfg.coupling_nn == 'dense'``."""
+
+    kind = "coupling"
+
+    def __init__(self, x_shape, cfg, rng: np.random.Generator):
+        h, w, c = x_shape
+        super().__init__(*coupling_mlp_init(rng, (h, w, c // 2), tuple(cfg.hidden_layers)))
+
+    def _apply_nn(self, inp, cond, train):
+        return coupling_mlp_apply(self.nn, self.nn, inp, train)
+
+
+def _iso0(cond, y):
+    """The batch's first ISO (ref:borealisflows/layers.py:633)."""
+    return torch.as_tensor(cond["iso"], dtype=torch.float32, device=y.device).reshape(-1)[0]
+
+
+class CondY(_AffineCoupling):
+    """The whole tensor, shifted and scaled by a network of the clean image
+    (C in, 2C out)."""
+
+    kind = "condY"
+    halves = False
+
+    _init = staticmethod(coupling_nn_init)
+
+    def __init__(self, x_shape, cfg, rng: np.random.Generator):
+        c = x_shape[-1]
+        super().__init__(*self._init(rng, c, cfg.width, 2 * c))
+
+    def _net_input(self, y0, cond):
+        return cond["clean"]
+
+
+class CondYG(CondY):
+    """condY with the ISO-affine conv template."""
+
+    kind = "condYG"
+    _init = staticmethod(coupling_nn_iso_init)
+
+    def _apply_nn(self, inp, cond, train):
+        return coupling_nn_iso_apply(self.nn, self.nn, inp, _iso0(cond, inp), train)
+
+
+class CondXY(_AffineCoupling):
+    """The second half, shifted and scaled by a network of
+    ``concat(first half, clean)`` (C/2 + C in)."""
+
+    kind = "condXY"
+
+    _init = staticmethod(coupling_nn_init)
+
+    def __init__(self, x_shape, cfg, rng: np.random.Generator):
+        c = x_shape[-1]
+        super().__init__(*self._init(rng, c // 2 + c, cfg.width, 2 * (c - c // 2)))
+
+    def _net_input(self, y0, cond):
+        return torch.cat([y0, cond["clean"]], -1)
+
+
+class CondXYG(CondXY):
+    """condXY with the ISO-affine conv template."""
+
+    kind = "condXYG"
+    _init = staticmethod(coupling_nn_iso_init)
+
+    def _apply_nn(self, inp, cond, train):
+        return coupling_nn_iso_apply(self.nn, self.nn, inp, _iso0(cond, inp), train)
 
 
 # ---------------------------------------------------------------------------
@@ -280,8 +383,71 @@ class ScaleLayer(Layer):
 
 
 # ---------------------------------------------------------------------------
+# BatchNorm bijector + LeakyReLU bijector (ref:borealisflows/layers.py:149-247
+# and 26-71; the arch DSL builds neither)
+# ---------------------------------------------------------------------------
+
+class BatchNormBijector(Layer):
+    """x = (y - m) / sqrt(v + 1e-4) with batch moments in train mode and the
+    running ones otherwise; ildj = sum_c -0.5 log(v + 1e-4) * H * W for
+    every example. ``forward`` always uses the running moments."""
+
+    kind = "batch_norm"
+    eps = 1e-4
+
+    def __init__(self, x_shape):
+        super().__init__({}, {"bn": batch_norm_init(x_shape[-1])})
+
+    def _ldj(self, v, y):
+        ildj = torch.sum(-0.5 * torch.log(v + self.eps)) * (y.shape[1] * y.shape[2])
+        return ildj.expand(y.shape[0])
+
+    def inverse(self, y, cond, train, shared, state_out=None):
+        mean, var = self.bn.mean, self.bn.var
+        if train:
+            m = y.mean(dim=(0, 1, 2))
+            v = ((y - m) ** 2).mean(dim=(0, 1, 2))
+            new = {"mean": mean - BN_DECAY * (mean - m), "var": var - BN_DECAY * (var - v)}
+        else:
+            m, v = mean, var
+            new = {"mean": mean, "var": var}
+        if state_out is not None:
+            state_out.update({f"bn.{k}": t.detach() for k, t in new.items()})
+        return (y - m) * torch.rsqrt(v + self.eps), self._ldj(v, y)
+
+    def forward(self, x, cond, train, shared):
+        v = self.bn.var
+        return x * torch.sqrt(v + self.eps) + self.bn.mean, -self._ldj(v, x)
+
+
+class LeakyReLU(Layer):
+    """Slope ``|alpha|`` on the negative side; the ldj sums log|slope| over
+    (H, W, C)."""
+
+    kind = "leaky_relu"
+
+    def __init__(self):
+        super().__init__({"alpha": np.float32(1.0)})
+
+    def inverse(self, y, cond, train, shared, state_out=None):
+        alpha = torch.abs(self.alpha)
+        pos = y >= 0
+        j = torch.where(pos, torch.ones_like(y), alpha * torch.ones_like(y))
+        return torch.where(pos, y, alpha * y), _sum_hwc(torch.log(torch.abs(j)))
+
+    def forward(self, x, cond, train, shared):
+        alpha = torch.abs(self.alpha)
+        pos = x >= 0
+        j = torch.where(pos, torch.ones_like(x), torch.ones_like(x) / alpha)
+        return torch.where(pos, x, x / alpha), _sum_hwc(torch.log(torch.abs(j)))
+
+
+# ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
+
+_COND_COUPLINGS = {"condY": CondY, "condYG": CondYG, "condXY": CondXY, "condXYG": CondXYG}
+
 
 def make_layer(kind: str, x_shape, cfg, rng: np.random.Generator) -> Layer:
     """Build the layer module of one spec, initialised from ``rng``."""
@@ -291,16 +457,20 @@ def make_layer(kind: str, x_shape, cfg, rng: np.random.Generator) -> Layer:
         return Conv1x1(x_shape, cfg, rng)
     if kind == "coupling":
         if getattr(cfg, "coupling_nn", "conv") == "dense":
-            raise NotImplementedError(
-                "the dense coupling template (coupling_nn='dense') is not "
-                f"ported yet: {_NOT_PORTED_ITEM}")
+            return DenseCoupling(x_shape, cfg, rng)
         return Coupling(x_shape, cfg, rng)
     if kind in SCALE_KINDS:
         return ScaleLayer(kind, cfg)
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet: {_NOT_PORTED_ITEM}")
+    if kind in _COND_COUPLINGS:
+        return _COND_COUPLINGS[kind](x_shape, cfg, rng)
+    if kind == "batch_norm":
+        return BatchNormBijector(x_shape)
+    if kind == "leaky_relu":
+        return LeakyReLU()
     raise ValueError(f"unknown layer kind {kind!r}")
 
 
 SHARED_SDN_GAIN_KINDS = ("sdn4", "sdn5", "sdn6", "gain4")
+# kinds that read cond["clean"] elementwise against the latent
+CLEAN_KINDS = ("sdn", "sdn1", "sdn2", "sdn3", "sdn4", "sdn5", "sdn6", "fitSDN",
+               "fitSDN2", "condSDN") + tuple(_COND_COUPLINGS)

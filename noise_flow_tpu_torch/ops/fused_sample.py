@@ -200,6 +200,19 @@ class SampleProgram:
                 torch.cat(b_cols, 1).contiguous())
 
 
+FOLDED_KINDS = ("conv1x1", "perm_reverse", "coupling") + tuple(SCALE_KINDS)
+
+
+def in_envelope(flow) -> bool:
+    """Whether the fused sampler covers the flow's family: one level, no
+    squeeze, the conv coupling template and only the kinds it folds. A flow
+    in the family may still be refused for its patch shape or its length
+    (``build_sample_program`` raises); one outside it has no fused path."""
+    return (flow.n_levels == 1 and flow.cfg.squeeze_factor == 1
+            and getattr(flow.cfg, "coupling_nn", "conv") != "dense"
+            and all(spec.kind in FOLDED_KINDS for spec in flow.specs))
+
+
 @torch.no_grad()
 def build_sample_program(flow, bn_mode: str = "running") -> SampleProgram:
     """Fold a NoiseFlow's weights into a fused sampling program.
@@ -210,8 +223,9 @@ def build_sample_program(flow, bn_mode: str = "running") -> SampleProgram:
     """
     if bn_mode not in ("running", "batch"):
         raise ValueError(f"bn_mode must be 'running' or 'batch', got {bn_mode!r}")
-    if flow.cfg.squeeze_factor != 1:
-        raise ValueError("fused sampling supports single-level unsqueezed flows")
+    if not in_envelope(flow):
+        raise ValueError("fused sampling supports single-level unsqueezed flows "
+                         f"of the conv coupling template and the kinds {FOLDED_KINDS}")
     if tuple(flow.x_shape) != (H, W, C):
         raise ValueError(f"fused sampling requires x_shape {(H, W, C)}, "
                          f"got {flow.x_shape}")
@@ -226,12 +240,9 @@ def build_sample_program(flow, bn_mode: str = "running") -> SampleProgram:
         elif spec.kind == "coupling":
             couplings.append(_coupling_record(layer, fold_bn=bn_mode == "running"))
             ops.append((OP_COUPLING, len(couplings) - 1))
-        elif spec.kind in SCALE_KINDS:
+        else:
             scales.append(layer)
             ops.append((OP_SCALE, len(scales) - 1))
-        else:
-            raise ValueError(f"layer kind {spec.kind!r} not supported by the "
-                             "fused sampler")
     if len(ops) > MAX_OPS or max(len(mixes), len(couplings), len(scales)) > 255:
         raise ValueError(f"fused sampler takes at most {MAX_OPS} ops")
     return SampleProgram(ops, mixes, couplings, scales, flow.shared_view(),

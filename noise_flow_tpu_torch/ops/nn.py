@@ -127,3 +127,87 @@ def coupling_nn_apply(p, s, x, train: bool):
     h = conv_zeros_apply(p["last"], h)
     shift, log_scale = torch.chunk(h, 2, dim=-1)
     return shift, log_scale, {"bn1": bn1, "bn2": bn2}
+
+
+# ---------------------------------------------------------------------------
+# real_nvp_default_template (ref:borealisflows/layers.py:404-449)
+# dense MLP over the flattened input half: [dense -> BN -> relu]* ->
+# zero-init dense -> reshape -> split(shift, log_scale)
+# ---------------------------------------------------------------------------
+
+def coupling_mlp_init(rng: np.random.Generator, half_shape, hidden_layers):
+    """Dense-MLP coupling template. half_shape = (H, W, C//2)."""
+    i0, i1, ic = half_shape
+    in_units = i0 * i1 * ic
+    out_units = 2 * in_units
+    params: Dict[str, np.ndarray] = {}
+    state: Dict[str, Dict[str, np.ndarray]] = {}
+    prev = in_units
+    for i, units in enumerate(hidden_layers):
+        # TF dense default init: glorot uniform (ref:layers.py:424)
+        lim = (6.0 / (prev + units)) ** 0.5
+        params[f"d{i}_w"] = rng.uniform(-lim, lim, (prev, units)).astype(np.float32)
+        params[f"d{i}_b"] = np.zeros((units,), np.float32)
+        state[f"bn{i}"] = batch_norm_init(units)
+        prev = units
+    # zero-init last dense => identity coupling at init (ref:layers.py:432-440)
+    params["last_w"] = np.zeros((prev, out_units), np.float32)
+    params["last_b"] = np.zeros((out_units,), np.float32)
+    return params, state
+
+
+def coupling_mlp_apply(p, s, x, train: bool):
+    """Returns (shift, log_scale, new_state); x: [B, H, W, C//2]."""
+    b, i0, i1, ic = x.shape
+    h = x.reshape(b, i0 * i1 * ic)
+    new_state = {}
+    i = 0
+    while f"d{i}_w" in p:
+        h = h @ p[f"d{i}_w"] + p[f"d{i}_b"]
+        h, new_state[f"bn{i}"] = batch_norm_apply(h, s[f"bn{i}"], train)
+        h = torch.relu(h)
+        i += 1
+    h = h @ p["last_w"] + p["last_b"]
+    shift, log_scale = torch.chunk(h.reshape(b, i0, i1, 2 * ic), 2, dim=-1)
+    return shift, log_scale, new_state
+
+
+# ---------------------------------------------------------------------------
+# real_nvp_conv_template_iso (ref:borealisflows/layers.py:501-547,616-648)
+# conv weights/biases are affine in ISO: w = B1*iso + B2, bias = C1*iso + C2.
+# ---------------------------------------------------------------------------
+
+def coupling_nn_iso_init(rng: np.random.Generator, c_in: int, width: int,
+                         n_out: int):
+    std = 0.05  # ref:borealisflows/layers.py:627 (init_sd fixed at 0.05)
+
+    def normal(*shape):
+        return (std * rng.standard_normal(shape)).astype(np.float32)
+
+    params = {
+        "l1_B1": normal(3, 3, c_in, width), "l1_B2": normal(3, 3, c_in, width),
+        "l1_C1": normal(1, 1, 1, width), "l1_C2": normal(1, 1, 1, width),
+        "l2_B1": normal(1, 1, width, width), "l2_B2": normal(1, 1, width, width),
+        "l2_C1": normal(1, 1, 1, width), "l2_C2": normal(1, 1, 1, width),
+        "last": conv_zeros_init(width, n_out, 3, edge_bias=True),
+    }
+    state = {"bn1": batch_norm_init(width), "bn2": batch_norm_init(width)}
+    return params, state
+
+
+def coupling_nn_iso_apply(p, s, x, iso_scalar, train: bool):
+    """iso_scalar: one ISO for the whole batch. The reference indexes
+    ``iso[0]`` (ref:borealisflows/layers.py:633): the iso-weighted convs are
+    conditioned per minibatch, on its first example.
+    Returns (shift, log_scale, new_state)."""
+    w1 = p["l1_B1"] * iso_scalar + p["l1_B2"]
+    h = conv2d_nhwc(x, w1) + (p["l1_C1"] * iso_scalar + p["l1_C2"])
+    h, bn1 = batch_norm_apply(h, s["bn1"], train)
+    h = torch.relu(h)
+    w2 = p["l2_B1"] * iso_scalar + p["l2_B2"]
+    h = conv2d_nhwc(h, w2) + (p["l2_C1"] * iso_scalar + p["l2_C2"])
+    h, bn2 = batch_norm_apply(h, s["bn2"], train)
+    h = torch.relu(h)
+    h = conv_zeros_apply(p["last"], h)
+    shift, log_scale = torch.chunk(h, 2, dim=-1)
+    return shift, log_scale, {"bn1": bn1, "bn2": bn2}

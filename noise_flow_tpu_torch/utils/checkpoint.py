@@ -4,8 +4,11 @@ The format (noise_flow_tpu.utils.checkpoint) is a flat npz whose keys are
 ``<group>|<jax key path>``: ``params|['layers']/[0]/[2]/['nn']/['l1_w']``,
 ``state|['layers']/[0]/[1]/['frozen']/['p']``, ``opt|...`` and
 ``__epoch__``. The port's ``state_dict`` key of a leaf is its key path with
-the level index after ``layers`` dropped (single-level flows):
-``layers.2.nn.l1_w``. Any other tree keeps its key path as its name (the
+the level index after ``layers`` dropped for level 0
+(``['layers']/[0]/[2]/['nn']/['l1_w']`` is ``layers.2.nn.l1_w``) and
+``layers`` renamed ``levels`` for a level above it (``['layers']/[1]/[2]``
+is ``levels.1.2``); the split priors keep their path
+(``['splits']/[0]/['w']`` is ``splits.0.w``), as every other tree does (the
 DnCNN's ``['convs']/[0]`` is ``convs.0``). Parameters come from the
 ``params`` group, buffers from ``state``, so both packages read each other's
 weights, the flow's and the DnCNN's.
@@ -48,13 +51,9 @@ def _format_path(path: Tuple) -> str:
 
 
 def _path_to_key(path: Tuple) -> str:
-    """JAX tree path -> port state_dict key (drops the level index)."""
-    if path[0] in ("layers", "splits"):
-        if path[0] == "splits" or path[1] != 0:
-            raise NotImplementedError(
-                "multi-level checkpoints are not ported yet: ROADMAP.md "
-                "queue 1, 'Multi-level flows'")
-        path = (path[0],) + path[2:]
+    """JAX tree path -> port state_dict key."""
+    if path[0] == "layers":
+        path = (("layers",) if path[1] == 0 else ("levels", path[1])) + path[2:]
     return ".".join(str(p) for p in path)
 
 
@@ -62,6 +61,8 @@ def _key_to_path(key: str) -> Tuple:
     parts = tuple(int(p) if p.isdigit() else p for p in key.split("."))
     if parts[0] == "layers":
         parts = ("layers", 0) + parts[1:]
+    elif parts[0] == "levels":
+        parts = ("layers",) + parts[1:]
     return parts
 
 

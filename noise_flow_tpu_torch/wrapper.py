@@ -7,13 +7,19 @@ DnCNN pipeline and the sampling demo make.
 
 Reference quirk preserved: the wrapper samples with ``is_training=True`` so
 coupling-NN batch norm uses batch statistics (ref:NoiseFlowWrapper.py:86),
-controlled by ``bn_batch_stats`` (default True to match). Sampling always
-goes through the fused sampler (``ops.fused_sample``): its CUDA kernel on
-the card, its plain PyTorch version on the CPU.
+controlled by ``bn_batch_stats`` (default True to match). Sampling goes
+through the fused sampler (``ops.fused_sample``): its CUDA kernel on the
+card, its plain PyTorch version on the CPU. A flow outside the sampler's
+envelope (the legacy revnet specs, the dense template, multi-level flows)
+samples through the plain ``flow.sample``, the path of JAX's default
+wrapper, which loads any checkpoint its ``NoiseFlow`` builds. A flow inside
+the envelope that the sampler still refuses (its patch shape, more than
+``MAX_OPS`` layers) raises, as JAX's wrapper does with ``use_pallas``.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import Optional
 
@@ -22,7 +28,7 @@ import torch
 
 from noise_flow_tpu_torch.config import Config, load_hps
 from noise_flow_tpu_torch.models.flow import NoiseFlow
-from noise_flow_tpu_torch.ops.fused_sample import build_sample_program, fused_sample
+from noise_flow_tpu_torch.ops.fused_sample import build_sample_program, fused_sample, in_envelope
 from noise_flow_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
 from noise_flow_tpu_torch.utils.device import resolve_device
 
@@ -62,8 +68,14 @@ class NoiseFlowWrapper:
         self.epoch = load_checkpoint(ckpt, self.flow)
         self.flow.eval()
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
-        self._program = build_sample_program(
-            self.flow, bn_mode="batch" if bn_batch_stats else "running")
+        self._program = None
+        if in_envelope(self.flow):
+            self._program = build_sample_program(
+                self.flow, bn_mode="batch" if bn_batch_stats else "running")
+        else:
+            logging.getLogger(__name__).info(
+                "%s is outside the fused sampler's envelope: sampling through "
+                "flow.sample", path)
 
     # ------------------------------------------------------------------ api
     @torch.no_grad()
@@ -97,7 +109,11 @@ class NoiseFlowWrapper:
         # batch-stats BN over the whole batch (bt = b), as JAX's default
         # wrapper samples through flow.sample(train=True); fused_sample's
         # own default, bn_block, is the rule of JAX's Pallas branch only
-        out = fused_sample(self._program, cond, temp=t, generator=self._gen, bt=b)
+        if self._program is None:
+            out = self.flow.sample(cond, temp=t, batch=b, train=self.bn_batch_stats,
+                                   generator=self._gen)
+        else:
+            out = fused_sample(self._program, cond, temp=t, generator=self._gen, bt=b)
         return out.cpu().numpy()
 
     def sample_noise_frame(self, clean_frame: np.ndarray, b1: float,

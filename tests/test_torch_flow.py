@@ -183,10 +183,23 @@ def test_checkpoint_shape_mismatch_raises(tmp_path):
         ckpt.load_checkpoint(BEST, flow)
 
 
-@pytest.mark.parametrize("overrides,match", [
-    ({"n_levels": 2}, "multi-level"),
-    ({"arch": "", "sidd_cond": "condSDN", "depth": 2}, "revnet"),
+@pytest.mark.parametrize("overrides", [
+    {"arch": "sdn5|unc|gain4|unc"},
+    {"arch": "", "sidd_cond": "condSDN", "depth": 1},
+    {"arch": "", "sidd_cond": "condXY", "depth": 2},
 ])
-def test_unported_flows_raise(overrides, match):
-    with pytest.raises(NotImplementedError, match=match):
-        NoiseFlow((32, 32, 4), default_config(**overrides), device="cpu")
+def test_clean_conditioned_multi_level_flows_raise_in_both(overrides):
+    """A reference limitation kept: above level 0 the twice-squeezed clean
+    image no longer matches the latent, so JAX fails on the first NLL of a
+    2-level flow whose layers read it, and the port refuses to build one."""
+    from noise_flow_tpu.config import default_config as jax_default_config
+
+    kw = dict(overrides, patch_height=16, n_levels=2, squeeze_factor=2)
+    jflow = JaxFlow((16, 16, 4), jax_default_config(**kw))
+    params, state = jflow.init(jax.random.PRNGKey(0))
+    clean, noise, iso, cam = _batch(3, seed=7)
+    jc, _ = _conds(clean[:, :16, :16], iso, cam)
+    with pytest.raises((TypeError, ValueError)):
+        jflow.nll_per_sample(params, state, jnp.asarray(noise[:, :16, :16]), jc)
+    with pytest.raises(ValueError, match="clean image"):
+        NoiseFlow((16, 16, 4), default_config(**kw), device="cpu")
