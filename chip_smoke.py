@@ -245,7 +245,38 @@ Phases, each of which fails the run if it fails:
    ``sample``) and a legacy ``--arch "" --sidd_cond condXY --depth 4``
    flow: the train NLL falls, every row finite, ``hps.txt`` says ``cuda``;
 45. on every path of phases 42-44 the launch counters read zero
-   (``no_launch``), and the earlier phases' counts are as they were.
+   (``no_launch``), and the earlier phases' counts are as they were;
+46. data-parallel training, 2 ranks sharing the card over gloo (processes
+   started here): ``cli.train`` in coordinator mode, 2 processes on cuda:0,
+   the published arch at global batch 276 (138 a process, each on its
+   ``host_shard`` of phase 39's image tuples), the plain exact-BN path,
+   3 steps from the flagship's checkpoint (``--init_checkpoint``), with the
+   sample phase; held against one rank at 276 in this process on the two
+   processes' batches concatenated: each step's train NLL and each test NLL
+   within PAR_NLL_RTOL, the weights of ``ckpt-3`` (after 2 steps) within
+   ``probes.mesh.PARAM_TOL`` where the reference's gradients set Adam's
+   sign (PAR_WEIGHT_FLOOR); no kernel launched; hps.txt's num_processes 2;
+   every rank and reference with cuDNN's deterministic algorithms;
+47. the same with ``--use_pallas --pallas_train_dtype float32`` (the
+   one-shot step at bt 69 on each rank, as one rank's at 276): the same
+   comparisons, and each rank's launches exactly one step launch a step and
+   two eval launches a test batch; then an in-process spawn of
+   ``Trainer(mesh)`` on those global batches: the plain path within the
+   same tolerances of one rank and its first step's gradients within
+   ``probes.mesh.GRAD_TOL``, the planted fault of the tests (each rank's
+   own BN moments) outside both, and the per-rank step ms of the plain and
+   one-shot paths and the all-reduce ms a step beside one rank's step at
+   276 (host clock; "2 ranks sharing one card, gloo", with the card's name
+   and power limit: not a multi-card speed);
+48. ``cli.train_dncnn`` DnCNN_NF in a group of 2 ranks on the card (batch
+   128, 64 a rank, 2 epochs): the same weights on both ranks bit for bit,
+   the same finite, falling losses, on each rank exactly one sampler launch
+   a step, all in RNG mode over the whole batch (b = 128, as one rank's, so
+   that the noise does not depend on the ranks); against one rank's run of
+   the same command: the first step's noise the same bits, its loss within
+   PAR_NLL_RTOL and its gradients within PAR_DNCNN_GRAD_RTOL normwise. The
+   kernels line gives these per-rank launches under each
+   kernel's ``parallel``.
 
 The train template's redesigned step, segment backward and ghost forward
 keep one launch a call, so the exact launch counts of phases 9, 15 and 28
@@ -261,6 +292,7 @@ from __future__ import annotations
 
 import collections
 import copy
+import csv
 import functools
 import itertools
 import json
@@ -2859,6 +2891,366 @@ def _model_family_phases(phase, flagship):
     return out
 
 
+# Phases 46-48: data-parallel training, 2 ranks sharing the one card over
+# gloo (nccl refuses two ranks on one card). The ranks are processes started
+# by parallel.distributed.spawn_ranks, which returns what each rank read.
+# Phases 46-47 are the multihost recipe (jobs/job_noise_flow.sh multihost:
+# global batch 276 over 2 processes of 138) on phase 39's cut corpus: each
+# process takes its host_shard of the image tuples (2 train images and 1
+# test image), 69 patches an image, so that every epoch is one step of 276
+# and a test batch of 138; 3 epochs from the flagship's checkpoint (ckpt-3
+# is written before the third epoch's step: the weights after 2 steps).
+# Every rank and every one-rank reference of these phases runs with cuDNN's
+# deterministic algorithms (PAR_DETERMINISM), so that a comparison reads the
+# same in every run: see PERF.md §6.
+PAR_RANKS = 2
+PAR_B = 276
+PAR_PATCHES = 69
+PAR_EPOCHS = 3
+PAR_SPAWN_S = 300     # the longest a spawn of ranks may run
+PAR_DIR = os.path.join(ROOT, "build", "chip_smoke_parallel")
+PAR_INIT = os.path.join(MODEL, "ckpt", "model.ckpt-best.npz")
+# 2 ranks against 1 rank on the same global batches, float32 sums in another
+# order (the BN moments' all-reduce, the ranks' mean of the gradients): each
+# step's train NLL and each test NLL within PAR_NLL_RTOL relative; the first
+# step's gradients, on the same weights, within probes.mesh.GRAD_TOL (JAX's);
+# the weights after 2 Adam steps (lr 1e-4) within probes.mesh.PARAM_TOL,
+# less probes.mesh.SKIP, as tests/test_torch_parallel.py leaves them out,
+# and less the elements whose reference gradient in a step is below
+# PAR_WEIGHT_FLOOR of that step's largest |g|, the gradient tolerance's
+# absolute part: within it such a gradient may change sign, and Adam's first
+# steps move an element by about lr whatever its gradient's size, so the two
+# sides step lr apart there (PERF.md §6: the coupling networks'
+# last.w elements with |g| ~1e-9 of the largest read 18.6 times the
+# tolerance, as far as the planted fault).
+PAR_NLL_RTOL = 1e-5
+PAR_WEIGHT_FLOOR = 1e-5
+# DnCNN_NF on 2 ranks against 1, the first step on the same weights and the
+# same noise: each gradient leaf normwise, ||d|| <= tol ||g||. A weight's
+# gradient sums 64 x 64 x 128 products, in another order on 2 ranks (cuDNN
+# picks its algorithm by batch), and cancels: elementwise it read 5.3 times
+# JAX's gradient tolerance (PERF.md §6), so it is held normwise.
+PAR_DNCNN_GRAD_RTOL = 1e-3
+PAR_DEVICE = "cuda:0"   # both ranks' device
+PAR_DETERMINISM = "cudnn"
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _par_argv(flagship, use_pallas, device):
+    return ["--n_batch_train", str(PAR_B), "--patch_height", "32", "--n_patches_per_image",
+            str(PAR_PATCHES), "--epochs", str(PAR_EPOCHS), "--sidd_path", flagship["root"],
+            "--init_checkpoint", PAR_INIT, "--temp", "0.6", "--device", device,
+            "--dist_backend", "gloo"] + (
+                ["--use_pallas", "--pallas_train_dtype", "float32"] if use_pallas
+                else ["--do_sample"])
+
+
+def _coordinator_rank(rank, device, argv, port):
+    """One process of cli.train in coordinator mode; its kernels' launches
+    (every kernel's wrapper counts into ``fused_sample.launch_counts``)."""
+    from noise_flow_tpu_torch.cli import train as cli_train
+    from noise_flow_tpu_torch.ops import fused_sample as fs
+    from noise_flow_tpu_torch.probes.mesh import set_deterministic
+
+    set_deterministic(PAR_DETERMINISM)
+    fs.launch_counts.clear()
+    t0 = time.time()
+    rc = cli_train.main(argv + ["--coordinator_address", f"localhost:{port}",
+                                "--num_processes", str(PAR_RANKS), "--process_id", str(rank)])
+    return {"rc": rc, "seconds": time.time() - t0, "launches": dict(fs.launch_counts)}
+
+
+def _trainer_rank(rank, device, batches_path):
+    """A rank of Trainer(mesh) on the global batches of phase 46: the plain
+    path, the plain path with each rank's own BN moments (the planted
+    fault), and each path's step and all-reduce times."""
+    import numpy as np
+    from noise_flow_tpu_torch.parallel.mesh import make_mesh
+    from noise_flow_tpu_torch.probes import mesh as pm
+
+    mesh = make_mesh(None, device)
+    z = np.load(batches_path)
+    n = len({k.split(":")[0] for k in z.files})
+    epoch = [{k.split(":")[1]: z[k] for k in z.files if k.startswith(f"{s}:")}
+             for s in range(n)]
+    # the steps of phase 46's epochs, which repeat one epoch's batches
+    batches = [epoch[s % n] for s in range(2)]
+    # local_bn: the planted fault, each rank's own BN moments
+    out = {name: pm.plain_steps(rank, device, batches, PAR_DETERMINISM, name == "local_bn")
+           for name in ("plain", "local_bn")}
+    pm.set_deterministic("off")
+    out["times"] = pm.step_times(mesh, batches[0])
+    return out
+
+
+def _dncnn_fit(argv):
+    """cli.train_dncnn on this rank (or one rank alone): its sampler
+    launches, losses and weights, and its first step's noise (the whole
+    batch's), loss and gradients."""
+    from noise_flow_tpu_torch.cli import train_dncnn
+    from noise_flow_tpu_torch.ops import fused_sample as fs
+    from noise_flow_tpu_torch.probes.mesh import set_deterministic
+    from noise_flow_tpu_torch.training import dncnn_trainer as dt
+
+    set_deterministic(PAR_DETERMINISM)
+    held, first = {}, {}
+    cls = dt.DnCNNTrainer
+    fit, make_noise, step = cls.fit, cls._make_noise, cls.train_step
+
+    def keep(self, *a, **k):
+        held["trainer"], held["history"] = self, fit(self, *a, **k)
+        return held["history"]
+
+    def keep_noise(self, *a):
+        noise = make_noise(self, *a)
+        first.setdefault("noise", noise.cpu())
+        return noise
+
+    def keep_step(self, *a):
+        loss = step(self, *a)
+        if "grads" not in first:
+            first["loss"] = float(loss)
+            first["grads"] = {k: p.grad.cpu().clone() for k, p in self.model.named_parameters()}
+        return loss
+    cls.fit, cls._make_noise, cls.train_step = keep, keep_noise, keep_step
+    try:
+        fs.launch_counts.clear()
+        t0 = time.time()
+        rc = train_dncnn.main(argv)
+        return {"rc": rc, "seconds": time.time() - t0, "launches": dict(fs.launch_counts),
+                "losses": held["history"]["loss"], "first": first,
+                "state": {k: v.cpu() for k, v in held["trainer"].model.state_dict().items()}}
+    finally:
+        cls.fit, cls._make_noise, cls.train_step = fit, make_noise, step
+        set_deterministic("off")
+
+
+def _dncnn_rank(rank, device, argv):
+    """A rank of cli.train_dncnn in a group of PAR_RANKS on the card."""
+    return _dncnn_fit(argv)
+
+
+def _parallel_phases(phase, flagship, smi, device=PAR_DEVICE):
+    """Phases 46-48 (see the module docstring). Returns the per-rank
+    launches, for the kernels line."""
+    import numpy as np
+    import torch
+    from noise_flow_tpu_torch.cli import train as cli_train
+    from noise_flow_tpu_torch.cli.args import parse_config
+    from noise_flow_tpu_torch.cli.flagship import read_tsv
+    from noise_flow_tpu_torch.models.flow import NoiseFlow
+    from noise_flow_tpu_torch.parallel import distributed as pd
+    from noise_flow_tpu_torch.parallel.mesh import Mesh
+    from noise_flow_tpu_torch.probes import mesh as pm
+    from noise_flow_tpu_torch.training.trainer import Trainer
+    from noise_flow_tpu_torch.utils.checkpoint import load_checkpoint
+
+    out = {"launches": {}}
+    label = f"2 ranks sharing one card, gloo; {smi}"
+
+    def spawn(fn, *args, group=True):
+        return pd.spawn_ranks(PAR_RANKS, fn, args, device, "gloo", timeout=PAR_SPAWN_S,
+                              group=group)
+
+    def reference(argv):
+        """One rank at 276 on the two processes' batches, concatenated: each
+        epoch's test NLL and train NLL, the state before each epoch's step,
+        and the global train batches."""
+        args, cfg = parse_config(argv)
+        bsc = not cfg.per_example_cond
+
+        def global_batches(split, bs, shuffle):
+            its = [cli_train.load_split(args, cfg, split, shard=(r, PAR_RANKS)).batches(
+                bs, shuffle=shuffle, seed=cfg.seed, drop_remainder=True, batch_scalar_cond=bsc)
+                for r in range(PAR_RANKS)]
+            return [{k: np.concatenate([b[k] for b in group]) for k in group[0]}
+                    for group in zip(*its)]
+        train_b = global_batches("train", PAR_B // PAR_RANKS, True)
+        test_b = global_batches("test", cfg.n_batch_test // PAR_RANKS, False)
+        flow = NoiseFlow(cfg.x_shape, cfg, device=device, seed=cfg.seed)
+        load_checkpoint(PAR_INIT, flow)
+        tr = Trainer(flow, cfg)
+        rows = {"train": [], "test": [], "states": [], "grads": []}
+        pm.set_deterministic(PAR_DETERMINISM)
+        try:
+            for _ in range(cfg.epochs):
+                rows["states"].append({k: v.cpu().clone() for k, v in flow.state_dict().items()})
+                rows["test"].append(float(np.mean([float(tr.eval_step(tr._put(b))[0])
+                                                   for b in test_b])))
+                for b in train_b:
+                    rows["train"].append(float(tr.train_step(tr._put(b))[0]))
+                    rows["grads"].append({k: p.grad.cpu().clone() for k, p in
+                                          flow.named_parameters() if p.grad is not None})
+        finally:
+            pm.set_deterministic("off")
+        rows["batches"] = train_b
+        return rows
+
+    def coordinator_fit(use_pallas):
+        name = "oneshot" if use_pallas else "plain"
+        argv = _par_argv(flagship, use_pallas, device)
+        logdir = os.path.join(PAR_DIR, f"fit_{name}")
+        shutil.rmtree(logdir, ignore_errors=True)
+        argv += ["--logdir", logdir]
+        t0 = time.time()
+        ranks = spawn(_coordinator_rank, argv, pd.free_port(), group=False)
+        t_fit = time.time() - t0
+        ref = reference(argv)
+        rows = {s: read_tsv(os.path.join(logdir, f"{s}.txt")) for s in ("train", "test")}
+        train = [float(r["NLL"]) for r in rows["train"]]
+        test = [float(r["NLL"]) for r in rows["test"]]
+        args, cfg = parse_config(argv)
+        flow = NoiseFlow(cfg.x_shape, cfg, device="cpu")
+        load_checkpoint(os.path.join(logdir, "ckpt", f"model.ckpt-{PAR_EPOCHS}.npz"), flow)
+        ratio, worst, worst_key = pm.weights_agreement(
+            flow.state_dict(), ref["states"][-1], ref["grads"][:PAR_EPOCHS - 1],
+            PAR_WEIGHT_FLOOR)
+        every = pm.weights_agreement(flow.state_dict(), ref["states"][-1])[0]
+        d_train = max(abs(a - b) / abs(b) for a, b in zip(train, ref["train"]))
+        d_test = max(abs(a - b) / abs(b) for a, b in zip(test, ref["test"]))
+        with open(os.path.join(logdir, "hps.txt")) as f:
+            hps = {r[0]: r[1] for r in csv.reader(f) if len(r) == 2}
+        counts = [r["launches"] for r in ranks]
+        out[name] = {"ref": ref, "train": train}
+        print(f"parallel {name}: cli.train coordinator mode, {PAR_RANKS} processes on {device} "
+              f"(gloo), global batch {PAR_B} ({PAR_B // PAR_RANKS} a rank), {PAR_EPOCHS} steps "
+              f"from {os.path.relpath(PAR_INIT, ROOT)} in {t_fit:.1f} s (rc "
+              f"{[r['rc'] for r in ranks]}; rank seconds {[round(r['seconds'], 1) for r in ranks]}"
+              f"); train NLL {train} vs 1 rank at {PAR_B} {ref['train']} (max rel "
+              f"{d_train:.3e}, tol {PAR_NLL_RTOL}); test NLL {test} vs {ref['test']} (max rel "
+              f"{d_test:.3e}); ckpt-{PAR_EPOCHS} weights max |d| {worst:.3e}, "
+              f"{ratio:.3f} of the tolerance (atol {pm.PARAM_TOL[0]}, rtol {pm.PARAM_TOL[1]},"
+              f" less {pm.SKIP} and the elements below {PAR_WEIGHT_FLOOR} of a step's largest"
+              f" |g|; worst {worst_key}; {every:.3f} over every element); launches by rank "
+              f"{counts}; hps "
+              f"num_processes {hps.get('num_processes')}")
+        if any(r["rc"] != 0 for r in ranks) or len(train) != PAR_EPOCHS or \
+                d_train > PAR_NLL_RTOL or d_test > PAR_NLL_RTOL or ratio > 1.0 or \
+                hps.get("num_processes") != str(PAR_RANKS):
+            raise AssertionError(f"{name}: 2 ranks disagree with 1 rank")
+        if use_pallas:
+            # each rank: one step launch a step, none of the segment path; two
+            # eval launches (both segments) a test batch
+            want = {"fused_train_step": PAR_EPOCHS, "fused_segment_forward": 2 * PAR_EPOCHS}
+            if any({k: v for k, v in c.items() if v} != want for c in counts):
+                raise AssertionError(f"launches by rank {counts}, not {want} each")
+            out["launches"]["fused_train_step"] = [c["fused_train_step"] for c in counts]
+            out["launches"]["fused_segment_forward"] = [c["fused_segment_forward"]
+                                                        for c in counts]
+        elif any(c for c in counts):
+            raise AssertionError(f"the exact-BN path launched kernels: {counts}")
+
+    phase("parallel: cli.train coordinator mode, 2 ranks, plain exact BN, vs 1 rank at 276",
+          lambda: coordinator_fit(False))
+    phase("parallel: cli.train coordinator mode, 2 ranks, one-shot kernel, vs 1 rank at 276",
+          lambda: coordinator_fit(True))
+
+    def trainer_spawn():
+        """The planted fault of tests/test_torch_parallel.py (each rank's
+        own BN moments) through an in-process spawn of the Trainer, and each
+        path's step and all-reduce times."""
+        ref = out["plain"]["ref"]
+        path = os.path.join(PAR_DIR, "batches.npz")
+        np.savez(path, **{f"{s}:{k}": v for s, b in enumerate(ref["batches"])
+                          for k, v in b.items()})
+        ranks = spawn(_trainer_rank, path)
+        for r in ranks:
+            read = {}
+            for name in ("plain", "local_bn"):
+                got = r[name]
+                read[name] = (
+                    max(abs(a - b) / abs(b) for a, b in zip(got["nlls"], ref["train"])),
+                    pm.grads_agreement(got["grads"][0], ref["grads"][0]),
+                    pm.weights_agreement(got["state"], ref["states"][2], ref["grads"][:2],
+                                         PAR_WEIGHT_FLOOR))
+            (d, g, w), (bd, bg, bw) = read["plain"], read["local_bn"]
+            print(f"parallel trainer spawn: plain path NLL max rel {d:.3e}, first step's "
+                  f"gradients {g[0]:.3f} of their tolerance (rtol {pm.GRAD_TOL[0]}, atol "
+                  f"{pm.GRAD_TOL[1]} max|g|; {g[2]}), weights {w[0]:.3f} of theirs ({w[2]}, "
+                  f"max |d| {w[1]:.3e}); planted fault (each rank's own BN moments) NLL max "
+                  f"rel {bd:.3e}, gradients {bg[0]:.3f} ({bg[2]}), weights {bw[0]:.3f} of the "
+                  f"tolerance")
+            if g[0] > 1.0 or w[0] > 1.0 or d > PAR_NLL_RTOL:
+                raise AssertionError("the trainer's 2 ranks disagree with 1 rank")
+            if bg[0] <= 1.0 or bw[0] <= 1.0:
+                raise AssertionError("a comparison missed the planted fault")
+        # the 1-rank step at 276 on the same batch, host clock
+        one_rank = pm.step_times(Mesh(1, 0, torch.device(device)), ref["batches"][0])
+        out["times"] = {"one_rank_ms": {}}
+        for key in ("plain", "oneshot"):
+            t = [r["times"][key] for r in ranks]
+            one = one_rank[key]["step_ms"]
+            out["times"][f"{key}_ms"] = t
+            out["times"]["one_rank_ms"][key] = one
+            print(f"parallel {key} step at {PAR_B // PAR_RANKS} a rank ({label}): step ms "
+                  f"by rank {[round(x['step_ms'], 3) for x in t]}, all-reduce ms a step "
+                  f"{[round(x['allreduce_ms'], 3) for x in t]} ({t[0]['allreduces']:.0f} "
+                  f"all-reduces a step); 1 rank at {PAR_B}: {one} ms (host clock)")
+    phase("parallel: Trainer spawn, planted fault and per-rank times", trainer_spawn)
+
+    def dncnn():
+        save = os.path.join(PAR_DIR, "dncnn")
+        shutil.rmtree(save, ignore_errors=True)
+        from noise_flow_tpu_torch.data.dncnn_data import synthetic_dncnn_data
+
+        clean, _, _ = synthetic_dncnn_data(n_images=DNCNN_IMAGES, batch_size=DNCNN_B)
+        steps = (len(clean) - (min(len(clean) // 10, 512) or 1)) // DNCNN_B
+        argv = ["--model", "DnCNN_NF", "--noise_flow_path", MODEL, "--device", device,
+                "--depth", str(DNCNN_DEPTH), "--filters", str(DNCNN_FILTERS),
+                "--batch_size", str(DNCNN_B), "--max_epoch", str(DNCNN_EPOCHS),
+                "--synthetic_data", str(DNCNN_IMAGES), "--save_dir", save,
+                "--cam_iso_nlf", os.path.join(ROOT, "cam_iso_nlf.txt")]
+        t0 = time.time()
+        ranks = spawn(_dncnn_rank, argv)
+        t_ranks = time.time() - t0
+        one = _dncnn_fit(argv + ["--save_dir", save + "_one"])
+        want = DNCNN_EPOCHS * steps * BATCH_BN_LAUNCHES
+        same = all(torch.equal(v, ranks[1]["state"][k]) for k, v in ranks[0]["state"].items())
+        losses = ranks[0]["losses"]
+        f1, f0 = ranks[0]["first"], one["first"]
+        noise_same = all(torch.equal(r["first"]["noise"], f0["noise"]) for r in ranks)
+        e_first = abs(f1["loss"] - f0["loss"]) / abs(f0["loss"])
+        g = {k: float((f1["grads"][k] - v).norm() / v.norm().clamp_min(1e-30))
+             for k, v in f0["grads"].items()}
+        g_worst = max(g, key=g.get)
+        e_loss = max(abs(a - b) / abs(b) for a, b in zip(losses, one["losses"]))
+        rels = {k: float((ranks[0]["state"][k] - v).norm() / v.norm().clamp_min(1e-30))
+                for k, v in one["state"].items()}
+        worst = max(rels, key=rels.get)
+        print(f"parallel dncnn: cli.train_dncnn DnCNN_NF in a group of {PAR_RANKS} ranks on "
+              f"{device} (gloo), batch {DNCNN_B} ({DNCNN_B // PAR_RANKS} a rank), "
+              f"{DNCNN_EPOCHS} epochs of {steps} steps in {t_ranks:.1f} s (rc "
+              f"{[r['rc'] for r in ranks]}); losses {losses}; weights equal on both ranks: "
+              f"{same}; sampler launches by rank {[r['launches'] for r in ranks]} (want {want}"
+              f" each, all in RNG mode at b = {DNCNN_B}); against one rank (losses "
+              f"{one['losses']}, launches {one['launches']}): first step's noise the same bits"
+              f" on both ranks as on one: {noise_same}; its loss rel {e_first:.3e} (tol "
+              f"{PAR_NLL_RTOL}); its gradients normwise worst {g[g_worst]:.3e} ({g_worst}; tol "
+              f"{PAR_DNCNN_GRAD_RTOL}); after "
+              f"{DNCNN_EPOCHS} epochs losses max rel {e_loss:.3e}, weights and BN state "
+              f"normwise worst {rels[worst]:.3e} ({worst})")
+        if any(r["rc"] != 0 for r in ranks + [one]) or not same or \
+                not np.isfinite(losses).all() or not losses[-1] < losses[0] or \
+                ranks[0]["losses"] != ranks[1]["losses"] or not noise_same or \
+                e_first > PAR_NLL_RTOL or g[g_worst] > PAR_DNCNN_GRAD_RTOL:
+            raise AssertionError("DnCNN_NF on 2 ranks")
+        if any(r["launches"].get("fused_sample") != want or
+               r["launches"].get("fused_sample_rng") != want for r in ranks):
+            raise AssertionError(f"sampler launches by rank, not {want} each")
+        out["launches"]["fused_sample"] = [r["launches"]["fused_sample"] for r in ranks]
+        shutil.rmtree(save, ignore_errors=True)
+        shutil.rmtree(save + "_one", ignore_errors=True)
+    phase("parallel: cli.train_dncnn DnCNN_NF on 2 ranks, vs 1 rank", dncnn)
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    return out
+
+
 # the kernels line's (kernel, mode) by the production rows of
 # _production_times that time its calls; and the redesign rows (phase 33) by
 # (kernel, mode, kind, launches a call: both segments are two launches)
@@ -3162,6 +3554,7 @@ def main() -> int:
     eval_rows = _eval_phases(phase)
     flagship = _flagship_phases(phase, agree, nf, frame[0])
     family = _model_family_phases(phase, flagship)
+    parallel = _parallel_phases(phase, flagship, smi)
     shutil.rmtree(flagship["work"], ignore_errors=True)
     print(f"model_family_seconds {json.dumps(family['seconds'])}")
 
@@ -3221,6 +3614,10 @@ def main() -> int:
         if kind:   # the production design beside the parent's, both precisions
             k["redesign"] = {f"{dt},bt={bt}": v for (kd, dt, bt), v in
                              redesign["designs"].items() if kd == kind}
+    for k in kernels:   # phases 47-48: each rank's launches on the data-parallel paths
+        if k["name"] in parallel["launches"]:
+            k["parallel"] = {"launches_by_rank": parallel["launches"][k["name"]],
+                             "ranks": PAR_RANKS, "on": "2 ranks sharing one card, gloo"}
     if {k["name"] for k in kernels} - set(bf16_modes):
         print("chip_smoke: a kernel has no bf16 mode in the kernels line", file=sys.stderr)
         return 1

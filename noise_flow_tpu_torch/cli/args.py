@@ -1,9 +1,10 @@
 """CLI flag surface.
 
 Port of noise_flow_tpu.cli.args: the same flags, plus ``--device`` (default
-``cuda``) and ``--init_checkpoint``. ``--mesh`` above 1 and
-``--coordinator_address`` are parsed and raise when used (multi-card
-training is ROADMAP.md queue 1, item 8).
+``cuda``), ``--init_checkpoint``, ``--dist_backend`` and
+``--pallas_train_dtype``. ``--mesh`` and
+``--coordinator_address`` / ``--num_processes`` / ``--process_id`` select
+data-parallel training, one rank a device (cli/train.py).
 
 Keeps the reference's flag names (ref:sidd/ArgParser.py:11-167) so the
 canonical run commands (ref:job_noise_flow.sh:35-75) work verbatim, and maps
@@ -113,10 +114,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--download_sidd", action="store_true",
                    help="auto-download SIDD_Medium_Raw (~20 GB) if missing "
                         "(ref:sidd/data_loader.py:34-45)")
-    # --- multi-host: not ported (ROADMAP.md queue 1, item 8) ---
+    # --- multi-process: one rank a process, over torch.distributed ---
     p.add_argument("--coordinator_address", type=str, default=None,
-                   help="host:port of process 0 (multi-process training; "
-                        "not ported yet, raises)")
+                   help="host:port of process 0; enables multi-process "
+                        "training (coordinator mode)")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--shuffle_patches", action="store_true",
@@ -168,13 +169,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--continue_training", action="store_true")
     # --- runtime extras ---
     p.add_argument("--mesh", type=int, default=0,
-                   help="data-parallel mesh size (0 = all local devices)")
+                   help="data-parallel mesh size: ranks started by this launch, "
+                        "one a card (0 = all visible cards; 1 on the CPU)")
+    p.add_argument("--dist_backend", type=str, default=None, choices=("gloo", "nccl"),
+                   help="process-group backend (default: nccl on the card, gloo "
+                        "on the CPU; gloo for ranks that share one card)")
     p.add_argument("--batch_scalar_cond", action="store_true",
                    help="reference-compat: one (nlf,iso,cam) scalar per "
                         "minibatch, taken from its last patch "
                         "(ref:sidd/MiniBatchSampler.py:60-64)")
     p.add_argument("--use_pallas", action="store_true",
                    help="train and evaluate through the fused CUDA kernels")
+    p.add_argument("--pallas_train_dtype", type=str, default="bfloat16",
+                   choices=("bfloat16", "float32"),
+                   help="the fused train kernels' product operands (the config "
+                        "field JAX's CLI leaves at its default, bfloat16)")
     p.add_argument("--steps_per_call", type=int, default=1,
                    help="recorded only: each train step is one eager call")
     p.add_argument("--device", type=str, default="cuda",

@@ -1,10 +1,34 @@
 """Training CLI.
 
 Port of noise_flow_tpu.cli.train (ref:train_noise_flow.py:217-541): the same
-flags plus ``--device`` and ``--init_checkpoint``, the same artifacts
-(hps.txt / model_vars.txt dumps, TSV logs train/test/sample.txt, per-epoch
-console line, baseline NLL columns, best-model checkpoints). Single
-process, one card.
+flags plus ``--device``, ``--init_checkpoint`` and ``--dist_backend``, the
+same artifacts (hps.txt / model_vars.txt dumps, TSV logs
+train/test/sample.txt, per-epoch console line, baseline NLL columns,
+best-model checkpoints, the ``pat_stats_baselines.npz`` stats cache under
+``--cache_dir``, keyed by JAX's fingerprint, so that either package reads
+the other's).
+
+Data-parallel training, one rank a device, in JAX's two modes:
+- ``--mesh N`` (0: every visible card; 1 on the CPU) starts N ranks itself,
+  on cuda:0..N-1 (or N CPU processes with ``--device cpu``). Every rank reads
+  the whole data, iterates the same batches of ``--n_batch_train`` and
+  trains on its contiguous slice of each; the stats are computed over the
+  whole data, as in JAX's single process.
+- ``--coordinator_address host:port --num_processes P --process_id i``
+  (JAX multi-host): one rank a process, on ``--device`` (``cuda`` alone
+  picks card ``i`` mod the visible cards). Each process loads its
+  ``host_shard`` of the SIDD image tuples (synthetic data is not sharded,
+  as in JAX), feeds batches of ``n_batch_train // P``, runs the fewest
+  steps any process has, and merges the stats over processes.
+The process group's backend is nccl on the card and gloo on the CPU;
+``--dist_backend gloo`` puts ranks that share one card on gloo (nccl refuses
+two ranks on one card). Only rank 0 writes logs, checkpoints and the cache.
+
+The published multi-process recipe (jobs/job_noise_flow.sh ``multihost``:
+global batch 276 over 2 processes), on one host with two cards:
+    python -m noise_flow_tpu_torch.cli.train --n_batch_train 276 \
+        --coordinator_address localhost:29500 --num_processes 2 \
+        --process_id $I ...        # I = 0 and 1, one process each
 
 Run (the published config on the card, fused kernels):
     python -m noise_flow_tpu_torch.cli.train \
@@ -31,16 +55,20 @@ from noise_flow_tpu_torch.cli.args import parse_config
 from noise_flow_tpu_torch.config import save_hps
 from noise_flow_tpu_torch.data.patches import PatchDataset
 from noise_flow_tpu_torch.data.sidd import load_image_tuple, sidd_filename_tuples
-from noise_flow_tpu_torch.data.stats import calc_baselines, calc_pat_stats
+from noise_flow_tpu_torch.data.stats import calc_baselines
 from noise_flow_tpu_torch.data.synthetic import make_synthetic_samples
-from noise_flow_tpu_torch.training.trainer import MESH_ITEM, Trainer
+from noise_flow_tpu_torch.parallel import distributed as pd
+from noise_flow_tpu_torch.parallel.mesh import mesh_ranks
+from noise_flow_tpu_torch.training.trainer import Trainer
 from noise_flow_tpu_torch.utils.logger import add_trace_level
 
 
-def load_split(args, cfg, train_or_test: str):
+def load_split(args, cfg, train_or_test: str, shard=None):
     """SIDD images (or synthetic fixtures) -> PatchDataset. With --cache_dir
     the decoded .MAT images are kept as npy (data/cache.py) and re-read from
-    there on later runs."""
+    there on later runs. Of the SIDD image tuples, this process's
+    ``host_shard`` only: ``shard`` = (process index, process count), by
+    default coordinator mode's."""
     if args.synthetic_data:
         seed = 0 if train_or_test == "train" else 9
         samples = make_synthetic_samples(
@@ -66,8 +94,13 @@ def load_split(args, cfg, train_or_test: str):
                 raise FileNotFoundError(
                     f"no SIDD scene instances under {cfg.sidd_path!r} "
                     f"(need SIDD_Medium_Raw; or pass --synthetic_data N)")
-            logging.info("%s split: %d instances, %d image tuples",
-                         train_or_test, n_inst, len(tuples))
+            pi, pc = shard or (pd.process_index(), pd.process_count())
+            if pc > 1:
+                # per-process file shard: every process enumerates the
+                # identical global list and takes a disjoint slice
+                tuples = pd.host_shard(tuples, pi, pc)
+            logging.info("%s split: %d instances, %d image tuples (process %d)",
+                         train_or_test, n_inst, len(tuples), pi)
             samples = [load_image_tuple(t) for t in tuples]
             if cache_dir:
                 from noise_flow_tpu_torch.data.cache import write_cache_from_samples
@@ -78,75 +111,176 @@ def load_split(args, cfg, train_or_test: str):
                         shuffle_patches=args.shuffle_patches)
 
 
+def content_sig(arr):
+    """Strided sample moments across the whole patch set: cheap, and a
+    same-size regeneration with different content changes it (JAX's)."""
+    sub = np.asarray(arr[::max(1, len(arr) // 64)]).reshape(-1)
+    sub = sub[::max(1, sub.size // 65536)]
+    return (round(float(sub.mean()), 9), round(float(sub.std()), 9))
+
+
+def stats_fingerprint(args, cfg, tr, ts) -> str:
+    """The stats cache's key: the patch-extraction config and the data, in
+    the repr JAX's cli.train writes, so that a cache of either package is
+    valid for the other."""
+    return repr((len(tr), len(ts), cfg.patch_height, cfg.n_patches_per_image,
+                 cfg.patch_sampling, min(cfg.n_batch_test, len(ts)), cfg.camera, cfg.iso,
+                 args.shuffle_patches, cfg.seed, content_sig(tr.x), content_sig(ts.x)))
+
+
+def stats_and_baselines(args, cfg, tr, ts):
+    """(stats, nll_gauss, nll_sdn): patch stats and analytic baselines
+    (ref:train_noise_flow.py:264-280), merged over processes in coordinator
+    mode. With --cache_dir they are cached in pat_stats_baselines.npz beside
+    the decoded data, keyed by ``stats_fingerprint``: a changed extraction
+    config or regenerated data recomputes. Rank 0's fingerprint decides for
+    every rank (the cached stats are global); rank 0 writes the cache while
+    the others wait."""
+    stats_cache = (os.path.join(args.cache_dir, "pat_stats_baselines.npz")
+                   if args.cache_dir else None)
+    fingerprint = stats_fingerprint(args, cfg, tr, ts)
+    hit = False
+    if stats_cache and os.path.exists(stats_cache):
+        z = np.load(stats_cache)
+        hit = "fingerprint" in z.files and str(z["fingerprint"]) == fingerprint
+        if not hit:
+            logging.info("stats cache %s fingerprint mismatch (extraction config "
+                         "changed): recomputing", stats_cache)
+    if pd.world_size() > 1 and stats_cache:
+        hit = bool(pd.all_gather_host(np.asarray([int(hit)], np.int32))[0, 0])
+    if hit:
+        z = np.load(stats_cache)
+        stats = {k: float(z[k]) for k in z.files
+                 if k not in ("nll_gauss", "nll_sdn", "fingerprint")}
+        logging.info("stats+baselines from %s", stats_cache)
+        return stats, float(z["nll_gauss"]), float(z["nll_sdn"])
+    stats = pd.global_scalar_stats(tr.x, tr.y)
+    # clamp the baseline batch to the split size: a tiny smoke split would
+    # otherwise yield no batch under drop_remainder
+    nll_gauss, nll_sdn = calc_baselines(
+        ts.batches(min(cfg.n_batch_test, len(ts)), drop_remainder=True), stats["sc_in_vr"])
+    nll_gauss, nll_sdn = pd.global_baselines(nll_gauss, nll_sdn)
+    if stats_cache:
+        if pd.rank() == 0:
+            np.savez(stats_cache, nll_gauss=nll_gauss, nll_sdn=nll_sdn,
+                     fingerprint=fingerprint, **stats)
+        pd.barrier()
+    return stats, nll_gauss, nll_sdn
+
+
 def main(argv: Optional[List[str]] = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args, cfg = parse_config(argv)
-    if args.coordinator_address:
-        raise NotImplementedError(f"multi-process training is not ported yet: {MESH_ITEM}")
-    if args.mesh > 1:
-        raise NotImplementedError(f"training on {args.mesh} cards is not ported yet: {MESH_ITEM}")
     add_trace_level()
     logging.basicConfig(level=logging.INFO)
-    t_start = time.time()
+    if args.coordinator_address:
+        if args.num_processes is None or args.process_id is None:
+            raise ValueError("--coordinator_address needs --num_processes and --process_id")
+        device = args.device
+        if device == "cuda":
+            import torch
 
+            device = f"cuda:{args.process_id % max(torch.cuda.device_count(), 1)}"
+        pd.initialize_distributed(args.coordinator_address, args.num_processes,
+                                  args.process_id,
+                                  args.dist_backend or pd.default_backend(device))
+        try:
+            return _train(args, cfg, device)
+        finally:
+            pd.shutdown()
+    n = mesh_ranks(args.mesh, args.device)
+    if n > 1 and pd.world_size() == 1:
+        pd.spawn_ranks(n, _rank_main, (argv,), args.device, args.dist_backend)
+        return 0
+    return _train(args, cfg, args.device)
+
+
+def _rank_main(rank, device, argv):
+    """One rank of ``--mesh N``: the run on ``device`` in the group."""
+    args, cfg = parse_config(argv)
+    logging.basicConfig(level=logging.INFO)
+    _train(args, cfg, str(device))
+
+
+def _train(args, cfg, device_name: str) -> int:
+    t_start = time.time()
     # the card is asked for first: no data work on a machine without one
     from noise_flow_tpu_torch.utils.device import resolve_device
-    device = resolve_device(args.device)
+    device = resolve_device(device_name)
+    if device.type == "cuda" and device.index is not None:
+        # nccl's collectives (the stats below) run on the current card
+        import torch
+
+        torch.cuda.set_device(device)
+    chief = pd.rank() == 0
 
     # data + stats + analytic baselines (ref:train_noise_flow.py:264-280)
     tr = load_split(args, cfg, "train")
     ts = load_split(args, cfg, "test")
     logging.info("train patches: %d, test patches: %d", len(tr), len(ts))
-    stats = calc_pat_stats(tr.x, tr.y)
-    # clamp the baseline batch to the split size: a tiny smoke split would
-    # otherwise yield no batch under drop_remainder
-    nll_gauss, nll_sdn = calc_baselines(
-        ts.batches(min(cfg.n_batch_test, len(ts)), drop_remainder=True), stats["sc_in_vr"])
+    stats, nll_gauss, nll_sdn = stats_and_baselines(args, cfg, tr, ts)
     logging.info("baselines: NLL_G=%.3f NLL_SDN=%.3f", nll_gauss, nll_sdn)
 
     # --calc_*_only early exits (ref:Initialization.py:31-75 modes)
     if args.calc_pat_stats_and_baselines_only:
-        os.makedirs(cfg.logdir, exist_ok=True)
-        np.save(os.path.join(cfg.logdir, "pat_stats.npy"),
-                {**stats, "nll_gauss": nll_gauss, "nll_sdn": nll_sdn}, allow_pickle=True)
-        logging.info("stats+baselines written to %s/pat_stats.npy; exiting", cfg.logdir)
+        if chief:
+            os.makedirs(cfg.logdir, exist_ok=True)
+            np.save(os.path.join(cfg.logdir, "pat_stats.npy"),
+                    {**stats, "nll_gauss": nll_gauss, "nll_sdn": nll_sdn}, allow_pickle=True)
+            logging.info("stats+baselines written to %s/pat_stats.npy; exiting", cfg.logdir)
         return 0
     if args.calc_hists_only:
-        from noise_flow_tpu_torch.data.histograms import calc_hists, plot_hists, save_hists
-        hx = calc_hists([{"noise": tr.x, "clean": tr.y}])
-        hy = calc_hists([{"noise": ts.x, "clean": ts.y}])
-        os.makedirs(cfg.logdir, exist_ok=True)
-        save_hists(cfg.logdir, hx, hy)
-        plot_hists(hx, hy, cfg.logdir)
-        logging.info("histograms written to %s; exiting", cfg.logdir)
+        if chief:
+            from noise_flow_tpu_torch.data.histograms import calc_hists, plot_hists, save_hists
+            hx = calc_hists([{"noise": tr.x, "clean": tr.y}])
+            hy = calc_hists([{"noise": ts.x, "clean": ts.y}])
+            os.makedirs(cfg.logdir, exist_ok=True)
+            save_hists(cfg.logdir, hx, hy)
+            plot_hists(hx, hy, cfg.logdir)
+            logging.info("histograms written to %s; exiting", cfg.logdir)
         return 0
 
     from noise_flow_tpu_torch.models.flow import NoiseFlow
+    from noise_flow_tpu_torch.parallel.mesh import make_mesh
     from noise_flow_tpu_torch.utils.checkpoint import _format_path, _key_to_path, load_checkpoint
 
     flow = NoiseFlow(cfg.x_shape, cfg, device=device, seed=cfg.seed)
     if args.init_checkpoint:
         load_checkpoint(args.init_checkpoint, flow)
         logging.info("initial weights from %s", args.init_checkpoint)
-    trainer = Trainer(flow, cfg)
+    mesh = make_mesh(None, device)
+    trainer = Trainer(flow, cfg, mesh)
     n_params = flow.num_params()
-    logging.info("model: %s | %d params | device %s", cfg.arch, n_params, device)
+    logging.info("model: %s | %d params | device %s | rank %d of %d", cfg.arch, n_params,
+                 device, mesh.rank, mesh.size)
 
     # config + variable dumps (ref:train_noise_flow.py:305-312)
-    os.makedirs(cfg.logdir, exist_ok=True)
-    save_hps(os.path.join(cfg.logdir, "hps.txt"), cfg, flow.get_layer_names(), n_params,
-             extra={"synthetic_data": args.synthetic_data,
-                    "native_loader": bool(args.native_loader),
-                    "cache_dir": args.cache_dir or "", "num_processes": 1,
-                    "device": str(device)})
-    with open(os.path.join(cfg.logdir, "model_vars.txt"), "w") as f:
-        for name, p in flow.named_parameters():
-            f.write(f"{_format_path(_key_to_path(name))}\t{tuple(p.shape)}\n")
+    if chief:
+        os.makedirs(cfg.logdir, exist_ok=True)
+        save_hps(os.path.join(cfg.logdir, "hps.txt"), cfg, flow.get_layer_names(), n_params,
+                 extra={"synthetic_data": args.synthetic_data,
+                        "native_loader": bool(args.native_loader),
+                        "cache_dir": args.cache_dir or "",
+                        "num_processes": pd.process_count(), "device": str(device)})
+        with open(os.path.join(cfg.logdir, "model_vars.txt"), "w") as f:
+            for name, p in flow.named_parameters():
+                f.write(f"{_format_path(_key_to_path(name))}\t{tuple(p.shape)}\n")
 
     # clamp batch sizes to split sizes (small synthetic smoke runs would
-    # otherwise drop every batch under drop_remainder)
-    bs_tr = min(cfg.n_batch_train, len(tr))
-    bs_ts = min(cfg.n_batch_test, len(ts))
+    # otherwise drop every batch under drop_remainder). In coordinator mode
+    # the batch size is global: each process feeds its share, and every
+    # process runs the fewest steps an epoch that any process has.
+    pc = pd.process_count()
+    bs_tr = min(max(cfg.n_batch_train // pc, 1), len(tr))
+    bs_ts = min(max(cfg.n_batch_test // pc, 1), len(ts))
+    steps_tr = steps_ts = None
+    if pc > 1:
+        counts = pd.all_gather_host(np.asarray([len(tr) // bs_tr, len(ts) // bs_ts], np.int64))
+        steps_tr, steps_ts = int(counts[:, 0].min()), int(counts[:, 1].min())
     bsc = not cfg.per_example_cond  # reference-compat conditioning
+
+    def limit(it, n):
+        return it if n is None else itertools.islice(it, n)
 
     def scalarize(it):
         for mb in it:
@@ -167,13 +301,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         ts_loader = NativePatchLoader(
             os.path.join(args.cache_dir, "test"), cfg.patch_height, bs_ts,
             cfg.n_patches_per_image, shuffle=False, seed=cfg.seed, sampling=cfg.patch_sampling)
-        train_fn = lambda: scalarize(tr_loader.epoch())  # noqa: E731
-        test_fn = lambda: scalarize(ts_loader.epoch(cfg.seed))  # noqa: E731
+        train_fn = lambda: limit(scalarize(tr_loader.epoch()), steps_tr)  # noqa: E731
+        test_fn = lambda: limit(scalarize(ts_loader.epoch(cfg.seed)), steps_ts)  # noqa: E731
     else:
-        train_fn = lambda: tr.batches(bs_tr, shuffle=True, seed=cfg.seed,  # noqa: E731
-                                      drop_remainder=True, batch_scalar_cond=bsc)
-        test_fn = lambda: ts.batches(bs_ts, drop_remainder=True,  # noqa: E731
-                                     batch_scalar_cond=bsc)
+        train_fn = lambda: limit(tr.batches(  # noqa: E731
+            bs_tr, shuffle=True, seed=cfg.seed, drop_remainder=True,
+            batch_scalar_cond=bsc), steps_tr)
+        test_fn = lambda: limit(ts.batches(  # noqa: E731
+            bs_ts, drop_remainder=True, batch_scalar_cond=bsc), steps_ts)
 
     sample_fn = None
     if args.n_sample_batches:
@@ -195,8 +330,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                 verbose=True, sample_batches_fn=sample_fn)
 
     total = time.time() - t_start
-    with open(os.path.join(cfg.logdir, "total_time.txt"), "w") as f:
-        f.write(f"{total:.1f}\n")  # (ref:train_noise_flow.py:539-540)
+    if chief:
+        with open(os.path.join(cfg.logdir, "total_time.txt"), "w") as f:
+            f.write(f"{total:.1f}\n")  # (ref:train_noise_flow.py:539-540)
     logging.info("done in %.1fs", total)
     return 0
 

@@ -1,16 +1,20 @@
 """DnCNN training CLI.
 
 Port of noise_flow_tpu.cli.train_dncnn (ref:train_dncnn_noiseflow.py
-__main__, :257-300) with one more argument, ``--device`` (default ``cuda``;
-``--device cpu`` runs the plain PyTorch path). Model naming selects the noise
-source exactly like the reference: a model name containing ``_Gauss`` /
-``_SDN`` / ``_CamNLF`` / ``_NF`` / ``_Real`` picks the corresponding
-generator (ref:train_datagen 176-240).
+__main__, :257-300) with two more arguments, ``--device`` (default ``cuda``;
+``--device cpu`` runs the plain PyTorch path) and ``--dist_backend``. Model
+naming selects the noise source exactly like the reference: a model name
+containing ``_Gauss`` / ``_SDN`` / ``_CamNLF`` / ``_NF`` / ``_Real`` picks
+the corresponding generator (ref:train_datagen 176-240).
 
     python -m noise_flow_tpu_torch.cli.train_dncnn --model DnCNN_NF \\
         --noise_flow_path experiments/sidd/prod_exact_150 \\
         --train_data data/SIDD_Medium_Raw/Data
-Smoke run: add --synthetic_data 4. ``--mesh`` takes 0 or 1 (one card).
+Smoke run: add --synthetic_data 4. ``--mesh N`` trains data-parallel on N
+ranks that this launch starts, one a card (0: every visible card; 1 on the
+CPU; ``--device cpu`` starts N CPU processes); in a process group that is
+already up, every rank of it is the mesh. ``--batch_size`` is the global
+batch.
 """
 
 from __future__ import annotations
@@ -24,8 +28,9 @@ from typing import List, Optional
 from noise_flow_tpu_torch.config import CAM_NAMES
 from noise_flow_tpu_torch.data.dncnn_data import load_dncnn_data, synthetic_dncnn_data
 from noise_flow_tpu_torch.data.sidd import load_cam_iso_nlf
+from noise_flow_tpu_torch.parallel import distributed as pd
+from noise_flow_tpu_torch.parallel.mesh import mesh_ranks
 from noise_flow_tpu_torch.training.dncnn_trainer import DnCNNTrainer
-from noise_flow_tpu_torch.training.trainer import MESH_ITEM
 
 
 def noise_source_from_name(model_name: str) -> str:
@@ -44,7 +49,7 @@ def cam_iso_rows_from_table(path: str):
     return rows
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("train_dncnn")
     p.add_argument("--model", type=str, default="DnCNN_NF",
                    help="name with noise tag: DnCNN_{Gauss|SDN|CamNLF|NF|Real}")
@@ -63,13 +68,35 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--continue_training", action="store_true")
     p.add_argument("--synthetic_data", type=int, default=0)
     p.add_argument("--max_images", type=int, default=0)
-    p.add_argument("--mesh", type=int, default=0, help="0 or 1: one card")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="data-parallel ranks, one a card (0 = all visible cards)")
     p.add_argument("--device", type=str, default="cuda")
-    args = p.parse_args(argv)
-    if args.mesh not in (0, 1):
-        raise ValueError(f"--mesh {args.mesh}: training on more than one device "
-                         f"is not ported yet: {MESH_ITEM}")
+    p.add_argument("--dist_backend", type=str, default=None, choices=("gloo", "nccl"),
+                   help="process-group backend (default: nccl on the card, gloo on the CPU)")
+    return p
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_parser().parse_args(argv)
+    n = mesh_ranks(args.mesh, args.device)
+    if n > 1 and pd.world_size() == 1:
+        pd.spawn_ranks(n, _rank_main, (argv,), args.device, args.dist_backend)
+        return 0
+    return _train(args, args.device)
+
+
+def _rank_main(rank, device, argv):
+    """One rank of ``--mesh N``: the run on ``device`` in the group."""
+    _train(build_parser().parse_args(argv), str(device))
+
+
+def _train(args, device: str) -> int:
+    from noise_flow_tpu_torch.parallel.mesh import make_mesh
+    from noise_flow_tpu_torch.utils.device import resolve_device
+
     logging.basicConfig(level=logging.INFO)
+    mesh = make_mesh(None, resolve_device(device))
 
     source = noise_source_from_name(args.model)
     save_dir = args.save_dir or os.path.join("models", args.model)
@@ -92,11 +119,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     noise_flow = None
     if source == "nf":
         from noise_flow_tpu_torch.wrapper import NoiseFlowWrapper
-        noise_flow = NoiseFlowWrapper(args.noise_flow_path, device=args.device).flow
+        noise_flow = NoiseFlowWrapper(args.noise_flow_path, device=mesh.device).flow
 
     trainer = DnCNNTrainer(
         depth=args.depth, filters=args.filters, lr=args.lr, noise_source=source,
-        noise_flow=noise_flow, cam_iso_rows=rows, device=args.device)
+        noise_flow=noise_flow, cam_iso_rows=rows, device=mesh.device, mesh=mesh)
 
     initial_epoch = 0
     if args.continue_training:

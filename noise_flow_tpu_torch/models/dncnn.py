@@ -23,7 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from noise_flow_tpu_torch.ops.nn import conv2d_nhwc
+from noise_flow_tpu_torch.ops.nn import Psum, batch_moments, conv2d_nhwc
 from noise_flow_tpu_torch.utils.device import resolve_device
 
 BN_EPS = 1e-4
@@ -84,18 +84,19 @@ class DnCNN(nn.Module):
         dt = self.compute_dtype
         return conv2d_nhwc(x.to(dt), w.to(dt)).to(torch.float32)
 
-    def forward(self, x, train: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def forward(self, x, train: bool,
+                psum: Psum = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Returns (denoised, new_state): in train mode the batch moments of
-        each BN, keyed as the buffers (``bn.i.mean``, ``bn.i.var``); in eval
-        mode the current buffers."""
+        each BN (over every rank's rows with ``psum``, the sum over the
+        data-parallel ranks), keyed as the buffers (``bn.i.mean``,
+        ``bn.i.var``); in eval mode the current buffers."""
         h = torch.relu(self._conv(x, self.convs[0]) + self.biases["first"])
         new_state = {}
         for i in range(len(self.convs) - 2):
             h = self._conv(h, self.convs[i + 1])
             if len(self.bn):
                 if train:
-                    m = h.mean(dim=(0, 1, 2))
-                    v = ((h - m) ** 2).mean(dim=(0, 1, 2))
+                    m, v = batch_moments(h, (0, 1, 2), psum)
                 else:
                     m, v = self.bn[i].mean, self.bn[i].var
                 new_state[f"bn.{i}.mean"], new_state[f"bn.{i}.var"] = m, v

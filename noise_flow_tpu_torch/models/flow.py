@@ -165,8 +165,11 @@ class NoiseFlow(nn.Module):
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
-    def shared_view(self):
-        sh = {"c_i": self.c_i}
+    def shared_view(self, psum=None):
+        """What every layer is given as ``shared``: the sdn/gain group, c_i,
+        and ``psum``, the sum over data-parallel ranks that train-mode
+        BatchNorm takes its moments with (None: this rank's rows)."""
+        sh = {"c_i": self.c_i, "psum": psum}
         if self.shared is not None:
             sh["sdn_gain"] = self.shared.sdn_gain
         return sh
@@ -181,15 +184,17 @@ class NoiseFlow(nn.Module):
         return squeeze2d(x, self.cfg.squeeze_factor, self.cfg.squeeze_type)
 
     # ------------------------------------------------------------- inverse
-    def inverse(self, x, cond, train: bool, state_out=None):
+    def inverse(self, x, cond, train: bool, state_out=None, psum=None):
         """data -> latent; returns (z, objective[B]) where the objective sums
         the inverse log-det-jacobians and, between levels, the split priors'
         log-probs (ref:noise_flow_model.py:394-428).
 
         Given a dict ``state_out``, puts there the new BatchNorm running
         statistics of every layer with BatchNorm, keyed as the flow's
-        ``state_dict`` buffers (``layers.1.nn.bn1.mean``, ...)."""
-        shared = self.shared_view()
+        ``state_dict`` buffers (``layers.1.nn.bn1.mean``, ...). ``psum``:
+        train-mode BatchNorm moments over every data-parallel rank's rows
+        (``shared_view``)."""
+        shared = self.shared_view(psum)
         z = x
         cond = dict(cond)
         obj = x.new_zeros((x.shape[0],))
@@ -238,12 +243,12 @@ class NoiseFlow(nn.Module):
         return x
 
     # ---------------------------------------------------------------- loss
-    def _nll(self, x, cond, train, state_out=None):
+    def _nll(self, x, cond, train, state_out=None, psum=None):
         c = cond if self._is_cond else {"clean": None}
-        z, obj = self.inverse(x, c, train, state_out)
+        z, obj = self.inverse(x, c, train, state_out, psum)
         return -(obj + diag_gaussian_logp(z)), z
 
-    def loss(self, x, cond, train: bool):
+    def loss(self, x, cond, train: bool, psum=None):
         """Returns (mean NLL [nats/patch], sd_z, new_state)
         (ref:noise_flow_model.py:458-484), as the JAX ``flow.loss``.
 
@@ -251,9 +256,14 @@ class NoiseFlow(nn.Module):
         that holds every coupling's BatchNorm running statistics: updated to
         ``s - 0.1 * (s - batch_stat)`` with ``train=True``, the current values
         otherwise. The buffers themselves are not changed; ``apply_state``
-        writes a new state into them."""
+        writes a new state into them.
+
+        ``psum`` (data parallelism, ``parallel.mesh.Mesh.psum()``): the
+        BatchNorm moments span every rank's rows, differentiably, as JAX's
+        ``flow.loss`` over a sharded global batch; the NLL and sd_z stay
+        this rank's."""
         new_state = {}
-        nll, z = self._nll(x, cond, train, new_state)
+        nll, z = self._nll(x, cond, train, new_state, psum)
         var_z = torch.var(z.reshape(z.shape[0], -1), dim=1, unbiased=False)
         return torch.mean(nll), torch.mean(torch.sqrt(var_z)), new_state
 

@@ -10,8 +10,10 @@ level index dropped. Each layer has
     forward(x, cond, train, shared) -> (y, fldj[B])   latent -> data
 
 ``cond`` is a dict {'clean':[B,H,W,C], 'nlf0','nlf1','iso','cam': [B]}.
-``shared`` is the flow's shared view {'sdn_gain': ParamTree, 'c_i': float}.
-With ``train=True`` BatchNorm normalises with batch moments. A layer with
+``shared`` is the flow's shared view {'sdn_gain': ParamTree, 'c_i': float,
+'psum': the sum over data-parallel ranks or None}. With ``train=True``
+BatchNorm normalises with batch moments, over every rank's rows where
+``shared['psum']`` is set (``ops.nn.batch_moments``). A layer with
 BatchNorm (the couplings, condY/condYG/condXY/condXYG and the ``batch_norm``
 bijector) changes none of its buffers: given a dict ``state_out`` it puts
 its new running statistics there, keyed as its ``state_dict`` buffers
@@ -49,6 +51,7 @@ from noise_flow_tpu_torch.ops.conv1x1 import (
 )
 from noise_flow_tpu_torch.ops.nn import (
     BN_DECAY,
+    batch_moments,
     batch_norm_init,
     conv2d_nhwc,
     coupling_mlp_apply,
@@ -168,11 +171,11 @@ class _AffineCoupling(Layer):
     def _net_input(self, y0, cond):
         return y0
 
-    def _apply_nn(self, inp, cond, train):
-        return coupling_nn_apply(self.nn, self.nn, inp, train)
+    def _apply_nn(self, inp, cond, train, psum):
+        return coupling_nn_apply(self.nn, self.nn, inp, train, psum)
 
-    def net(self, y0, cond, train, state_out=None):
-        shift, log_scale, new = self._apply_nn(self._net_input(y0, cond), cond, train)
+    def net(self, y0, cond, train, psum=None, state_out=None):
+        shift, log_scale, new = self._apply_nn(self._net_input(y0, cond), cond, train, psum)
         if state_out is not None:
             for bn, st in new.items():
                 for k, v in st.items():
@@ -187,12 +190,12 @@ class _AffineCoupling(Layer):
 
     def inverse(self, y, cond, train, shared, state_out=None):
         y0, y1 = self._split(y)
-        shift, ls = self.net(y0, cond, train, state_out)
+        shift, ls = self.net(y0, cond, train, shared.get("psum"), state_out)
         return torch.cat([y0, y1 * torch.exp(ls) + shift], -1), _sum_hwc(ls)
 
     def forward(self, x, cond, train, shared):
         x0, x1 = self._split(x)
-        shift, ls = self.net(x0, cond, train)
+        shift, ls = self.net(x0, cond, train, shared.get("psum"))
         return torch.cat([x0, (x1 - shift) * torch.exp(-ls)], -1), -_sum_hwc(ls)
 
 
@@ -215,8 +218,8 @@ class DenseCoupling(_AffineCoupling):
         h, w, c = x_shape
         super().__init__(*coupling_mlp_init(rng, (h, w, c // 2), tuple(cfg.hidden_layers)))
 
-    def _apply_nn(self, inp, cond, train):
-        return coupling_mlp_apply(self.nn, self.nn, inp, train)
+    def _apply_nn(self, inp, cond, train, psum):
+        return coupling_mlp_apply(self.nn, self.nn, inp, train, psum)
 
 
 def _iso0(cond, y):
@@ -247,8 +250,8 @@ class CondYG(CondY):
     kind = "condYG"
     _init = staticmethod(coupling_nn_iso_init)
 
-    def _apply_nn(self, inp, cond, train):
-        return coupling_nn_iso_apply(self.nn, self.nn, inp, _iso0(cond, inp), train)
+    def _apply_nn(self, inp, cond, train, psum):
+        return coupling_nn_iso_apply(self.nn, self.nn, inp, _iso0(cond, inp), train, psum)
 
 
 class CondXY(_AffineCoupling):
@@ -273,8 +276,8 @@ class CondXYG(CondXY):
     kind = "condXYG"
     _init = staticmethod(coupling_nn_iso_init)
 
-    def _apply_nn(self, inp, cond, train):
-        return coupling_nn_iso_apply(self.nn, self.nn, inp, _iso0(cond, inp), train)
+    def _apply_nn(self, inp, cond, train, psum):
+        return coupling_nn_iso_apply(self.nn, self.nn, inp, _iso0(cond, inp), train, psum)
 
 
 # ---------------------------------------------------------------------------
@@ -405,8 +408,7 @@ class BatchNormBijector(Layer):
     def inverse(self, y, cond, train, shared, state_out=None):
         mean, var = self.bn.mean, self.bn.var
         if train:
-            m = y.mean(dim=(0, 1, 2))
-            v = ((y - m) ** 2).mean(dim=(0, 1, 2))
+            m, v = batch_moments(y, (0, 1, 2), shared.get("psum"))
             new = {"mean": mean - BN_DECAY * (mean - m), "var": var - BN_DECAY * (var - v)}
         else:
             m, v = mean, var

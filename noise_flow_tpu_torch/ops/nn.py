@@ -5,12 +5,15 @@ functions take parameter mappings (a dict of tensors, or a ``ParamTree``
 module, which supports ``p["name"]``) so the same weights that JAX holds as
 pytrees go through them unchanged. BatchNorm running statistics are
 functional state: ``batch_norm_apply`` returns the updated statistics and
-changes nothing in place.
+changes nothing in place. Under data parallelism the caller passes ``psum``,
+a differentiable sum over the ranks that share the batch; the train-mode
+moments then span every rank's rows.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -36,17 +39,36 @@ def batch_norm_init(c: int) -> Dict[str, np.ndarray]:
     return {"mean": np.zeros((c,), np.float32), "var": np.ones((c,), np.float32)}
 
 
-def batch_norm_apply(x, state, train: bool):
+Psum = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def batch_moments(x, dims, psum: Psum = None):
+    """Biased mean and variance of ``x`` over ``dims``, two-pass: the mean
+    first, then the mean of the squared deviations from it. With ``psum``
+    (a differentiable sum over the ranks, ``parallel.mesh.Mesh.psum()``)
+    both sums and the element count span every rank's rows, and the
+    gradients flow through both sums."""
+    if psum is None:
+        m = x.mean(dim=dims)
+        return m, ((x - m) ** 2).mean(dim=dims)
+    sums = x.sum(dim=dims)
+    s = psum(torch.cat([sums.reshape(-1), x.new_tensor([float(math.prod(
+        x.shape[d] for d in dims))])]))
+    m = (s[:-1] / s[-1]).reshape(sums.shape)
+    return m, psum(((x - m) ** 2).sum(dim=dims)) / s[-1].detach()
+
+
+def batch_norm_apply(x, state, train: bool, psum: Psum = None):
     """Normalize; in train mode use batch moments and return updated running
     stats ``s - decay * (s - batch_stat)``.
 
     The variance is biased and two-pass (mean first, then the mean of the
-    squared deviations) over all non-channel axes; eps is ``BN_EPS``.
+    squared deviations) over all non-channel axes, and over every rank's
+    rows with ``psum`` (``batch_moments``); eps is ``BN_EPS``.
     """
     axes = tuple(range(x.ndim - 1))
     if train:
-        m = x.mean(dim=axes)
-        v = ((x - m) ** 2).mean(dim=axes)
+        m, v = batch_moments(x, axes, psum)
         new_state = {
             "mean": state["mean"] - BN_DECAY * (state["mean"] - m),
             "var": state["var"] - BN_DECAY * (state["var"] - v),
@@ -116,13 +138,13 @@ def coupling_nn_init(rng: np.random.Generator, c_in: int, width: int,
     return params, state
 
 
-def coupling_nn_apply(p, s, x, train: bool):
+def coupling_nn_apply(p, s, x, train: bool, psum: Psum = None):
     """Returns (shift, log_scale, new_state)."""
     h = conv2d_nhwc(x, p["l1_w"]) + p["l1_b"]
-    h, bn1 = batch_norm_apply(h, s["bn1"], train)
+    h, bn1 = batch_norm_apply(h, s["bn1"], train, psum)
     h = torch.relu(h)
     h = conv2d_nhwc(h, p["l2_w"]) + p["l2_b"]
-    h, bn2 = batch_norm_apply(h, s["bn2"], train)
+    h, bn2 = batch_norm_apply(h, s["bn2"], train, psum)
     h = torch.relu(h)
     h = conv_zeros_apply(p["last"], h)
     shift, log_scale = torch.chunk(h, 2, dim=-1)
@@ -156,7 +178,7 @@ def coupling_mlp_init(rng: np.random.Generator, half_shape, hidden_layers):
     return params, state
 
 
-def coupling_mlp_apply(p, s, x, train: bool):
+def coupling_mlp_apply(p, s, x, train: bool, psum: Psum = None):
     """Returns (shift, log_scale, new_state); x: [B, H, W, C//2]."""
     b, i0, i1, ic = x.shape
     h = x.reshape(b, i0 * i1 * ic)
@@ -164,7 +186,7 @@ def coupling_mlp_apply(p, s, x, train: bool):
     i = 0
     while f"d{i}_w" in p:
         h = h @ p[f"d{i}_w"] + p[f"d{i}_b"]
-        h, new_state[f"bn{i}"] = batch_norm_apply(h, s[f"bn{i}"], train)
+        h, new_state[f"bn{i}"] = batch_norm_apply(h, s[f"bn{i}"], train, psum)
         h = torch.relu(h)
         i += 1
     h = h @ p["last_w"] + p["last_b"]
@@ -195,18 +217,18 @@ def coupling_nn_iso_init(rng: np.random.Generator, c_in: int, width: int,
     return params, state
 
 
-def coupling_nn_iso_apply(p, s, x, iso_scalar, train: bool):
+def coupling_nn_iso_apply(p, s, x, iso_scalar, train: bool, psum: Psum = None):
     """iso_scalar: one ISO for the whole batch. The reference indexes
     ``iso[0]`` (ref:borealisflows/layers.py:633): the iso-weighted convs are
     conditioned per minibatch, on its first example.
     Returns (shift, log_scale, new_state)."""
     w1 = p["l1_B1"] * iso_scalar + p["l1_B2"]
     h = conv2d_nhwc(x, w1) + (p["l1_C1"] * iso_scalar + p["l1_C2"])
-    h, bn1 = batch_norm_apply(h, s["bn1"], train)
+    h, bn1 = batch_norm_apply(h, s["bn1"], train, psum)
     h = torch.relu(h)
     w2 = p["l2_B1"] * iso_scalar + p["l2_B2"]
     h = conv2d_nhwc(h, w2) + (p["l2_C1"] * iso_scalar + p["l2_C2"])
-    h, bn2 = batch_norm_apply(h, s["bn2"], train)
+    h, bn2 = batch_norm_apply(h, s["bn2"], train, psum)
     h = torch.relu(h)
     h = conv_zeros_apply(p["last"], h)
     shift, log_scale = torch.chunk(h, 2, dim=-1)

@@ -18,6 +18,15 @@ sources from a ``torch.Generator`` on the device, seeded once an epoch from
 the host generator. The streams differ from JAX's, so against JAX the noise
 sources are held by their distributions, or through a shared eps.
 
+Data parallelism (``mesh``, as JAX's): every rank draws the same noise for
+the whole global batch, as JAX's step draws it over the sharded batch (the
+Noise Flow source: one sampler launch at the global batch, with its
+BatchNorm moments), then trains on its contiguous slice; the DnCNN's
+BatchNorm moments span the global batch (``DnCNN(..., psum=)``), and the
+loss and gradients are summed over the ranks (the loss is a sum over the
+global batch). The noise, and so the step, does not depend on the number of
+ranks. Only rank 0 writes checkpoints and logs.
+
 Loss: sum-squared-error / 2 (ref:train_dncnn_noiseflow.py:244-245).
 LR schedule: lr for epochs <= 30, lr/10 <= 60, lr/20 after
 (ref:train_dncnn_noiseflow.py:127-138).
@@ -39,6 +48,8 @@ from noise_flow_tpu_torch.ops.fused_sample import (
     build_sample_program,
     fused_sample,
 )
+from noise_flow_tpu_torch.parallel import distributed as pd
+from noise_flow_tpu_torch.parallel.mesh import as_mesh, replicate
 from noise_flow_tpu_torch.utils.checkpoint import (
     latest_checkpoint,
     load_checkpoint,
@@ -87,23 +98,26 @@ class DnCNNTrainer:
     replaced by Gaussian noise, like the reference generator
     (ref:train_dncnn_noiseflow.py:150-163). For 'camnlf'/'nf', pass
     ``cam_iso_rows=[(cam_idx, iso, b1, b2), ...]`` (from cam_iso_nlf.txt).
-    One card: the JAX trainer's ``mesh`` has no counterpart yet (ROADMAP.md
-    queue 1, item 8).
+    ``mesh``: a ``parallel.mesh.Mesh`` on ``device``; None for every rank
+    of the default process group (one rank without one), or 1.
     """
 
     def __init__(self, depth: int = 9, filters: int = 32, channels: int = 4,
                  lr: float = 1e-3, seed: int = 0, noise_source: str = "gauss",
                  noise_flow=None, cam_iso_rows: Optional[List] = None,
-                 dtype: str = "float32", device="cuda"):
+                 dtype: str = "float32", device="cuda", mesh=None):
         if noise_source not in NOISE_SOURCES:
             raise ValueError(f"unknown noise source {noise_source!r}")
         self.device = resolve_device(device)
+        self.mesh = as_mesh(mesh, self.device)
+        self.bn_psum = self.mesh.psum()
         self.depth, self.filters, self.lr = depth, filters, lr
         self.noise_source = noise_source
         self.model = DnCNN(depth, filters, channels, seed=seed, device=self.device,
                            compute_dtype=torch.bfloat16 if dtype == "bfloat16" else None)
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=lr,
                                           betas=(0.9, 0.999), eps=1e-8)
+        replicate(self.mesh, self.model)
         self._rows = [tuple(float(v) for v in r)
                       for r in (cam_iso_rows or [(2, 100.0, 0.000479, 2e-6)])]
         self.program = None
@@ -166,20 +180,35 @@ class DnCNNTrainer:
 
     # ---------------------------------------------------------------- steps
     def train_step(self, clean, noisy, p: Dict, gen: torch.Generator):
-        """One Adam step on a batch on the device; returns the loss (a
-        tensor on the device, not synchronised)."""
+        """One Adam step on a global batch on the device; returns the loss
+        over it (a tensor on the device, not synchronised). Under a mesh
+        every rank is given the whole batch and the same ``p`` and ``gen``,
+        draws the same noise, and trains on its slice."""
+        mesh = self.mesh
         if self.noise_source == "real":
             x_noisy = noisy
         else:
             x_noisy = torch.clamp(clean + self._make_noise(clean, p, gen), 0.0, 1.0)
-        out, new_state = self.model(x_noisy, train=True)
+        if mesh.size > 1:
+            b = clean.shape[0]
+            lo, hi = mesh.rank * b // mesh.size, (mesh.rank + 1) * b // mesh.size
+            clean, x_noisy = clean[lo:hi], x_noisy[lo:hi]
+        out, new_state = self.model(x_noisy, train=True, psum=self.bn_psum)
         # sum_squared_error / 2 (ref:244-245)
         loss = torch.sum(torch.square(out - clean)) / 2.0
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = loss.detach()
+        if mesh.size > 1:
+            # the global loss is the sum of the ranks' sums, and so is its
+            # gradient; the new BN state came from global moments
+            loss = loss.reshape(1)
+            grads = [q.grad for q in self.model.parameters() if q.grad is not None]
+            pd.all_reduce_flat_(grads + [loss], mesh.group)
+            loss = loss[0]
         self.optimizer.step()
         self.model.apply_state(new_state)
-        return loss.detach()
+        return loss
 
     def set_lr(self, lr: float) -> None:
         for g in self.optimizer.param_groups:
@@ -187,13 +216,20 @@ class DnCNNTrainer:
 
     def train_epoch(self, clean: np.ndarray, batch_size: int, rng,
                     noisy: Optional[np.ndarray] = None, shuffle_seed: int = 0,
-                    device_resident: bool = True) -> float:
+                    device_resident: Optional[bool] = None) -> float:
         """One epoch over ``clean`` in the order of
         ``default_rng(shuffle_seed).permutation`` (full batches only).
         ``rng``: a numpy Generator (or an int seed) for the step draws.
-        ``device_resident`` stages the clean/noisy sets on the device once
-        and gathers each batch by index there; otherwise every batch is
-        copied from the host."""
+        ``device_resident`` (default: on a single rank, as JAX's) stages the
+        clean/noisy sets on the device once and gathers each batch by index
+        there; otherwise every batch is copied from the host. Under a mesh
+        ``batch_size`` is the global batch, which every rank is given whole
+        (``train_step`` keeps the rank's slice)."""
+        mesh = self.mesh
+        if device_resident is None:
+            device_resident = mesh.size == 1
+        if batch_size % mesh.size:
+            raise ValueError(f"batch {batch_size} does not divide over {mesh.size} ranks")
         rng = np.random.default_rng(rng)
         gen = torch.Generator(device=self.device).manual_seed(int(rng.integers(2 ** 63)))
         n = (len(clean) // batch_size) * batch_size
@@ -251,6 +287,7 @@ class DnCNNTrainer:
         log_path = os.path.join(save_dir, "log.csv")
         history = {"loss": [], "psnr": []}
         best = (-1.0, 0)
+        chief = self.mesh.rank == 0
         rng = np.random.default_rng(1234)
         for epoch in range(initial_epoch + 1, epochs + 1):
             self.set_lr(lr_schedule(epoch, self.lr))
@@ -265,16 +302,17 @@ class DnCNNTrainer:
                 if p > best[0]:
                     best = (p, epoch)
                 val_psnr = f"{p:.4f}"
-            if epoch % save_every == 0:
+            if chief and epoch % save_every == 0:
                 save_checkpoint(save_dir, f"{epoch:03d}", self.model, epoch,
                                 self.optimizer)
-            with open(log_path, "a", newline="") as f:
-                csv.writer(f).writerow([epoch, f"{loss:.4f}", val_psnr,
-                                        f"{time.time() - t0:.1f}"])
+            if chief:
+                with open(log_path, "a", newline="") as f:
+                    csv.writer(f).writerow([epoch, f"{loss:.4f}", val_psnr,
+                                            f"{time.time() - t0:.1f}"])
             if verbose:
                 print(f"dncnn epoch {epoch}: loss={loss:.1f} "
                       f"psnr={val_psnr or '-'}", flush=True)
-        if best[1] > 0:
+        if chief and best[1] > 0:
             with open(os.path.join(save_dir, "max_epc_psnr.txt"), "w") as f:
                 f.write(f"{best[1]} {best[0]:.6f}\n")
         return history

@@ -14,9 +14,18 @@ Epoch schedule, TSV logs (train/test/sample.txt columns), best-model tracking,
 and the NLL_G/NLL_SDN baseline columns match the reference
 (ref:train_noise_flow.py:334-348,384-535) and the JAX package.
 
+Data parallelism (``mesh``, ``parallel.mesh.Mesh``): each rank holds the
+flow and trains on its slice of the global batch. On the plain path the
+BatchNorm moments span the global batch (``flow.loss(..., psum=)``), as
+JAX's auto-partitioned ``flow.loss``; on the fused paths each rank runs its own
+kernel on its shard at ``pick_block(local batch)``, as JAX's ``shard_map``
+runs one Pallas call a device. Then the gradients, the NLL, sd_z and (fused)
+the new BN state are averaged over the ranks, as JAX's ``pmean``. Only rank
+0 writes logs and checkpoints.
+
 What does not carry over: ``cfg.steps_per_call`` (JAX's ``lax.scan`` of K
 steps a dispatch) is read and changes nothing, since each step is one eager
-call; a data-parallel mesh of more than one device is not ported yet.
+call.
 """
 
 from __future__ import annotations
@@ -32,6 +41,8 @@ import numpy as np
 import torch
 
 from noise_flow_tpu_torch.ops.fused_train import FusedFlow, FusedTrainStep, pick_block
+from noise_flow_tpu_torch.parallel import distributed as pd
+from noise_flow_tpu_torch.parallel.mesh import as_mesh, replicate, shard_batch
 from noise_flow_tpu_torch.utils.checkpoint import (
     latest_checkpoint,
     load_checkpoint,
@@ -41,10 +52,17 @@ from noise_flow_tpu_torch.utils.logger import ResultLogger
 from noise_flow_tpu_torch.utils.metrics import calc_kldiv_mb, kldiv_batch
 from noise_flow_tpu_torch.utils.profiling import PhaseTimers
 
-MESH_ITEM = "ROADMAP.md queue 1, item 8 (data-parallel training across cards)"
 _KEEP = ("_x", "_y", "nlf0", "nlf1", "iso", "cam")
 # S6 at ISO 100 (ref:train_noise_flow.py:158-159)
 _NLF_S6_100 = 0.000479
+
+
+class _NullLogger:
+    def log(self, row):
+        pass
+
+    def close(self):
+        pass
 
 
 def _timed_iter(it, timers, name: str):
@@ -82,17 +100,20 @@ def batch_to_cond(mb: Dict) -> Dict:
 class Trainer:
     """Trains a ``NoiseFlow`` from its current weights on its device.
 
-    ``mesh`` is accepted for the JAX signature: None, 1 or a one-device mesh.
+    ``mesh``: a ``parallel.mesh.Mesh`` whose device is the flow's; None for
+    every rank of the default process group (one rank without one), or 1.
+    Every rank is given rank 0's weights.
     """
 
     def __init__(self, flow, cfg, mesh=None):
-        if mesh not in (None, 1) and getattr(mesh, "size", mesh) != 1:
-            raise NotImplementedError(
-                f"training on a mesh of more than one device is not ported yet: {MESH_ITEM}")
         self.flow = flow
         self.cfg = cfg
         self.device = flow.device
+        self.mesh = as_mesh(mesh, self.device)
+        # the plain path's BatchNorm sums over the ranks (None: local moments)
+        self.bn_psum = self.mesh.psum()
         self.optimizer = make_optimizer(cfg, [p for _, p in flow.named_parameters()])
+        replicate(self.mesh, flow, self.optimizer)
         self.timers = PhaseTimers()  # input/step wall-clock attribution
         # condSDN is a non-trainable baseline: evaluate only, never step
         # (ref:train_noise_flow.py:189).
@@ -135,13 +156,24 @@ class Trainer:
 
     # -------------------------------------------------------------- steps
     def _put(self, mb: Dict) -> Dict:
-        """Host batch -> float32 tensors on the flow's device."""
-        return {k: torch.as_tensor(np.asarray(mb[k]), dtype=torch.float32, device=self.device)
-                for k in _KEEP}
+        """Host batch -> float32 tensors on the flow's device: under a mesh,
+        this rank's slice of the global batch, or in coordinator mode the
+        process's own batch whole."""
+        keep = {k: mb[k] for k in _KEEP}
+        if self.mesh.size > 1 and not self.mesh.process_local:
+            return shard_batch(self.mesh, keep, torch.float32)
+        return pd.global_batch(self.mesh, keep, torch.float32)
+
+    def _mean_over_ranks(self, tensors):
+        """Average each tensor over the mesh's ranks in place, in one
+        all-reduce (JAX's pmean)."""
+        if self.mesh.size > 1:
+            pd.all_reduce_flat_(tensors, self.mesh.group, mean=True)
 
     def train_step(self, batch: Dict):
-        """One optimizer step on a device batch; returns (nll, sd_z) as
-        0-d tensors on the device."""
+        """One optimizer step on a device batch (this rank's shard under a
+        mesh); returns (nll, sd_z) as 0-d tensors on the device, over the
+        global batch."""
         flow = self.flow
         if self.use_oneshot:
             fs = self._step_for_batch(batch["_x"].shape[0])
@@ -150,20 +182,37 @@ class Trainer:
             ff = self._fused_for_batch(batch["_x"].shape[0])
             nll, sd_z, new_state = ff.loss(batch["_x"], batch_to_cond(batch), train=True)
         else:
-            nll, sd_z, new_state = flow.loss(batch["_x"], batch_to_cond(batch), train=True)
+            # under a mesh, BN moments over every rank's rows, differentiably:
+            # the local NLLs' gradients then average to the global NLL's
+            nll, sd_z, new_state = flow.loss(batch["_x"], batch_to_cond(batch), train=True,
+                                             psum=self.bn_psum)
         self.optimizer.zero_grad(set_to_none=True)
         nll.backward()
+        nll, sd_z = nll.detach(), sd_z.detach()
+        if self.mesh.size > 1:
+            metrics = torch.stack([nll, sd_z])
+            grads = [p.grad for p in flow.parameters() if p.grad is not None]
+            # the plain path's new state came from global moments, equal on
+            # every rank; the fused paths' from each rank's own groups
+            state = list(new_state.values()) if self.use_fused else []
+            self._mean_over_ranks(grads + [metrics] + state)
+            nll, sd_z = metrics[0], metrics[1]
         self.optimizer.step()
         flow.apply_state(new_state)
-        return nll.detach(), sd_z.detach()
+        return nll, sd_z
 
     @torch.no_grad()
     def eval_step(self, batch: Dict):
+        """(nll, sd_z) of a device batch, over the global batch."""
         if self.use_fused:
             ff = self._fused_for_batch(batch["_x"].shape[0])
             nll, sd_z, _ = ff.loss(batch["_x"], batch_to_cond(batch), train=False)
         else:
             nll, sd_z, _ = self.flow.loss(batch["_x"], batch_to_cond(batch), train=False)
+        if self.mesh.size > 1:
+            metrics = torch.stack([nll, sd_z])
+            self._mean_over_ranks([metrics])
+            nll, sd_z = metrics[0], metrics[1]
         return nll, sd_z
 
     @torch.no_grad()
@@ -181,6 +230,13 @@ class Trainer:
         nlf_sd = torch.sqrt(batch["nlf0"].reshape(shp) * y + batch["nlf1"].reshape(shp))
         nl = nlf_sd * torch.randn(y.shape, generator=generator, device=y.device)
         sums, cnt = kldiv_batch(ng, nl, x, batch["_x"])
+        if self.mesh.size > 1:
+            # the KLD sums and counts over the global batch, as JAX's jit
+            # over global arrays; the NLL and sd_z its mean
+            v = torch.cat([torch.stack([nll, sd_z]) / self.mesh.size, sums,
+                           sums.new_tensor([float(cnt)])])
+            pd.all_reduce_flat_([v], self.mesh.group)
+            nll, sd_z, sums, cnt = v[0], v[1], v[2:6], float(v[6])
         return nll, sd_z, sums, cnt
 
     def _step_or_eval(self, batch):
@@ -215,7 +271,11 @@ class Trainer:
                           ("nlf1", _NLF_S6_100))}}
 
     def _host_kld(self, db: Dict, temp: float, generator, sc_sd: float, vis_dir):
-        """Sample on the device, NLL there, KLDs in numpy (owns the .mat dump)."""
+        """Sample on the device, NLL there, KLDs in numpy (owns the .mat dump).
+        Under a mesh the KLDs are over this rank's rows only (JAX's host path
+        is shard-local per process), and only rank 0 writes the dump."""
+        if self.mesh.rank:
+            vis_dir = None
         with torch.no_grad():
             x = self.flow.sample(batch_to_cond(db), temp, batch=db["_y"].shape[0],
                                  train=False, generator=generator)
@@ -273,7 +333,11 @@ class Trainer:
         """Stream one pass of `batches` and stage the whole set on the card
         as one tensor per field; epochs then gather their batches there with
         ``index_select``. max_patches > 0 truncates the stream. Returns the
-        staged patch count."""
+        staged patch count. Single rank only, as JAX's (under a mesh each rank
+        is fed its shard instead)."""
+        if self.mesh.size > 1:
+            raise ValueError("device-resident staging is single-rank; under a mesh each "
+                             "rank is fed its shard of every batch")
         cols = {k: [] for k in _KEEP}
         n = 0
         for mb in batches:
@@ -376,10 +440,15 @@ class Trainer:
         only."""
         cfg = self.cfg
         epochs = epochs or cfg.epochs
+        # under a mesh only rank 0 writes logs and checkpoints; the metrics
+        # are global, so every rank agrees on the best model
+        is_chief = self.mesh.rank == 0
         os.makedirs(logdir, exist_ok=True)
         ckpt_dir = os.path.join(logdir, "ckpt")
 
         def mk_logger(name, columns):
+            if not is_chief:
+                return _NullLogger()
             return ResultLogger(os.path.join(logdir, name), columns, cfg.continue_training)
 
         cols = ["epoch", "NLL", "NLL_G", "NLL_SDN", "sdz"]
@@ -395,7 +464,9 @@ class Trainer:
                 start_epoch = load_checkpoint(last, self.flow, self.optimizer) + 1
 
         best_nll = np.inf
-        generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        # each rank draws its own samples
+        generator = torch.Generator(device=self.device).manual_seed(
+            cfg.seed + 1 + (self.mesh.rank << 32))
         train_time = 0.0
         history = {"train": [], "test": [], "sample": []}
 
@@ -411,7 +482,8 @@ class Trainer:
             prev_handler = signal.signal(signal.SIGINT, _on_sigint)
 
         def save(tag, epoch):
-            save_checkpoint(ckpt_dir, tag, self.flow, epoch, self.optimizer)
+            if is_chief:
+                save_checkpoint(ckpt_dir, tag, self.flow, epoch, self.optimizer)
 
         try:
             for epoch in range(start_epoch, epochs + 1):
@@ -466,7 +538,7 @@ class Trainer:
                 if verbose and do_test:
                     print(f"E={epoch} tL={tr_nll:9.1f} sL={history['test'][-1]:9.1f} "
                           f"SDr={tr_sdz:.2f} B={is_best} [{self.timers.line()}]", flush=True)
-                if self.timers.totals:
+                if is_chief and self.timers.totals:
                     # the last epoch's input-vs-step attribution
                     with open(os.path.join(logdir, "phase_timers.txt"), "w") as f:
                         f.write(f"epoch {epoch}: {self.timers.line()}\n")

@@ -32,6 +32,8 @@ from noise_flow_tpu_torch.ops.fused_sample import build_sample_program, fused_sa
 from noise_flow_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
 from noise_flow_tpu_torch.utils.device import resolve_device
 
+MESH_ITEM = "ROADMAP.md queue 1, item 8b (the frame sharded by height over a mesh)"
+
 
 def _best_checkpoint(ckpt_dir: str) -> Optional[str]:
     best = os.path.join(ckpt_dir, "model.ckpt-best.npz")
@@ -145,7 +147,7 @@ class NoiseFlowWrapper:
     @torch.no_grad()
     def sample_noise_frame_spatial(self, clean_frame: np.ndarray, b1: float,
                                    b2: float, iso: float, cam: float,
-                                   temp: Optional[float] = None) -> np.ndarray:
+                                   temp: Optional[float] = None, mesh=None) -> np.ndarray:
         """Sample noise for a FULL frame [H, W, 4] (or [1, H, W, 4]) with the
         flow run AT frame size on one device.
 
@@ -155,8 +157,12 @@ class NoiseFlowWrapper:
         ``flow.sample(train=bn_batch_stats)``. Unlike ``sample_noise_frame``
         (independent 32x32 tiles), the noise has no tile seams. The frame is
         reflect-padded to multiples of 8, as JAX's with one device. No
-        kernel runs: the fused sampler is a 32x32-patch kernel.
+        kernel runs: the fused sampler is a 32x32-patch kernel. ``mesh``
+        (JAX's: the frame's height sharded over it, with halo exchanges)
+        takes one rank only (``MESH_ITEM``).
         """
+        if getattr(mesh, "size", 1) != 1:
+            raise NotImplementedError(f"a frame sharded over {mesh.size} ranks: {MESH_ITEM}")
         x = np.asarray(clean_frame, np.float32)
         if x.ndim == 3:
             x = x[None]

@@ -355,11 +355,13 @@ def test_dncnn_cli_end_to_end_on_cpu(tmp_path):
 
 
 def test_dncnn_cli_refuses_a_mesh():
+    """--mesh above the visible cards raises, as JAX's make_mesh cannot take
+    more devices than it sees (meshes of 2 ranks: test_torch_parallel.py)."""
     from noise_flow_tpu_torch.cli.train_dncnn import main as train_main, noise_source_from_name
 
-    with pytest.raises(ValueError, match="queue 1, item 8"):
+    with pytest.raises(ValueError, match="--mesh 2 needs 2 cards"):
         train_main(["--model", "DnCNN_Gauss", "--synthetic_data", "2", "--mesh", "2",
-                    "--device", "cpu"])
+                    "--device", "cuda"])
     assert [noise_source_from_name(f"DnCNN_{t}") for t in ("NF", "Gauss", "SDN", "CamNLF",
                                                            "Real")] == \
         ["nf", "gauss", "sdn", "camnlf", "real"]

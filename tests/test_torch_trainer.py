@@ -194,13 +194,19 @@ def test_fit_writes_logs_checkpoints_and_resumes(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """A mesh of more than one device raises; pallas_oneshot=False and an arch
-    beyond the one-shot step's envelope train through the segment path, as
-    the JAX trainer chooses, with its block pick_block(b) (128 at b = 128,
-    where the one-shot step takes 64)."""
+    """A mesh of 2 ranks outside a process group of 2 raises, as JAX's
+    make_mesh(2) without two devices; one rank is the default mesh.
+    pallas_oneshot=False and an arch beyond the one-shot step's envelope
+    train through the segment path, as the JAX trainer chooses, with its
+    block pick_block(b) (128 at b = 128, where the one-shot step takes 64).
+    (Meshes of 2 ranks: tests/test_torch_parallel.py.)"""
+    from noise_flow_tpu_torch.parallel.mesh import make_mesh as port_make_mesh
+
     cfg = default_config(arch=ARCH)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        Trainer(NoiseFlow((32, 32, 4), cfg, device="cpu"), cfg, mesh=make_mesh(2))
+    with pytest.raises(ValueError, match="a mesh of 2 ranks needs a process group of 2"):
+        Trainer(NoiseFlow((32, 32, 4), cfg, device="cpu"), cfg, mesh=port_make_mesh(2))
+    tr = Trainer(NoiseFlow((32, 32, 4), cfg, device="cpu"), cfg)
+    assert (tr.mesh.size, tr.mesh.rank) == (1, 0)
     for kw in (dict(arch=ARCH, use_pallas=True, pallas_oneshot=False),
                dict(arch=FIVE_SCALE, use_pallas=True)):
         cfg = default_config(**kw)
@@ -235,5 +241,16 @@ def test_cli_train_writes_the_jax_schemas(tmp_path):
     assert len(rows) == 2 and np.isfinite(np.asarray([r.split() for r in rows], float)).all()
     for name in ("hps.txt", "model_vars.txt", "total_time.txt", "ckpt/model.ckpt-best.npz"):
         assert os.path.exists(os.path.join(logdir, name)), name
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        main(["--coordinator_address", "localhost:1234", "--device", "cpu"])
+    # --mesh above the visible cards raises; coordinator mode runs (here a
+    # group of one process)
+    with pytest.raises(ValueError, match="--mesh 2 needs 2 cards"):
+        main(["--mesh", "2", "--device", "cuda"])
+    from noise_flow_tpu_torch.parallel.distributed import free_port
+
+    port = free_port()
+    coord = str(tmp_path / "coord")
+    assert main(["--synthetic_data", "2", "--patch_height", "32", "--n_batch_train", "8",
+                 "--epochs", "1", "--device", "cpu", "--logdir", coord,
+                 "--coordinator_address", f"localhost:{port}", "--num_processes", "1",
+                 "--process_id", "0"]) == 0
+    assert len(open(os.path.join(coord, "train.txt")).read().splitlines()) == 2
