@@ -218,7 +218,8 @@ Phases, each of which fails the run if it fails:
    KLD_NLF as printed against a numpy recomputation from the reference's
    definition;
 41. ``analysis.ref_parity.run_grid`` on the flagship at b = 1024 (the
-   cooperative kernel walks): 15 cells x 3 levels, one launch a call; one
+   cooperative kernel walks): 8 cells (every other of the table's 15,
+   ``GRID_EVERY``, cut for time) x 3 levels, one launch a call; one
    cell's kernel samples against the plain version on a shared eps within
    TOL, the summary printed; then ``sample_noise_frame_spatial`` on the
    1500x2000 frame timed (the plain flow at frame size, no kernel). The
@@ -277,6 +278,33 @@ Phases, each of which fails the run if it fails:
    PAR_NLL_RTOL and its gradients within PAR_DNCNN_GRAD_RTOL normwise. The
    kernels line gives these per-rank launches under each
    kernel's ``parallel``.
+49. the frame sharded by height over 2 ranks on cuda:0 (gloo, processes
+   started here): the flagship at frame size on the SIDD_Medium packed
+   frame (2664x1500, padded to 2672x1504), each rank's rows of
+   ``parallel.spatial.sample_frame_sharded`` against one rank's
+   ``flow.forward`` on the same frame and latent in both BN modes, within
+   SPATIAL_RTOL of the value and the frame's spread; the two planted faults
+   of ``tests/test_torch_spatial_mesh.py`` (the edge indicator on every
+   shard's padded rows, BN moments over each rank's own rows) outside it;
+   each rank's frame ms, halo-exchange ms and all-reduce ms (host clock,
+   "2 ranks sharing one card, gloo", beside one rank's frame ms); the entry
+   point ``NoiseFlowWrapper.sample_noise_frame_spatial(mesh=)`` on both
+   ranks, the same bits of the whole 2664x1500 frame on each, held within
+   SPATIAL_RTOL to one rank's ``flow.forward`` on the frame reflect-padded
+   to 2672x1504 as the wrapper pads it, from latents drawn as the wrapper
+   draws them (a generator on the card seeded alike), cropped; no kernel;
+50. ``ops.packed_flow.PackedFlow`` on the flagship at b = 138: loss,
+   sd_z, new BN state and every gradient by autograd against
+   ``NoiseFlow.loss`` and its autograd, at ``tests/test_packed.py``'s
+   tolerances, with ``precision="highest"`` (gated) and ``"default"``
+   (TF32, reported), and each one's loss+backward ms beside the NHWC
+   path's; no kernel;
+51. the flagship exported to the reference TF checkpoint's 143 variable
+   names in a dict (``utils.tf_import.export_reference_variables``) and
+   loaded back through
+   ``utils.tf_import.import_reference_variables``: the same state dict,
+   bit for bit, and the same NLL; reading a TF checkpoint raises
+   ImportError where TensorFlow is not installed.
 
 The train template's redesigned step, segment backward and ghost forward
 keep one launch a call, so the exact launch counts of phases 9, 15 and 28
@@ -294,6 +322,8 @@ import collections
 import copy
 import csv
 import functools
+import hashlib
+import importlib.util
 import itertools
 import json
 import math
@@ -2457,6 +2487,7 @@ FLAGSHIP_BAYER = (1024, 2048)
 FLAGSHIP_EPOCHS = 2
 SWEEP_SMOKE = ["--temps", "0.6,1.0", "--n_patches_per_image", "512"]
 GRID_B = 1024        # ref_parity's CLI batch: one walk-mode launch a call
+GRID_EVERY = 2       # the grid's depth, cut for time: every other cell of cam_iso_nlf.txt
 
 
 def _numpy_kld_g_nlf(mb, sc_sd: float, step: int = 5):
@@ -2631,9 +2662,15 @@ def _flagship_phases(phase, agree, nf, frame):
 
     def grid():
         plan = fs.sample_plan(GRID_B)
+        with open(os.path.join(ROOT, "cam_iso_nlf.txt")) as f:
+            head, *cells = f.read().splitlines()
+        table = os.path.join(work, "cam_iso_nlf_cut.txt")
+        with open(table, "w") as f:
+            f.write("\n".join([head] + cells[::GRID_EVERY]) + "\n")
         fs.launch_counts.clear()
-        rows = ref_parity.run_grid(MODEL, out_dir=os.path.join(work, "grid"), batch=GRID_B,
-                                   temp=1.0, device="cuda", verbose=False)
+        rows = ref_parity.run_grid(MODEL, out_dir=os.path.join(work, "grid"),
+                                   nlf_table_path=table, batch=GRID_B, temp=1.0, device="cuda",
+                                   verbose=False)
         launches = _main_path(dict(fs.launch_counts)).get("fused_sample", 0)
         out["launches"]["grid"] = launches
         expected = len(rows) * len(ref_parity.CLEAN_LEVELS) * BATCH_BN_LAUNCHES
@@ -3251,6 +3288,364 @@ def _parallel_phases(phase, flagship, smi, device=PAR_DEVICE):
     return out
 
 
+# Phases 49-51: the frame sharded by height over 2 ranks (both on cuda:0,
+# gloo), PackedFlow, and the TF importer's mapping; no kernel on any of them.
+# The frame is the SIDD_Medium packed frame of experiments/spatial_frame.md,
+# reflect-padded to a height that 8 x 2 ranks divides (2672) and a width
+# that 8 divides (1504), as JAX's mesh path pads it. Each rank's rows are
+# held to the one-rank flow.forward on the same frame and latent, elementwise
+# and relative to the value and to the frame's spread:
+# |d| <= SPATIAL_RTOL (|one rank| + sd(one rank)), the gate of
+# tests/test_torch_spatial_mesh.py (BN moments summed in another order, and
+# cuDNN free to pick other algorithms at the shard's shape). The planted
+# faults (the edge indicator on every shard's padded rows; BN moments over
+# each rank's own rows) must exceed it.
+SPATIAL_FRAME_HW = (2664, 1500)
+SPATIAL_PAD_HW = (2672, 1504)
+SPATIAL_RTOL = 1e-5
+SPATIAL_REPS = 3
+SPATIAL_WRAPPER_SEED = 5   # every rank's NoiseFlowWrapper, and the one-rank draws it is held to
+SPATIAL_DIR = os.path.join(ROOT, "build", "chip_smoke_spatial")
+# PackedFlow against NoiseFlow.loss on the card at the flagship's batch, the
+# tolerances of tests/test_packed.py: the NLL (rtol, atol), sd_z, the new BN
+# state, and each gradient leaf elementwise within rtol 5e-3 and
+# max(5e-3 max|g|, 5e-4) (leaves below 2e-3 on both sides, the biases that
+# feed a BN, are rounding noise there and left out)
+PACKED_B = 138
+PACKED_NLL_TOL = (2e-5, 2e-3)
+PACKED_SDZ_TOL = (1e-4, 1e-5)
+PACKED_STATE_TOL = (1e-5, 1e-6)
+PACKED_GRAD_RTOL = 5e-3
+
+
+class _PerShardIndicator:
+    """The planted fault of tests/test_torch_spatial_mesh.py: the halo rows
+    exchanged, the edge indicator set on every shard's padded rows."""
+
+    def __init__(self, halo):
+        self.halo, self.top, self.bottom = halo, True, True
+
+    def __call__(self, x, rows=1):
+        return self.halo(x, rows)
+
+
+class _TimedHalo:
+    """A RowHalo that adds each exchange's seconds (card synchronised) to
+    ``seconds``."""
+
+    def __init__(self, halo):
+        self.halo, self.top, self.bottom = halo, halo.top, halo.bottom
+        self.seconds, self.calls = 0.0, 0
+
+    def __call__(self, x, rows=1):
+        import torch
+        torch.cuda.synchronize(x.device)
+        t0 = time.perf_counter()
+        out = self.halo(x, rows)
+        torch.cuda.synchronize(x.device)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+
+def _spatial_frame(device):
+    """The padded frame's clean image, conditioning and latent, the same on
+    every rank (a seeded CPU generator)."""
+    import torch
+    g = torch.Generator().manual_seed(13)
+    h, w = SPATIAL_PAD_HW
+    clean = 0.02 + 0.78 * torch.rand((1, h, w, 4), generator=g)
+    z = torch.randn((1, h, w, 4), generator=g) * TEMP
+
+    def one(v):
+        return torch.full((1,), float(v), device=device)
+    cond = {"clean": clean.to(device), "nlf0": one(0.0), "nlf1": one(0.0),
+            "iso": one(800.0), "cam": one(2.0)}
+    return cond, z.to(device)
+
+
+def _host_ms(fn, iters: int = 5) -> float:
+    """The median of ``iters`` calls' host-clock ms, the card synchronised
+    after each (after one call to warm up)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ts)[iters // 2]
+
+
+def _spatial_flow(device):
+    from noise_flow_tpu_torch.config import load_hps
+    from noise_flow_tpu_torch.models.flow import NoiseFlow
+    from noise_flow_tpu_torch.utils.checkpoint import load_checkpoint
+
+    flow = NoiseFlow(SPATIAL_PAD_HW + (4,), load_hps(os.path.join(MODEL, "hps.txt")),
+                     device=device)
+    load_checkpoint(os.path.join(MODEL, "ckpt", "model.ckpt-best.npz"), flow)
+    return flow.eval()
+
+
+def _rows_read(got, one, sd, row0):
+    """``got`` against ``one`` under the gate |d| <= SPATIAL_RTOL (|one| +
+    sd): max abs and rel, the gate's worst ratio, and the frame rows
+    (``row0`` the first of ``got``) outside it."""
+    import torch
+    d = (got - one).abs()
+    gate = d / (SPATIAL_RTOL * (one.abs() + sd))
+    bad_rows = torch.nonzero((gate > 1).any(dim=3).any(dim=2)[0]).flatten()
+    return {"max_abs": float(d.max()), "max_rel": float((d / one.abs().clamp_min(1e-6)).max()),
+            "gate": float(gate.max()), "finite": bool(torch.isfinite(got).all()),
+            "bad_rows": [int(r) + row0 for r in bad_rows[:4]] + (
+                [int(bad_rows[-1]) + row0] if len(bad_rows) > 4 else []),
+            "n_bad_rows": int(len(bad_rows))}
+
+
+def _spatial_rank(rank, device, ref_path):
+    """A rank of phase 49: its rows of each BN mode and each planted fault
+    against the one-rank frame, the faithful pass timed, and the wrapper's
+    entry point under the mesh against its one-rank frame."""
+    import numpy as np
+    import torch
+    from noise_flow_tpu_torch.ops import fused_sample as fs
+    from noise_flow_tpu_torch.parallel import distributed as pd
+    from noise_flow_tpu_torch.parallel import spatial
+    from noise_flow_tpu_torch.parallel.mesh import make_mesh
+    from noise_flow_tpu_torch.wrapper import NoiseFlowWrapper
+
+    mesh = make_mesh(None, device)
+    ref = torch.load(ref_path)
+    flow = _spatial_flow(device)
+    cond, z = _spatial_frame(device)
+    rows = spatial.shard_rows(SPATIAL_PAD_HW[0], mesh)
+    fs.launch_counts.clear()
+    out = {"rank": mesh.rank, "rows": (rows.start, rows.stop), "reads": {}}
+    cases = (("train", True, None), ("eval", False, None),
+             ("indicator", True, "indicator"), ("local_bn", True, "local_bn"))
+    with torch.no_grad():
+        for name, train, fault in cases:
+            halo = _PerShardIndicator(spatial.RowHalo(mesh)) if fault == "indicator" else None
+            psum = (lambda s: s) if fault == "local_bn" else None
+            got = spatial.sample_frame_sharded(flow, cond, z, mesh, TEMP, train, halo=halo,
+                                               psum=psum)
+            one = ref[name if name in ("train", "eval") else "train"].to(device)[:, rows]
+            sd = ref["sd_" + ("eval" if name == "eval" else "train")]
+            out["reads"][name] = _rows_read(got, one, sd, rows.start)
+        # the faithful train-mode pass timed: the frame, its halo exchanges
+        # (all-reduces included) and every all-reduce (halo and BN moments)
+        timed = _TimedHalo(spatial.RowHalo(mesh))
+        pd.collective_stats.update(calls=0, seconds=0.0, timing=True)
+        ms = []
+        for _ in range(SPATIAL_REPS):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            spatial.sample_frame_sharded(flow, cond, z, mesh, TEMP, True, halo=timed)
+            torch.cuda.synchronize(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        pd.collective_stats["timing"] = False
+        out["times"] = {"frame_ms": ms, "halo_ms": timed.seconds * 1e3 / SPATIAL_REPS,
+                        "halo_calls": timed.calls // SPATIAL_REPS,
+                        "allreduce_ms": pd.collective_stats["seconds"] * 1e3 / SPATIAL_REPS,
+                        "allreduces": pd.collective_stats["calls"] // SPATIAL_REPS}
+        # the entry point: each rank's wrapper seeded alike, the mesh of both
+        frame = np.asarray(cond["clean"][0, :SPATIAL_FRAME_HW[0], :SPATIAL_FRAME_HW[1]].cpu())
+        nf = NoiseFlowWrapper(MODEL, sampling_temperature=TEMP, device=device,
+                              seed=SPATIAL_WRAPPER_SEED)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        noise = nf.sample_noise_frame_spatial(frame, 0.0, 0.0, 800.0, 2.0, mesh=mesh)
+        out["wrapper"] = {"ms": (time.perf_counter() - t0) * 1e3, "shape": noise.shape,
+                          "sd": float(noise.std()), "finite": bool(np.isfinite(noise).all()),
+                          "digest": hashlib.sha256(noise.tobytes()).hexdigest()[:16]}
+        if noise.shape == SPATIAL_FRAME_HW + (4,):
+            out["reads"]["wrapper"] = _rows_read(torch.as_tensor(noise, device=device)[None],
+                                                 ref["wrapper"].to(device), ref["sd_wrapper"], 0)
+    out["launches"] = dict(fs.launch_counts)
+    return out
+
+
+def _spatial_packed_tf_phases(phase, nf, smi, device=PAR_DEVICE):
+    """Phases 49-51 (see the module docstring). Returns their readings."""
+    import numpy as np
+    import torch
+    from noise_flow_tpu_torch.config import load_hps
+    from noise_flow_tpu_torch.models.flow import NoiseFlow
+    from noise_flow_tpu_torch.ops import fused_sample as fs
+    from noise_flow_tpu_torch.ops.packed_flow import PackedFlow, pack
+    from noise_flow_tpu_torch.parallel import distributed as pd
+    from noise_flow_tpu_torch.parallel.mesh import Mesh
+    from noise_flow_tpu_torch.utils import tf_import as ti
+
+    out = {}
+    label = f"2 ranks sharing one card, gloo; {smi}"
+
+    def spatial_frame():
+        os.makedirs(SPATIAL_DIR, exist_ok=True)
+        flow = _spatial_flow(device)
+        cond, z = _spatial_frame(device)
+        fs.launch_counts.clear()
+        ref = {}
+        from noise_flow_tpu_torch.parallel.spatial import sample_frame_sharded
+        one = Mesh(1, 0, torch.device(device))
+        with torch.no_grad():
+            for name, train in (("train", True), ("eval", False)):
+                x = sample_frame_sharded(flow, cond, z, one, TEMP, train)
+                ref[name], ref["sd_" + name] = x.cpu(), float(x.std())
+            # the entry point's one-rank frame: the wrapper's frame padded as
+            # it pads it for 2 ranks, its latents drawn as it draws them
+            # (train-mode BN, its default), cropped to the frame
+            (h, w), (hp, wp) = SPATIAL_FRAME_HW, SPATIAL_PAD_HW
+            padded = np.pad(cond["clean"][:, :h, :w].cpu().numpy(),
+                            ((0, 0), (0, hp - h), (0, wp - w), (0, 0)), mode="reflect")
+            zw, epsw = flow.draw_latents(TEMP, 1, torch.Generator(device=device).manual_seed(
+                SPATIAL_WRAPPER_SEED))
+            x = sample_frame_sharded(flow, dict(cond, clean=torch.as_tensor(padded, device=device)),
+                                     zw, one, TEMP, True, epsw)[:, :h, :w]
+            ref["wrapper"], ref["sd_wrapper"] = x.cpu(), float(x.std())
+            ms = []
+            for _ in range(SPATIAL_REPS):
+                _sync(device)
+                t0 = time.perf_counter()
+                sample_frame_sharded(flow, cond, z, one, TEMP, True)
+                _sync(device)
+                ms.append((time.perf_counter() - t0) * 1e3)
+        if fs.launch_counts:
+            raise AssertionError(f"the one-rank frame launched kernels: {dict(fs.launch_counts)}")
+        del flow, cond, z, zw, epsw
+        torch.cuda.empty_cache()
+        path = os.path.join(SPATIAL_DIR, "one_rank.pt")
+        torch.save(ref, path)
+        t0 = time.time()
+        ranks = pd.spawn_ranks(2, _spatial_rank, (path,), device, "gloo", timeout=PAR_SPAWN_S)
+        t_ranks = time.time() - t0
+        reads = {k: {f: max(r["reads"][k][f] for r in ranks) if f != "finite" else
+                     all(r["reads"][k][f] for r in ranks)
+                     for f in ("max_abs", "max_rel", "gate", "finite")}
+                 for k in ranks[0]["reads"]}
+        for k in reads:
+            reads[k]["bad_rows"] = [r["reads"][k]["bad_rows"] for r in ranks]
+            reads[k]["n_bad_rows"] = sum(r["reads"][k]["n_bad_rows"] for r in ranks)
+        out["spatial"] = {"reads": reads, "one_rank_ms": ms,
+                          "ranks": [r["times"] for r in ranks],
+                          "wrapper": [r["wrapper"] for r in ranks], "on": label}
+        for k, v in reads.items():
+            what = (f"the wrapper's {SPATIAL_FRAME_HW} frame" if k == "wrapper" else
+                    f"the {SPATIAL_PAD_HW} frame")
+            print(f"spatial frame {k}: 2 ranks vs 1 rank on {what} "
+                  f"(flagship, same z): max_abs {v['max_abs']:.3e} max_rel {v['max_rel']:.3e}, "
+                  f"gate {v['gate']:.3f} of SPATIAL_RTOL {SPATIAL_RTOL} (|1 rank| + sd), "
+                  f"{v['n_bad_rows']} rows outside it (first/last by rank {v['bad_rows']})")
+        for r in ranks:
+            t = r["times"]
+            print(f"spatial frame rank {r['rank']} rows {r['rows']} ({label}): frame ms "
+                  f"{[round(x, 2) for x in t['frame_ms']]}; halo {t['halo_ms']:.2f} ms over "
+                  f"{t['halo_calls']} exchanges; all-reduce {t['allreduce_ms']:.2f} ms over "
+                  f"{t['allreduces']} (halo and BN moments; host clock); wrapper "
+                  f"sample_noise_frame_spatial({SPATIAL_FRAME_HW}, mesh=2 ranks) "
+                  f"{r['wrapper']['ms']:.1f} ms, shape {r['wrapper']['shape']}, sd "
+                  f"{r['wrapper']['sd']:.5f}, digest {r['wrapper']['digest']}; launches "
+                  f"{r['launches']}")
+        print(f"spatial frame 1 rank at {SPATIAL_PAD_HW}: ms {[round(x, 2) for x in ms]} "
+              f"(host clock, {smi}); the spawn of 2 ranks {t_ranks:.1f} s")
+        shutil.rmtree(SPATIAL_DIR, ignore_errors=True)
+        faithful = "wrapper" in reads and all(
+            reads[k]["gate"] <= 1 for k in ("train", "eval", "wrapper")) and all(
+            v["finite"] for v in reads.values())
+        wrap = ranks[0]["wrapper"]
+        if not faithful or any(r["launches"] for r in ranks) or \
+                ranks[0]["wrapper"]["digest"] != ranks[1]["wrapper"]["digest"] or \
+                tuple(wrap["shape"]) != SPATIAL_FRAME_HW + (4,) or not wrap["finite"]:
+            raise AssertionError("2 ranks disagree with 1 rank, or the wrapper's ranks differ")
+        if reads["indicator"]["gate"] <= 1 or reads["local_bn"]["gate"] <= 1:
+            raise AssertionError("the gate missed a planted fault")
+    phase("spatial frame: 2 ranks (gloo, one card) vs 1 rank at 2664x1500, planted faults",
+          spatial_frame)
+
+    def packed():
+        flow = nf.flow
+        x, cond = _train_batch(PACKED_B, seed=49)
+        fs.launch_counts.clear()
+        reads = {}
+        for precision in ("highest", "default"):
+            pf = PackedFlow(flow, precision)
+
+            def run(fn):
+                flow.zero_grad()
+                nll, sdz, st = fn()
+                nll.backward()
+                return nll.detach(), sdz.detach(), st, {
+                    k: p.grad.clone() for k, p in flow.named_parameters() if p.grad is not None}
+            ref = run(lambda: flow.loss(x, cond, train=True))
+            got = run(lambda: pf.loss(pack(x), dict(cond, clean=pack(cond["clean"])), True))
+            worst = 0.0
+            for k, a in ref[3].items():
+                b = got[3][k]
+                if max(float(a.abs().max()), float(b.abs().max())) < 2e-3:
+                    continue
+                tol = max(5e-3 * float(a.abs().max()), 5e-4) + PACKED_GRAD_RTOL * a.abs()
+                worst = max(worst, float(((b - a).abs() / tol).max()))
+            st = max(float(((got[2][k] - v).abs() / (PACKED_STATE_TOL[1] + PACKED_STATE_TOL[0]
+                                                      * v.abs())).max()) for k, v in ref[2].items())
+            nll = abs(float(got[0]) - float(ref[0])) / (PACKED_NLL_TOL[1] + PACKED_NLL_TOL[0]
+                                                         * abs(float(ref[0])))
+            sdz = abs(float(got[1]) - float(ref[1])) / (PACKED_SDZ_TOL[1] + PACKED_SDZ_TOL[0]
+                                                         * abs(float(ref[1])))
+
+            def step(fn):
+                flow.zero_grad()
+                fn()[0].backward()
+            t_ref = _host_ms(lambda: step(lambda: flow.loss(x, cond, train=True)))
+            t_got = _host_ms(lambda: step(lambda: pf.loss(pack(x), dict(
+                cond, clean=pack(cond["clean"])), True)))
+            reads[precision] = {"nll": float(got[0]), "nll_ref": float(ref[0]),
+                                "of_tol": {"nll": nll, "sd_z": sdz, "state": st, "grads": worst},
+                                "ms": t_got, "nhwc_ms": t_ref,
+                                "grad_leaves": len(set(ref[3]) & set(got[3]))}
+            print(f"packed flow b={PACKED_B} precision={precision}: NLL {float(got[0]):.4f} vs "
+                  f"NoiseFlow.loss {float(ref[0]):.4f}; of their tolerances: NLL {nll:.3f}, "
+                  f"sd_z {sdz:.3f}, new BN state {st:.3f}, gradients {worst:.3f} (worst of "
+                  f"{reads[precision]['grad_leaves']} leaves); loss+backward {t_got:.3f} ms vs "
+                  f"NHWC {t_ref:.3f} ms (host clock, {smi})")
+        flow.zero_grad()
+        out["packed"] = reads
+        if any(v > 1 for v in reads["highest"]["of_tol"].values()) or fs.launch_counts or \
+                not set(reads["highest"]) or reads["highest"]["grad_leaves"] < 40:
+            raise AssertionError("PackedFlow disagrees with NoiseFlow.loss on the card")
+    phase("packed flow: loss and gradients vs NoiseFlow.loss at b=138", packed)
+
+    def tf_mapping():
+        tf_vars = ti.export_reference_variables(nf.flow)
+        flow = NoiseFlow((32, 32, 4), load_hps(os.path.join(MODEL, "hps.txt")),
+                         device=nf.flow.device, seed=99)
+        sd = ti.import_reference_variables(tf_vars, flow)
+        want = nf.flow.state_dict()
+        same = all(torch.equal(flow.state_dict()[k], v) for k, v in want.items()) and \
+            set(sd) == set(want)
+        x, cond = _train_batch(PACKED_B, seed=51)
+        with torch.no_grad():
+            a = float(flow.loss(x, cond, train=False)[0])
+            b = float(nf.flow.loss(x, cond, train=False)[0])
+        reading = "tensorflow installed: not tried"
+        if importlib.util.find_spec("tensorflow") is None:
+            try:
+                ti.read_tf_checkpoint(os.path.join(SPATIAL_DIR, "none"))
+                raise AssertionError("read a TF checkpoint without tensorflow")
+            except ImportError as e:
+                reading = f"ImportError: {e}"[:160]
+        out["tf_import"] = {"variables": len(tf_vars), "same": same, "nll": (a, b)}
+        print(f"tf importer: the flagship exported to {len(tf_vars)} reference variables and "
+              f"imported back: state dict identical {same}, NLL {a!r} vs {b!r}; reading a TF "
+              f"checkpoint here: {reading}")
+        if not same or a != b or len(tf_vars) != 143:
+            raise AssertionError("the flagship does not round trip through the importer")
+    phase("tf importer: the flagship through import_reference_variables", tf_mapping)
+    return out
+
+
 # the kernels line's (kernel, mode) by the production rows of
 # _production_times that time its calls; and the redesign rows (phase 33) by
 # (kernel, mode, kind, launches a call: both segments are two launches)
@@ -3555,6 +3950,7 @@ def main() -> int:
     flagship = _flagship_phases(phase, agree, nf, frame[0])
     family = _model_family_phases(phase, flagship)
     parallel = _parallel_phases(phase, flagship, smi)
+    _spatial_packed_tf_phases(phase, nf, smi)
     shutil.rmtree(flagship["work"], ignore_errors=True)
     print(f"model_family_seconds {json.dumps(family['seconds'])}")
 

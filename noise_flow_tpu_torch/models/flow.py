@@ -165,11 +165,13 @@ class NoiseFlow(nn.Module):
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
-    def shared_view(self, psum=None):
+    def shared_view(self, psum=None, halo=None):
         """What every layer is given as ``shared``: the sdn/gain group, c_i,
-        and ``psum``, the sum over data-parallel ranks that train-mode
-        BatchNorm takes its moments with (None: this rank's rows)."""
-        sh = {"c_i": self.c_i, "psum": psum}
+        ``psum``, the sum over data-parallel ranks that train-mode
+        BatchNorm takes its moments with (None: this rank's rows), and
+        ``halo``, the row exchange of a frame sharded by height that every
+        spatial conv pads with (None: zero padding; ``parallel.spatial``)."""
+        sh = {"c_i": self.c_i, "psum": psum, "halo": halo}
         if self.shared is not None:
             sh["sdn_gain"] = self.shared.sdn_gain
         return sh
@@ -216,23 +218,28 @@ class NoiseFlow(nn.Module):
 
     # ------------------------------------------------------------- forward
     def forward(self, z, cond, train: bool, split_eps=None, temp: float = 1.0,
-                generator: Optional[torch.Generator] = None):
+                psum=None, halo=None, levels=None):
         """latent -> data (sampling direction, ref:noise_flow_model.py:430-447).
 
         ``z`` is the top level's latent, already scaled by the temperature.
         Between levels the split prior draws the other half of the channels,
         ``mean + exp(logs) * eps * temp``: ``split_eps[li]`` is the standard
         normal ``eps`` of the split after level ``li`` (shape: level ``li``'s
-        latent with half its channels); without it, eps is drawn from
-        ``generator``, from the top level down."""
-        shared = self.shared_view()
+        latent with half its channels, ``draw_latents``); a multi-level
+        flow needs it, as JAX's ``forward`` needs its rng.
+
+        ``psum`` and ``halo`` (``shared_view``) run the pass on a shard of a
+        frame split by height over ranks (``parallel.spatial``). ``levels``
+        (default: every level, from the top down) runs only those levels,
+        in that order, ``z`` being what enters the first of them."""
+        shared = self.shared_view(psum, halo)
         x = z
-        for li in reversed(range(self.n_levels)):
+        for li in reversed(range(self.n_levels)) if levels is None else levels:
             if li < self.n_levels - 1:
-                mean, logs = _split_prior(self.splits[li], x)
-                eps = (split_eps[li] if split_eps is not None else torch.randn(
-                    x.shape, generator=generator, device=x.device, dtype=x.dtype))
-                x = torch.cat([x, mean + torch.exp(logs) * (eps * temp)], dim=-1)
+                mean, logs = _split_prior(self.splits[li], x, halo)
+                if split_eps is None:
+                    raise ValueError("multi-level sampling needs split_eps")
+                x = torch.cat([x, mean + torch.exp(logs) * (split_eps[li] * temp)], dim=-1)
             lvl_cond = dict(cond)
             if lvl_cond.get("clean") is not None:
                 for _ in range(li + 1):
@@ -289,10 +296,27 @@ class NoiseFlow(nn.Module):
         """
         if batch is None:
             batch = cond["clean"].shape[0]
+        z, split_eps = self.draw_latents(temp, batch, generator)
+        c = cond if self._is_cond else {"clean": None}
+        return self.forward(z, c, train, split_eps, temp)
+
+    def draw_latents(self, temp: float = 1.0, batch: int = 1,
+                     generator: Optional[torch.Generator] = None):
+        """(z, split_eps) that ``sample`` passes to ``forward``: the top
+        level's latent times ``temp``, then the standard normals of each
+        split from the top level down (None for the top level), drawn from
+        ``generator`` in that order. A generator seeded alike on every rank
+        of a frame sharded by height gives every rank the whole frame's
+        draws (``parallel.spatial``)."""
         z = diag_gaussian_sample((batch,) + tuple(self.level_shapes[-1]), temp,
                                  generator=generator, device=self.device)
-        c = cond if self._is_cond else {"clean": None}
-        return self.forward(z, c, train, temp=temp, generator=generator)
+        f = self.cfg.squeeze_factor
+        eps: List[Optional[torch.Tensor]] = [None] * self.n_levels
+        for li in reversed(range(self.n_levels - 1)):
+            h, w, c = self.level_shapes[li + 1]
+            eps[li] = torch.randn((batch, h * f, w * f, c // (f * f)), generator=generator,
+                                  device=self.device, dtype=torch.float32)
+        return z, eps
 
     # ------------------------------------------------------------- utility
     def get_layer_names(self) -> List[str]:
@@ -306,8 +330,8 @@ class NoiseFlow(nn.Module):
 # multi-scale split (ref:noise_flow_model.py:544-574)
 # ---------------------------------------------------------------------------
 
-def _split_prior(p_conv, z1):
-    h = conv_zeros_apply(p_conv, z1)
+def _split_prior(p_conv, z1, halo=None):
+    h = conv_zeros_apply(p_conv, z1, halo=halo)
     return h[..., 0::2], h[..., 1::2]
 
 

@@ -11,7 +11,8 @@ level index dropped. Each layer has
 
 ``cond`` is a dict {'clean':[B,H,W,C], 'nlf0','nlf1','iso','cam': [B]}.
 ``shared`` is the flow's shared view {'sdn_gain': ParamTree, 'c_i': float,
-'psum': the sum over data-parallel ranks or None}. With ``train=True``
+'psum': the sum over data-parallel ranks or None, 'halo': the row exchange
+of a frame sharded by height over ranks or None}. With ``train=True``
 BatchNorm normalises with batch moments, over every rank's rows where
 ``shared['psum']`` is set (``ops.nn.batch_moments``). A layer with
 BatchNorm (the couplings, condY/condYG/condXY/condXYG and the ``batch_norm``
@@ -171,11 +172,12 @@ class _AffineCoupling(Layer):
     def _net_input(self, y0, cond):
         return y0
 
-    def _apply_nn(self, inp, cond, train, psum):
-        return coupling_nn_apply(self.nn, self.nn, inp, train, psum)
+    def _apply_nn(self, inp, cond, train, psum, halo):
+        return coupling_nn_apply(self.nn, self.nn, inp, train, psum, halo)
 
-    def net(self, y0, cond, train, psum=None, state_out=None):
-        shift, log_scale, new = self._apply_nn(self._net_input(y0, cond), cond, train, psum)
+    def net(self, y0, cond, train, psum=None, state_out=None, halo=None):
+        shift, log_scale, new = self._apply_nn(self._net_input(y0, cond), cond, train, psum,
+                                               halo)
         if state_out is not None:
             for bn, st in new.items():
                 for k, v in st.items():
@@ -190,12 +192,13 @@ class _AffineCoupling(Layer):
 
     def inverse(self, y, cond, train, shared, state_out=None):
         y0, y1 = self._split(y)
-        shift, ls = self.net(y0, cond, train, shared.get("psum"), state_out)
+        shift, ls = self.net(y0, cond, train, shared.get("psum"), state_out,
+                             shared.get("halo"))
         return torch.cat([y0, y1 * torch.exp(ls) + shift], -1), _sum_hwc(ls)
 
     def forward(self, x, cond, train, shared):
         x0, x1 = self._split(x)
-        shift, ls = self.net(x0, cond, train, shared.get("psum"))
+        shift, ls = self.net(x0, cond, train, shared.get("psum"), halo=shared.get("halo"))
         return torch.cat([x0, (x1 - shift) * torch.exp(-ls)], -1), -_sum_hwc(ls)
 
 
@@ -218,7 +221,7 @@ class DenseCoupling(_AffineCoupling):
         h, w, c = x_shape
         super().__init__(*coupling_mlp_init(rng, (h, w, c // 2), tuple(cfg.hidden_layers)))
 
-    def _apply_nn(self, inp, cond, train, psum):
+    def _apply_nn(self, inp, cond, train, psum, halo):
         return coupling_mlp_apply(self.nn, self.nn, inp, train, psum)
 
 
@@ -250,8 +253,9 @@ class CondYG(CondY):
     kind = "condYG"
     _init = staticmethod(coupling_nn_iso_init)
 
-    def _apply_nn(self, inp, cond, train, psum):
-        return coupling_nn_iso_apply(self.nn, self.nn, inp, _iso0(cond, inp), train, psum)
+    def _apply_nn(self, inp, cond, train, psum, halo):
+        return coupling_nn_iso_apply(self.nn, self.nn, inp, _iso0(cond, inp), train, psum,
+                                     halo)
 
 
 class CondXY(_AffineCoupling):
@@ -276,8 +280,9 @@ class CondXYG(CondXY):
     kind = "condXYG"
     _init = staticmethod(coupling_nn_iso_init)
 
-    def _apply_nn(self, inp, cond, train, psum):
-        return coupling_nn_iso_apply(self.nn, self.nn, inp, _iso0(cond, inp), train, psum)
+    def _apply_nn(self, inp, cond, train, psum, halo):
+        return coupling_nn_iso_apply(self.nn, self.nn, inp, _iso0(cond, inp), train, psum,
+                                     halo)
 
 
 # ---------------------------------------------------------------------------

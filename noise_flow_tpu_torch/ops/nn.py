@@ -8,6 +8,13 @@ functional state: ``batch_norm_apply`` returns the updated statistics and
 changes nothing in place. Under data parallelism the caller passes ``psum``,
 a differentiable sum over the ranks that share the batch; the train-mode
 moments then span every rank's rows.
+
+A frame sharded by height over ranks (``parallel.spatial``) passes ``halo``
+down to every spatial conv: a callable that returns a shard with the row
+above and the row below it (zeros past the frame's top and bottom), with
+the attributes ``top`` and ``bottom`` true where the shard holds the frame's
+first or last row. A conv then pads only its width, and the zero-conv's
+edge indicator marks a padded row only at the frame's true top and bottom.
 """
 
 from __future__ import annotations
@@ -24,10 +31,14 @@ BN_DECAY = 0.1
 LOGSCALE_FACTOR = 3.0  # Glow zero-conv trick (ref:borealisflows/layers.py:671-673)
 
 
-def conv2d_nhwc(x, w, padding: str = "SAME"):
-    """Plain 2D conv, NHWC activations, HWIO weights, stride 1."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                 padding=padding.lower())
+def conv2d_nhwc(x, w, padding: str = "SAME", halo=None):
+    """Plain 2D conv, NHWC activations, HWIO weights, stride 1. With
+    ``halo`` (and a SAME conv taller than one row) the rows past the shard
+    come from the neighbouring shards and only the width is zero-padded."""
+    pad = padding.lower()
+    if halo is not None and w.shape[0] > 1 and padding == "SAME":
+        x, pad = halo(x, w.shape[0] // 2), (0, w.shape[1] // 2)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=pad)
     return y.permute(0, 2, 3, 1)
 
 
@@ -84,13 +95,25 @@ def batch_norm_apply(x, state, train: bool, psum: Psum = None):
 # Glow edge padding + zero-init conv (ref:borealisflows/layers.py:555-583,651-674)
 # ---------------------------------------------------------------------------
 
-def _edge_pad_with_indicator(x):
+def _edge_pad_with_indicator(x, halo=None):
     """Pad 1px of zeros spatially and append an indicator channel that is 1 on
-    the padded border, 0 inside (ref:borealisflows/layers.py:555-583)."""
+    the padded border, 0 inside (ref:borealisflows/layers.py:555-583). With
+    ``halo`` the rows above and below are the neighbouring shards' (zeros
+    past the frame), and the indicator is 1 on them only where they lie
+    past the frame's top or bottom."""
     b, h, w, _ = x.shape
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
-    ind = torch.ones((h + 2, w + 2), dtype=x.dtype, device=x.device)
-    ind[1:-1, 1:-1] = 0.0
+    if halo is None:
+        xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+        top = bottom = True
+    else:
+        xp = F.pad(halo(x, 1), (0, 0, 1, 1))
+        top, bottom = bool(halo.top), bool(halo.bottom)
+    ind = torch.zeros((h + 2, w + 2), dtype=x.dtype, device=x.device)
+    ind[:, 0] = ind[:, -1] = 1.0
+    if top:
+        ind[0] = 1.0
+    if bottom:
+        ind[-1] = 1.0
     ind = ind[None, :, :, None].expand(b, h + 2, w + 2, 1)
     return torch.cat([xp, ind], dim=-1)
 
@@ -105,12 +128,12 @@ def conv_zeros_init(c_in: int, c_out: int, filter_size: int = 3,
     }
 
 
-def conv_zeros_apply(p, x, edge_bias: bool = True):
+def conv_zeros_apply(p, x, edge_bias: bool = True, halo=None):
     fs = p["w"].shape[0]
     if edge_bias and fs > 1:
-        y = conv2d_nhwc(_edge_pad_with_indicator(x), p["w"], padding="VALID")
+        y = conv2d_nhwc(_edge_pad_with_indicator(x, halo), p["w"], padding="VALID")
     else:
-        y = conv2d_nhwc(x, p["w"], padding="SAME")
+        y = conv2d_nhwc(x, p["w"], padding="SAME", halo=halo)
     y = y + p["b"]
     return y * torch.exp(p["logs"] * LOGSCALE_FACTOR).reshape(1, 1, 1, -1)
 
@@ -138,15 +161,15 @@ def coupling_nn_init(rng: np.random.Generator, c_in: int, width: int,
     return params, state
 
 
-def coupling_nn_apply(p, s, x, train: bool, psum: Psum = None):
+def coupling_nn_apply(p, s, x, train: bool, psum: Psum = None, halo=None):
     """Returns (shift, log_scale, new_state)."""
-    h = conv2d_nhwc(x, p["l1_w"]) + p["l1_b"]
+    h = conv2d_nhwc(x, p["l1_w"], halo=halo) + p["l1_b"]
     h, bn1 = batch_norm_apply(h, s["bn1"], train, psum)
     h = torch.relu(h)
     h = conv2d_nhwc(h, p["l2_w"]) + p["l2_b"]
     h, bn2 = batch_norm_apply(h, s["bn2"], train, psum)
     h = torch.relu(h)
-    h = conv_zeros_apply(p["last"], h)
+    h = conv_zeros_apply(p["last"], h, halo=halo)
     shift, log_scale = torch.chunk(h, 2, dim=-1)
     return shift, log_scale, {"bn1": bn1, "bn2": bn2}
 
@@ -217,19 +240,20 @@ def coupling_nn_iso_init(rng: np.random.Generator, c_in: int, width: int,
     return params, state
 
 
-def coupling_nn_iso_apply(p, s, x, iso_scalar, train: bool, psum: Psum = None):
+def coupling_nn_iso_apply(p, s, x, iso_scalar, train: bool, psum: Psum = None,
+                          halo=None):
     """iso_scalar: one ISO for the whole batch. The reference indexes
     ``iso[0]`` (ref:borealisflows/layers.py:633): the iso-weighted convs are
     conditioned per minibatch, on its first example.
     Returns (shift, log_scale, new_state)."""
     w1 = p["l1_B1"] * iso_scalar + p["l1_B2"]
-    h = conv2d_nhwc(x, w1) + (p["l1_C1"] * iso_scalar + p["l1_C2"])
+    h = conv2d_nhwc(x, w1, halo=halo) + (p["l1_C1"] * iso_scalar + p["l1_C2"])
     h, bn1 = batch_norm_apply(h, s["bn1"], train, psum)
     h = torch.relu(h)
     w2 = p["l2_B1"] * iso_scalar + p["l2_B2"]
     h = conv2d_nhwc(h, w2) + (p["l2_C1"] * iso_scalar + p["l2_C2"])
     h, bn2 = batch_norm_apply(h, s["bn2"], train, psum)
     h = torch.relu(h)
-    h = conv_zeros_apply(p["last"], h)
+    h = conv_zeros_apply(p["last"], h, halo=halo)
     shift, log_scale = torch.chunk(h, 2, dim=-1)
     return shift, log_scale, {"bn1": bn1, "bn2": bn2}

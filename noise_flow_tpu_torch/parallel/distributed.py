@@ -18,9 +18,9 @@ modes bring the ranks up:
   ``process_count`` stays 1.
 
 The process group's backend is gloo on the CPU and nccl on the card
-(``default_backend``). Gloo reduces and broadcasts CUDA tensors but gathers
-only host tensors, so ``all_gather_samples`` stages CUDA tensors through
-host memory under gloo.
+(``default_backend``). Gloo's all-reduce, broadcast and all-gather take
+CUDA tensors on the card's PyTorch; its send and recv of one kill the rank
+(``python -m noise_flow_tpu_torch.probes.mesh --gloo-cuda``).
 
 BatchNorm over the global batch takes its moments' sums through
 ``all_reduce_sum``, whose backward is the all-reduce of the cotangents
@@ -247,12 +247,10 @@ def all_gather_samples(x: torch.Tensor, group=None) -> torch.Tensor:
     world = _world(group)
     if world == 1:
         return x
-    # gloo gathers host tensors only: a CUDA tensor goes through host memory
-    stage = x.is_cuda and dist.get_backend(group) == "gloo"
-    src = x.detach().cpu() if stage else x.detach().contiguous()
+    src = x.detach().contiguous()
     parts = [torch.empty_like(src) for _ in range(world)]
     dist.all_gather(parts, src, group=group)
-    return torch.cat(parts).to(x.device)
+    return torch.cat(parts)
 
 
 def all_gather_host(arr: np.ndarray, group=None) -> np.ndarray:

@@ -28,6 +28,14 @@ against its first repeat; and the same comparisons for the planted fault
 (each rank's own BatchNorm moments). ``--deterministic cudnn`` runs all of
 it with cuDNN's deterministic algorithms, ``all`` under
 ``torch.use_deterministic_algorithms`` as well (``set_deterministic``).
+
+``--gloo-cuda`` asks which of gloo's collectives take CUDA tensors, on
+``--ranks`` ranks sharing ``--device`` (``cuda:0``): all-reduce and
+all-gather of a small tensor, checked for their values (a rank that fails
+fails the probe), then send and recv from rank 0 to rank 1 in ranks of
+their own (a rank may die of it: its error is the answer).
+
+    python -m noise_flow_tpu_torch.probes.mesh --gloo-cuda --ranks 2 --device cuda:0
 """
 
 from __future__ import annotations
@@ -298,6 +306,53 @@ def agreement(ranks: int, device, backend, repeats: int, deterministic: str,
     return out
 
 
+def _gloo_collectives(rank, device):
+    """All-reduce and all-gather of a small CUDA tensor: their values."""
+    import torch
+    import torch.distributed as dist
+
+    n = dist.get_world_size()
+    t = torch.full((4,), float(rank + 1), device=device)
+    s = t.clone()
+    dist.all_reduce(s)
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t)
+    return {"all_reduce": s.tolist(), "all_gather": [p.tolist() for p in parts],
+            "ok": float(s[0]) == n * (n + 1) / 2 and
+            [float(p[0]) for p in parts] == [float(r + 1) for r in range(n)]}
+
+
+def _gloo_send_recv(rank, device):
+    """Rank 0 sends a small CUDA tensor to rank 1."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.full((4,), float(rank + 1), device=device)
+    if rank == 0:
+        dist.send(t, 1)
+        return "sent"
+    if rank == 1:
+        dist.recv(t, 0)
+        return "ok" if float(t[0]) == 1.0 else f"wrong {t.tolist()}"
+    return "idle"
+
+
+def gloo_cuda(ranks: int, device) -> dict:
+    """See the module docstring (``--gloo-cuda``)."""
+    from noise_flow_tpu_torch.parallel import distributed as pd
+
+    out = {"collectives": pd.spawn_ranks(ranks, _gloo_collectives, (), device, "gloo",
+                                         timeout=120)}
+    if not all(r["ok"] for r in out["collectives"]):
+        raise AssertionError(f"gloo collectives on CUDA tensors: {out['collectives']}")
+    try:
+        out["send_recv"] = pd.spawn_ranks(ranks, _gloo_send_recv, (), device, "gloo",
+                                          timeout=120)
+    except Exception as e:  # noqa: BLE001 - a rank that died is the answer
+        out["send_recv"] = f"{type(e).__name__}: {str(e).strip().splitlines()[-1]}"[:300]
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser("probes.mesh")
     p.add_argument("--ranks", type=int, default=4)
@@ -305,6 +360,7 @@ def main(argv=None) -> int:
     p.add_argument("--work", type=str, default=os.path.join(REPO, "build", "mesh_probe"))
     p.add_argument("--out", type=str, default="")
     p.add_argument("--agreement", action="store_true")
+    p.add_argument("--gloo-cuda", dest="gloo_cuda", action="store_true")
     p.add_argument("--backend", type=str, default=None, choices=("gloo", "nccl"))
     p.add_argument("--repeats", type=int, default=3)
     p.add_argument("--deterministic", type=str, default="off", choices=DETERMINISM)
@@ -328,6 +384,10 @@ def main(argv=None) -> int:
             capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     shutil.rmtree(a.work, ignore_errors=True)
     os.makedirs(a.work)
+    if a.gloo_cuda:
+        report["backend"] = "gloo"
+        report["gloo_cuda"] = gloo_cuda(a.ranks, device)
+        return _report(report, a)
     if a.agreement:
         report["deterministic"] = a.deterministic
         try:

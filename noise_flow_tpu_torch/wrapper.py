@@ -29,10 +29,10 @@ import torch
 from noise_flow_tpu_torch.config import Config, load_hps
 from noise_flow_tpu_torch.models.flow import NoiseFlow
 from noise_flow_tpu_torch.ops.fused_sample import build_sample_program, fused_sample, in_envelope
+from noise_flow_tpu_torch.parallel.mesh import as_mesh
+from noise_flow_tpu_torch.parallel.spatial import gather_rows, sample_frame_sharded
 from noise_flow_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
 from noise_flow_tpu_torch.utils.device import resolve_device
-
-MESH_ITEM = "ROADMAP.md queue 1, item 8b (the frame sharded by height over a mesh)"
 
 
 def _best_checkpoint(ckpt_dir: str) -> Optional[str]:
@@ -61,13 +61,19 @@ class NoiseFlowWrapper:
         ph = self.cfg.patch_height
         self.flow = NoiseFlow((ph, ph, self.cfg.n_channels), self.cfg,
                               device=self.device)
-        ckpt = _best_checkpoint(os.path.join(path, "ckpt"))
-        if ckpt is None:
-            raise FileNotFoundError(
-                f"no npz checkpoint under {os.path.join(path, 'ckpt')} (the "
-                "TF-checkpoint fallback is not ported yet: ROADMAP.md queue 1, "
-                "'TF-checkpoint fallback')")
-        self.epoch = load_checkpoint(ckpt, self.flow)
+        ckpt_dir = os.path.join(path, "ckpt")
+        ckpt = _best_checkpoint(ckpt_dir)
+        if ckpt is not None:
+            self.epoch = load_checkpoint(ckpt, self.flow)
+        else:
+            # fall back to the reference's TF checkpoint, as JAX's wrapper
+            # does (ref:NoiseFlowWrapper.py:43,77); reading it needs tensorflow
+            from noise_flow_tpu_torch.utils.tf_import import (
+                has_tf_checkpoint, import_reference_checkpoint)
+            if not has_tf_checkpoint(ckpt_dir):
+                raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+            import_reference_checkpoint(os.path.join(ckpt_dir, "model.ckpt.best"), self.flow)
+            self.epoch = 0
         self.flow.eval()
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._program = None
@@ -149,25 +155,31 @@ class NoiseFlowWrapper:
                                    b2: float, iso: float, cam: float,
                                    temp: Optional[float] = None, mesh=None) -> np.ndarray:
         """Sample noise for a FULL frame [H, W, 4] (or [1, H, W, 4]) with the
-        flow run AT frame size on one device.
+        flow run AT frame size, the frame's height sharded over ``mesh``.
 
         The flow is fully convolutional, so the 32x32-trained weights apply
         at any (H, W): a flow is built at the frame's size with this
-        wrapper's weights and sampled through the plain
-        ``flow.sample(train=bn_batch_stats)``. Unlike ``sample_noise_frame``
-        (independent 32x32 tiles), the noise has no tile seams. The frame is
-        reflect-padded to multiples of 8, as JAX's with one device. No
-        kernel runs: the fused sampler is a 32x32-patch kernel. ``mesh``
-        (JAX's: the frame's height sharded over it, with halo exchanges)
-        takes one rank only (``MESH_ITEM``).
+        wrapper's weights and sampled with BatchNorm in train mode where
+        ``bn_batch_stats`` is set. Unlike ``sample_noise_frame``
+        (independent 32x32 tiles), the noise has no tile seams. ``mesh``
+        (a ``parallel.mesh.Mesh``; None: every rank of the default process
+        group, one rank without one) splits the frame's rows over its ranks,
+        each calling this with the same frame: the convs exchange halo rows
+        and BatchNorm's moments span the frame (``parallel.spatial``). The
+        frame is reflect-padded to a height that is a multiple of 8 x ranks
+        and a width that is a multiple of 8, as JAX's. Every rank draws the
+        whole frame's latents from this wrapper's generator, so wrappers
+        seeded alike give n ranks the noise of one, and every rank returns
+        the whole frame. No kernel runs: the fused sampler is a
+        32x32-patch kernel.
         """
-        if getattr(mesh, "size", 1) != 1:
-            raise NotImplementedError(f"a frame sharded over {mesh.size} ranks: {MESH_ITEM}")
+        mesh = as_mesh(mesh, self.device)
         x = np.asarray(clean_frame, np.float32)
         if x.ndim == 3:
             x = x[None]
         h, w = x.shape[1], x.shape[2]
-        xp = np.pad(x, ((0, 0), (0, (-h) % 8), (0, (-w) % 8), (0, 0)), mode="reflect")
+        xp = np.pad(x, ((0, 0), (0, (-h) % (8 * mesh.size)), (0, (-w) % 8), (0, 0)),
+                    mode="reflect")
         flow = NoiseFlow(xp.shape[1:], self.cfg, device=self.device)
         flow.load_state_dict(self.flow.state_dict())
         flow.eval()
@@ -178,6 +190,6 @@ class NoiseFlowWrapper:
         cond = {"clean": torch.as_tensor(xp, device=self.device),
                 "nlf0": full(b1), "nlf1": full(b2), "iso": full(iso), "cam": full(cam)}
         t = self.temp if temp is None else float(temp)
-        out = flow.sample(cond, temp=t, batch=1, train=self.bn_batch_stats,
-                          generator=self._gen)
-        return out[0, :h, :w].cpu().numpy()
+        z, split_eps = flow.draw_latents(t, 1, self._gen)
+        out = sample_frame_sharded(flow, cond, z, mesh, t, self.bn_batch_stats, split_eps)
+        return gather_rows(out, mesh)[0, :h, :w].cpu().numpy()
