@@ -218,7 +218,7 @@ Phases, each of which fails the run if it fails:
    KLD_NLF as printed against a numpy recomputation from the reference's
    definition;
 41. ``analysis.ref_parity.run_grid`` on the flagship at b = 1024 (the
-   cooperative kernel walks): 8 cells (every other of the table's 15,
+   cooperative kernel walks): 5 cells (every third of the table's 15,
    ``GRID_EVERY``, cut for time) x 3 levels, one launch a call; one
    cell's kernel samples against the plain version on a shared eps within
    TOL, the summary printed; then ``sample_noise_frame_spatial`` on the
@@ -304,7 +304,30 @@ Phases, each of which fails the run if it fails:
    loaded back through
    ``utils.tf_import.import_reference_variables``: the same state dict,
    bit for bit, and the same NLL; reading a TF checkpoint raises
-   ImportError where TensorFlow is not installed.
+   ImportError where TensorFlow is not installed;
+52. K train steps a dispatch (``steps_per_call``): ``Trainer`` at b = 138,
+   K = 32 over 70 staged steps (2 CUDA graph replays, ``training.step_graph``,
+   and a 6-step eager tail) against 70 eager steps from the same state, on
+   the plain exact-BN path, the one-shot step in float32 and bf16 (the
+   flagship's weights) and the segment path (the 5-scale arch from its
+   seed): every step's NLL and sd_z, the weights, the BN state and Adam's
+   moments and step the same bits, with cuDNN held to deterministic
+   algorithms; the kernels' launches exactly one step's a step, the graph
+   run's counting each replay's and the warm-up steps' before the capture;
+   then each path's ms a step, eager against graph in turns (host clock;
+   the plain path's graph also with cuDNN's default algorithms, as it
+   trains), and the device kernels of one step (torch.profiler over a
+   replay and over an eager step);
+53. the staged eval through the running-BN eval forward, K = 32 eval steps a
+   replay over 70 test batches, held and timed the same way, and the staged
+   eval epoch's ms eager against graph;
+54. ``train_epoch`` over 70 host batches at K = 32 (the [K, B, ...] feed)
+   against K = 1, one-shot float32, the same bits;
+55. planted faults that the comparison of phase 52 must catch: a replay
+   whose index buffer is not refreshed, and the BN state rebound instead of
+   copied. The kernels line adds the launches of phases 52-53 to the
+   kernels and modes that ran there (``under_graph``: path, launches, ms a
+   step eager and graph); the rank line leaves them out.
 
 The train template's redesigned step, segment backward and ghost forward
 keep one launch a call, so the exact launch counts of phases 9, 15 and 28
@@ -2487,7 +2510,7 @@ FLAGSHIP_BAYER = (1024, 2048)
 FLAGSHIP_EPOCHS = 2
 SWEEP_SMOKE = ["--temps", "0.6,1.0", "--n_patches_per_image", "512"]
 GRID_B = 1024        # ref_parity's CLI batch: one walk-mode launch a call
-GRID_EVERY = 2       # the grid's depth, cut for time: every other cell of cam_iso_nlf.txt
+GRID_EVERY = 3       # the grid's depth, cut for time: every third cell of cam_iso_nlf.txt
 
 
 def _numpy_kld_g_nlf(mb, sc_sd: float, step: int = 5):
@@ -3646,6 +3669,298 @@ def _spatial_packed_tf_phases(phase, nf, smi, device=PAR_DEVICE):
     return out
 
 
+# K steps a dispatch (phases 52-54): CUDA graphs of K train or eval steps
+# (training.step_graph) at b = 138, K = 32, over 70 staged steps: 2 replays
+# and a 6-step tail. A graph replays the kernels and ops of its eager steps,
+# so each path's replays are held to 70 eager steps from the same state to
+# the bit: every step's NLL and sd_z, the weights, the BN state, Adam's
+# moments and step. cuDNN is held to deterministic algorithms there.
+GRAPH_K, GRAPH_STEPS = 32, 70
+GRAPH_TIMED = 32       # steps timed a turn: one replay, or 32 eager steps
+GRAPH_SEED = 17
+# (path, use_pallas, pallas_oneshot, pallas_train_dtype, arch; None: the flagship's)
+GRAPH_PATHS = (("plain exact BN", False, True, "float32", None),
+               ("one-shot f32", True, True, "float32", None),
+               ("one-shot bf16", True, True, "bfloat16", None),
+               ("segment path, 5-scale arch", True, False, "float32", FIVE_SCALE_ARCH))
+
+
+def _graph_batches(n, seed):
+    """n batches of TRAIN_B synthetic patches (``_train_batch``) as one host
+    batch, as a loader's stream is staged."""
+    x, cond = _train_batch(n * TRAIN_B, seed)
+    host = {"_x": x, "_y": cond["clean"], **{k: cond[k] for k in ("nlf0", "nlf1", "iso", "cam")}}
+    return [{k: v.cpu().numpy() for k, v in host.items()}]
+
+
+def _graph_trainer(path, k, train, test):
+    """A Trainer on ``path`` (a GRAPH_PATHS row) with steps_per_call k, from
+    the flagship's weights (the 5-scale arch: from its seed), with ``train``
+    and ``test`` staged."""
+    from noise_flow_tpu_torch.config import load_hps
+    from noise_flow_tpu_torch.models.flow import NoiseFlow
+    from noise_flow_tpu_torch.training.trainer import Trainer
+    from noise_flow_tpu_torch.utils.checkpoint import load_checkpoint
+
+    _, use_pallas, oneshot, dtype, arch = path
+    cfg = load_hps(os.path.join(MODEL, "hps.txt"))
+    cfg.use_pallas, cfg.pallas_oneshot, cfg.pallas_train_dtype = use_pallas, oneshot, dtype
+    cfg.steps_per_call, cfg.n_batch_train, cfg.n_batch_test = k, TRAIN_B, TRAIN_B
+    if arch is not None:
+        cfg.arch = arch
+    flow = NoiseFlow((32, 32, 4), cfg, device="cuda", seed=cfg.seed)
+    if arch is None:
+        load_checkpoint(os.path.join(MODEL, "ckpt", "model.ckpt-best.npz"), flow)
+    tr = Trainer(flow, cfg)
+    if (tr.use_fused, tr.use_oneshot) != (use_pallas, use_pallas and oneshot):
+        raise AssertionError(f"{path[0]}: use_fused {tr.use_fused}, use_oneshot {tr.use_oneshot}")
+    if train is not None:
+        tr.stage_dataset(iter(train), "train")
+    if test is not None:
+        tr.stage_dataset(iter(test), "test")
+    return tr
+
+
+def _run_state(tr):
+    """Every tensor a run changes: the flow's state dict and the optimizer's
+    slots, by name."""
+    out = {f"flow/{k}": v for k, v in tr.flow.state_dict().items()}
+    names = {p: n for n, p in tr.flow.named_parameters()}
+    for p, st in tr.optimizer.state.items():
+        for slot, v in st.items():
+            out[f"opt/{names[p]}/{slot}"] = v
+    return out
+
+
+def _graph_diff(a, b):
+    """(tensors that differ in any bit, the largest abs difference) between
+    two runs' (nll, sd_z, state)."""
+    import torch
+    pairs = {"nll": (a[0], b[0]), "sd_z": (a[1], b[1])}
+    sa, sb = a[2], b[2]
+    if set(sa) != set(sb):
+        return [f"keys {sorted(set(sa) ^ set(sb))}"], float("inf")
+    pairs.update({k: (sa[k], sb[k]) for k in sb})
+    bad = [k for k, (x, y) in pairs.items() if not torch.equal(x, y)]
+    worst = max((float((x.float() - y.float()).abs().max()) for x, y in pairs.values()),
+                default=0.0)
+    return bad, worst
+
+
+def _kernels_a_step(fn, steps):
+    """Device kernels (and copies or sets) that ``fn`` runs, over ``steps``
+    steps, by torch.profiler; None where it shows no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ev:
+        return None
+    mem = sum(1 for e in ev if e.name.startswith(("Memcpy", "Memset")))
+    return {"kernels": (len(ev) - mem) / steps, "copies_sets": mem / steps}
+
+
+def _graph_checks(phase, out):
+    import numpy as np
+    import torch
+    from noise_flow_tpu_torch.ops import fused_sample as fs
+    from noise_flow_tpu_torch.training import step_graph
+
+    train = _graph_batches(GRAPH_STEPS, GRAPH_SEED)
+    test = train     # the staged eval's set: the same patches, in order
+    order = torch.as_tensor(np.random.default_rng(GRAPH_SEED).permutation(
+        GRAPH_STEPS * TRAIN_B).reshape(GRAPH_STEPS, TRAIN_B), device="cuda")
+
+    def run(path, k, test_set=None, plant=None):
+        """GRAPH_STEPS staged train steps (eval steps with test_set): the
+        trainer, (nll, sd_z) of each step, the state after, the launches."""
+        tr = _graph_trainer(path, k, train, test_set)
+        if plant:
+            plant(tr)
+        fs.launch_counts.clear()
+        if test_set is None:
+            nll, sd_z = tr._staged_steps("train", order, k, True)
+        else:
+            nll, sd_z = tr._staged_steps("test", tr._staged_test_steps(), k, False)
+        torch.cuda.synchronize()
+        counts = _main_path(dict(fs.launch_counts))
+        return tr, (nll, sd_z, _run_state(tr)), counts
+
+    def per_step(path, graph, evals=False):
+        """The launches a run must count: each step's, and the warm-up
+        steps' before a capture."""
+        _, use_pallas, oneshot, dtype, _ = path
+        if not use_pallas:
+            return {}
+        n = GRAPH_STEPS + (step_graph.WARMUP_STEPS if graph else 0)
+        segs = 1 if path[4] == FIVE_SCALE_ARCH else 2
+        if evals:
+            want = {"fused_segment_forward": n * segs}
+        elif oneshot:
+            want = {"fused_train_step": n}
+        else:
+            want = {"fused_segment_train_forward": n * segs, "fused_segment_backward": n * segs}
+        if dtype == "bfloat16":
+            want.update({f"{k}_bf16": v for k, v in want.items()})
+        return want
+
+    def hold(label, path, evals=False):
+        test_set = test if evals else None
+        _, eager, c_e = run(path, 1, test_set)
+        tr, graph, c_g = run(path, GRAPH_K, test_set)
+        bad, worst = _graph_diff(graph, eager)
+        want_e, want_g = per_step(path, False, evals), per_step(path, True, evals)
+        group = [dict(g.launches) for g in tr._graphs.values()]
+        print(f"graph {label}: {GRAPH_STEPS} steps b={TRAIN_B}, K={GRAPH_K} (2 replays, "
+              f"{GRAPH_STEPS % GRAPH_K}-step tail) against {GRAPH_STEPS} eager steps: "
+              f"{len(graph[2]) + 2} tensors, {len(bad)} differ in any bit (max abs "
+              f"{worst:.3e}); NLL first {float(graph[0][0]):.4f} last "
+              f"{float(graph[0][-1]):.4f}; launches graph run {c_g} (want {want_g}), eager "
+              f"{c_e} (want {want_e}); a replay's launches {group}")
+        if bad or c_g != want_g or c_e != want_e or len(tr._graphs) != 1:
+            raise AssertionError(f"graph run differs from eager on {bad[:8]}, or launches "
+                                 f"wrong, or {len(tr._graphs)} graphs")
+        out["launches"][label] = c_g
+        return tr
+
+    def timed(tr, evals=False, turns=(1, GRAPH_K, GRAPH_K, 1)):
+        """ms a step of GRAPH_TIMED steps, eager (k = 1) and graph in turns
+        (host clock, synchronised)."""
+        def once(k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if evals:
+                tr._staged_steps("test", tr._staged_test_steps()[:GRAPH_TIMED], k, False)
+            else:
+                tr._staged_steps("train", order[:GRAPH_TIMED], k, True)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / GRAPH_TIMED
+        t = [once(k) for k in turns]
+        eager, graph = [v for k, v in zip(turns, t) if k == 1], [
+            v for k, v in zip(turns, t) if k != 1]
+        return {"eager_ms": sum(eager) / len(eager) if eager else None,
+                "graph_ms": sum(graph) / len(graph), "turns": t}
+
+    def paths():
+        for path in GRAPH_PATHS:
+            tr = hold(path[0], path)
+            out["ms"][path[0]] = timed(tr)
+            g = next(iter(tr._graphs.values()))
+            cnt = {"graph": _kernels_a_step(lambda: g.replay(), GRAPH_K),
+                   "eager": _kernels_a_step(lambda: tr._staged_steps(
+                       "train", order[:1], 1, True), 1)}
+            out["kernels_a_step"][path[0]] = cnt
+            print(f"graph {path[0]}: ms a step eager {out['ms'][path[0]]['eager_ms']:.3f}, "
+                  f"graph {out['ms'][path[0]]['graph_ms']:.3f} (turns eager, graph, graph, "
+                  f"eager: {['%.3f' % v for v in out['ms'][path[0]]['turns']]}; host clock, "
+                  f"{GRAPH_TIMED} steps a turn); device kernels a step {cnt}")
+            if not path[1]:
+                # the plain path's convolutions also with cuDNN's default
+                # algorithms, as it trains; a graph keeps the algorithms it
+                # was captured with, so a new trainer captures anew
+                label = path[0] + ", default cuDNN"
+                torch.backends.cudnn.deterministic = False
+                try:
+                    tr = _graph_trainer(path, GRAPH_K, train, None)
+                    tr._staged_steps("train", order[:GRAPH_K], GRAPH_K, True)
+                    out["ms"][label] = timed(tr, turns=(GRAPH_K, GRAPH_K))
+                finally:
+                    torch.backends.cudnn.deterministic = True
+                print(f"graph {label}: ms a step graph {out['ms'][label]['graph_ms']:.3f} "
+                      f"(turns {['%.3f' % v for v in out['ms'][label]['turns']]})")
+    phase(f"graphs: K={GRAPH_K} train steps a replay against eager steps, 4 paths", paths)
+
+    def evals():
+        path = GRAPH_PATHS[1]
+        tr = hold("staged eval (fused, f32)", path, evals=True)
+        ms = timed(tr, evals=True)
+        t = {}
+        for k in (1, GRAPH_K, GRAPH_K, 1):
+            tr.cfg.steps_per_call = k
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr._eval_epoch_staged()
+            t.setdefault(k, []).append((time.perf_counter() - t0) * 1e3)
+        ms["epoch_ms"] = {"eager": sum(t[1]) / 2, "graph": sum(t[GRAPH_K]) / 2,
+                          "steps": GRAPH_STEPS}
+        out["ms"]["staged eval"] = ms
+        print(f"graph staged eval: ms a step eager {ms['eager_ms']:.3f}, graph "
+              f"{ms['graph_ms']:.3f}; the staged eval epoch ({GRAPH_STEPS} batches) eager "
+              f"{ms['epoch_ms']['eager']:.2f} ms, graph {ms['epoch_ms']['graph']:.2f} ms")
+    phase("graphs: the staged eval, K eval steps a replay against eager steps", evals)
+
+    def host_batches():
+        """train_epoch over host batches (the [K, B, ...] feed) against
+        eager steps: the one-shot f32 path."""
+        path = GRAPH_PATHS[1]
+        runs = {}
+        for k in (1, GRAPH_K):
+            tr = _graph_trainer(path, k, None, None)
+            nll = tr.train_epoch(({f: v[s * TRAIN_B:(s + 1) * TRAIN_B] for f, v in
+                                   train[0].items()} for s in range(GRAPH_STEPS)),
+                                 steps_per_call=k)
+            runs[k] = (nll, _run_state(tr))
+        bad = [n for n, v in runs[1][1].items() if not torch.equal(v, runs[GRAPH_K][1][n])]
+        print(f"graph host batches (one-shot f32): train_epoch of {GRAPH_STEPS} batches, "
+              f"K={GRAPH_K} against 1: epoch NLL {runs[GRAPH_K][0]} vs {runs[1][0]}; "
+              f"{len(bad)} tensors differ")
+        if bad or runs[1][0] != runs[GRAPH_K][0]:
+            raise AssertionError(f"host-batch graph run differs from eager on {bad[:8]}")
+    phase("graphs: train_epoch over host batches against eager steps", host_batches)
+
+    def planted_faults():
+        """The comparison must catch a replay whose index buffer is not
+        refreshed, and BN state rebound instead of copied."""
+        path = GRAPH_PATHS[1]
+        _, eager, _ = run(path, 1)
+
+        def stale(tr):
+            replay = step_graph.StepGraph.replay
+            step_graph.StepGraph.replay = lambda self, feed=None: replay(self, None)
+
+        def rebound(tr):
+            flow = tr.flow
+
+            def apply_state(new_state):
+                for key, v in new_state.items():
+                    mod, name = key.rsplit(".", 1)
+                    flow.get_submodule(mod)._buffers[name] = v.detach().clone()
+            flow.apply_state = apply_state
+        for name, plant in (("index buffer not refreshed", stale),
+                            ("BN state rebound, not copied", rebound)):
+            replay = step_graph.StepGraph.replay
+            try:
+                _, graph, _ = run(path, GRAPH_K, plant=plant)
+            finally:
+                step_graph.StepGraph.replay = replay
+            bad, worst = _graph_diff(graph, eager)
+            print(f"graph planted fault ({name}): {len(bad)} tensors differ (max abs "
+                  f"{worst:.3e}), among them {bad[:4]}")
+            if not bad:
+                raise AssertionError(f"the comparison missed a planted fault: {name}")
+    phase("graphs: planted faults are caught", planted_faults)
+
+
+def _graph_phases(phase):
+    """Phases 52-55 (see the module docstring), with cuDNN held to
+    deterministic algorithms. Returns each path's launch counts of its graph
+    run (kernels line), the times and the kernels a step."""
+    import torch
+
+    out = {"launches": {}, "ms": {}, "kernels_a_step": {}}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _graph_checks(phase, out)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return out
+
+
 # the kernels line's (kernel, mode) by the production rows of
 # _production_times that time its calls; and the redesign rows (phase 33) by
 # (kernel, mode, kind, launches a call: both segments are two launches)
@@ -3951,6 +4266,7 @@ def main() -> int:
     family = _model_family_phases(phase, flagship)
     parallel = _parallel_phases(phase, flagship, smi)
     _spatial_packed_tf_phases(phase, nf, smi)
+    graphs = _graph_phases(phase)
     shutil.rmtree(flagship["work"], ignore_errors=True)
     print(f"model_family_seconds {json.dumps(family['seconds'])}")
 
@@ -4024,6 +4340,30 @@ def main() -> int:
         print(f"chip_smoke: {e}", file=sys.stderr)
         return 1
     print(json.dumps({"rank": rank}))
+    # phases 52-53: the launches that graph replays (and the warm-up steps
+    # before each capture) issued, in the entries and modes of the kernels
+    # that ran there; the rank above leaves them out (the 5-scale arch's
+    # segment is one launch a step, where its rows time both segments)
+    seg = GRAPH_PATHS[3][0]
+    under = {("fused_train_step", None): ("one-shot f32", "fused_train_step"),
+             ("fused_train_step", "bf16"): ("one-shot bf16", "fused_train_step_bf16"),
+             ("fused_segment_forward", "ghost"): (seg, "fused_segment_train_forward"),
+             ("fused_segment_forward", "running"): ("staged eval (fused, f32)",
+                                                    "fused_segment_forward"),
+             ("fused_segment_backward", None): (seg, "fused_segment_backward")}
+    for k in kernels:
+        for (name, mode), (label, counter) in under.items():
+            if k["name"] != name:
+                continue
+            n = graphs["launches"].get(label, {}).get(counter, 0)
+            if mode is None or not mode.endswith("bf16"):
+                k["launches"] += n
+            if mode is not None:
+                k["by_mode"][mode]["launches"] += n
+            ms = graphs["ms"].get("staged eval" if mode == "running" else label, {})
+            k.setdefault("under_graph", {})[mode or "float32"] = {
+                "path": label, "launches": n, "k": GRAPH_K,
+                "eager_step_ms": ms.get("eager_ms"), "graph_step_ms": ms.get("graph_ms")}
     # the probe sites: train template, then the sampler group
     for probe in [*redesign["probes"].values(), *sampler["probes"].values()]:
         probe["launches"] = sum(MAIN_PATH.get(c, 0) for c in probe["counters"])

@@ -185,7 +185,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the fused train kernels' product operands (the config "
                         "field JAX's CLI leaves at its default, bfloat16)")
     p.add_argument("--steps_per_call", type=int, default=1,
-                   help="recorded only: each train step is one eager call")
+                   help="train steps a dispatch: groups of K steps, each a "
+                        "CUDA graph replay with one rank on the card")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train on (cuda, cuda:N or cpu)")
     p.add_argument("--init_checkpoint", type=str, default="",

@@ -48,13 +48,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 JAX_RUN = os.path.join(REPO, "experiments", "sidd", "prod_exact_150")
 SWEEP_TEMPS = "0.2,0.4,0.5,0.6,0.7,0.8,1.0"
 FRAME_HW = (1500, 2000)
-# jobs/job_noise_flow.sh prod-exact, less --epochs, the paths, the cache
-# and --steps_per_call (each step is one eager call here); use_pallas off
+# jobs/job_noise_flow.sh prod-exact, less --epochs, the paths and the cache;
+# use_pallas off. On the card each group of 32 staged steps is one CUDA
+# graph replay (training.step_graph)
 PROD_EXACT = ["--arch", "sdn5|unc|unc|unc|unc|gain4|unc|unc|unc|unc", "--width", "4",
               "--lr", "1e-4", "--n_batch_train", "138", "--patch_height", "32",
               "--shuffle_patches", "--n_patches_per_image", "2898",
               "--epochs_full_valid", "10", "--temp", "0.6", "--do_sample",
-              "--device_resident_data"]
+              "--steps_per_call", "32", "--device_resident_data"]
 JAX_ORACLE = os.path.join(REPO, "experiments", "sidd", "condsdn_scale")
 # jobs/job_noise_flow.sh condsdn-baseline at condsdn_scale/hps.txt's settings,
 # less the paths, the cache and the native loader; staged data, as its run.

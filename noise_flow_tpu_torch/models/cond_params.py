@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from noise_flow_tpu_torch.utils.device import device_constant
+
 ISO_VALS = (100.0, 400.0, 800.0, 1600.0, 3200.0)
 CAM_VALS = (0.0, 1.0, 2.0, 3.0, 4.0)  # IP GP S6 N6 G4
 
@@ -31,7 +33,7 @@ def _b(x):
 
 
 def _onehot(v, vals):
-    table = torch.tensor(vals, dtype=torch.float32, device=v.device)
+    table = device_constant(("onehot", vals), v.device, lambda: np.asarray(vals, np.float32))
     return (v[:, None] == table[None, :]).to(torch.float32)
 
 

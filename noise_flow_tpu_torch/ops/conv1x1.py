@@ -21,6 +21,8 @@ import numpy as np
 import scipy.linalg
 import torch
 
+from noise_flow_tpu_torch.utils.device import device_constant
+
 
 def _tri_indices(c: int, upper: bool):
     if upper:
@@ -33,9 +35,14 @@ def strict_tri_to_vec(m: np.ndarray, upper: bool) -> np.ndarray:
     return np.asarray(m)[i, j]
 
 
+def tri_index(c: int, upper: bool, device):
+    """``_tri_indices`` as a pair of index tensors kept on ``device``."""
+    ij = device_constant(("tri", c, upper), device, lambda: np.stack(_tri_indices(c, upper)))
+    return ij[0], ij[1]
+
+
 def vec_to_strict_tri(v: torch.Tensor, c: int, upper: bool) -> torch.Tensor:
-    i, j = _tri_indices(c, upper)
-    idx = (torch.as_tensor(i, device=v.device), torch.as_tensor(j, device=v.device))
+    idx = tri_index(c, upper, v.device)
     return torch.zeros((c, c), dtype=v.dtype, device=v.device).index_put(idx, v)
 
 

@@ -89,6 +89,18 @@ REC = 288
 
 # Launches of each kernel, counted where the wrapper launches it.
 launch_counts: Dict[str, int] = collections.Counter()
+# Launches recorded into a CUDA graph while a stream captures one: they run
+# only when the graph is replayed, and the graph's owner
+# (``training.step_graph``) adds them to launch_counts at each replay.
+captured_counts: Dict[str, int] = collections.Counter()
+
+
+def count_launches(name: str, n: int) -> None:
+    """Add n launches of kernel ``name`` on the current CUDA device: to
+    launch_counts, or to captured_counts while its current stream
+    captures a graph."""
+    counts = captured_counts if torch.cuda.is_current_stream_capturing() else launch_counts
+    counts[name] += n
 
 
 # the precisions of the kernels' products, by the names JAX's kernels use
@@ -447,13 +459,13 @@ def _launch_kernel(program: SampleProgram, x, clean, sa, sb, bt: int,
             int(program.bn_mode == "batch"), ops, len(program.ops_code),
             int(seed is not None), 0 if seed is None else seed, float(temp), int(bf16),
             stream, ctypes.byref(launched))
-    # one per kernel launch, as the C entry reports them: one a call in
-    # either BN mode (batch BN is one cooperative launch)
-    launch_counts["fused_sample"] += launched.value
-    if seed is not None:
-        launch_counts["fused_sample_rng"] += launched.value
-    if bf16:
-        launch_counts["fused_sample_bf16"] += launched.value
+        # one per kernel launch, as the C entry reports them: one a call in
+        # either BN mode (batch BN is one cooperative launch)
+        count_launches("fused_sample", launched.value)
+        if seed is not None:
+            count_launches("fused_sample_rng", launched.value)
+        if bf16:
+            count_launches("fused_sample_bf16", launched.value)
     if err != 0:
         raise RuntimeError(f"fused_sample kernel launch failed: CUDA error {err}")
     return out

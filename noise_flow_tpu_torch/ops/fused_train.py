@@ -75,6 +75,7 @@ import torch
 import torch.nn.functional as F
 
 from noise_flow_tpu_torch.models.layers import SCALE_KINDS
+from noise_flow_tpu_torch.ops.conv1x1 import tri_index
 from noise_flow_tpu_torch.ops.fused_sample import (
     MAX_OPS,
     OP_COUPLING,
@@ -85,10 +86,12 @@ from noise_flow_tpu_torch.ops.fused_sample import (
     _check,
     _field,
     bf16_round,
+    count_launches,
     is_bf16,
-    launch_counts,
+    launch_counts,  # noqa: F401  (read as fused_train.launch_counts)
 )
 from noise_flow_tpu_torch.ops.nn import BN_DECAY, BN_EPS, LOGSCALE_FACTOR, conv2d_nhwc
+from noise_flow_tpu_torch.utils.device import device_constant
 
 H, W, C = 32, 32, 4
 SUPPORTED_KINDS = {"coupling", "conv1x1", "perm_reverse"}
@@ -180,7 +183,7 @@ def fold_couplings(layers, fold_bn: bool = False):
     w3 = wz[:, :, :, :width, :] * zs[:, None, None, None, :]
     wind = wz[:, :, :, width, :] * zs[:, None, None, :]          # [nc,3,3,4]
     bz = torch.stack([q.last.b.reshape(-1) for q in p]) * zs     # [nc,4]
-    taps = torch.as_tensor(_ind_taps_np(H, W), device=dev)
+    taps = device_constant(("ind_taps", H, W), dev, lambda: _ind_taps_np(H, W))
     offs = torch.einsum("thw,nto->nhwo", taps, wind.reshape(nc, 9, C)) + bz[:, None, None, :]
     rescale = torch.stack([l.rescale.reshape(1) for l in layers])  # [nc,1]
     w3 = F.pad(w3, (0, 0, 0, C - width))
@@ -199,8 +202,8 @@ def fold_mixes(specs, layers, device):
         return eye[None], torch.zeros((), device=device)
     if all(s.kind == "conv1x1" for s in specs) and all(l.decomp == "LU" for l in layers):
         # one stacked build: A = P L U, log|det| = sum(log_s)
-        il, jl = np.tril_indices(C, k=-1)
-        iu, ju = np.triu_indices(C, k=1)
+        il, jl = tri_index(C, False, device)
+        iu, ju = tri_index(C, True, device)
         nm = len(layers)
         log_s = torch.stack([l.mat.log_s for l in layers])
         lm = torch.zeros((nm, C, C), device=device)
@@ -469,16 +472,17 @@ def _ops_array(ops_code):
 
 def _launch(name: str, entry, dev, bf16: bool, *args) -> None:
     """Call the C entry ``entry`` with ``args`` and the mode, then the
-    current stream of ``dev`` and the launch count it sets; add its launches
-    to ``launch_counts[name]`` (and to ``name + "_bf16"`` in the bfloat16
-    mode), and raise if the launch failed."""
+    current stream of ``dev`` and the launch count it sets; count its
+    launches as ``name`` (and ``name + "_bf16"`` in the bfloat16 mode) with
+    ``count_launches``: under stream capture they are recorded into the
+    graph, and count at each replay. Raise if the launch failed."""
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         err = entry(*args, int(bf16), torch.cuda.current_stream(dev).cuda_stream,
                     ctypes.byref(launched))
-    launch_counts[name] += launched.value
-    if bf16:
-        launch_counts[name + "_bf16"] += launched.value
+        count_launches(name, launched.value)
+        if bf16:
+            count_launches(name + "_bf16", launched.value)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 

@@ -23,9 +23,16 @@ runs one Pallas call a device. Then the gradients, the NLL, sd_z and (fused)
 the new BN state are averaged over the ranks, as JAX's ``pmean``. Only rank
 0 writes logs and checkpoints.
 
-What does not carry over: ``cfg.steps_per_call`` (JAX's ``lax.scan`` of K
-steps a dispatch) is read and changes nothing, since each step is one eager
-call.
+K steps a dispatch (``steps_per_call``, JAX's jitted ``lax.scan`` of K
+steps): ``train_epoch(steps_per_call=K)`` and, with ``cfg.steps_per_call =
+K``, the staged train and eval epochs run the batches in groups of K, with
+JAX's rules: only full groups of K; a ragged tail, or a change of batch
+shape, runs single steps; a non-trainable flow (condSDN) runs its staged
+epoch as eval steps. With one rank on the card each full group is one replay
+of a CUDA graph of K steps (``training.step_graph``), captured once for each
+(train or eval, feed, K, batch) and kept; the tail runs as eager steps. On
+the CPU, and under a mesh of more than one rank (the host-batch path; staging
+is single-rank, as JAX's), a group is K eager steps: the same arithmetic.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import torch
 from noise_flow_tpu_torch.ops.fused_train import FusedFlow, FusedTrainStep, pick_block
 from noise_flow_tpu_torch.parallel import distributed as pd
 from noise_flow_tpu_torch.parallel.mesh import as_mesh, replicate, shard_batch
+from noise_flow_tpu_torch.training.step_graph import StepGraph
 from noise_flow_tpu_torch.utils.checkpoint import (
     latest_checkpoint,
     load_checkpoint,
@@ -81,9 +89,14 @@ def _timed_iter(it, timers, name: str):
 def make_optimizer(cfg, params):
     """Adam beta1=.9 beta2=.999 eps=1e-8, or SGD momentum .9
     (ref:train_noise_flow.py:187-198). The arithmetic is optax's; optax's
-    ``flatten`` wrapper (one fused vector) has no counterpart here."""
+    ``flatten`` wrapper (one fused vector) has no counterpart here. For
+    parameters on the card Adam is ``capturable``: its step count lives on
+    the device, so that a CUDA graph can step it; SGD keeps no count."""
+    params = list(params)
     if cfg.optim == "adam":
-        return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+        on_card = any(p.device.type == "cuda" for p in params)
+        return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
+                                capturable=on_card)
     if cfg.optim == "sgd":
         return torch.optim.SGD(params, lr=cfg.lr, momentum=0.9)
     raise ValueError(f"unknown optimizer {cfg.optim!r}")
@@ -120,6 +133,8 @@ class Trainer:
         self.trainable = cfg.sidd_cond != "condSDN"
         self._fused_cache: Dict[int, FusedFlow] = {}
         self._step_cache: Dict[int, FusedTrainStep] = {}
+        # CUDA graphs of K steps, by (train, feed, K, batch)
+        self._graphs: Dict[tuple, StepGraph] = {}
         self.use_fused = False
         self.use_oneshot = False
         if getattr(cfg, "use_pallas", False):
@@ -244,10 +259,56 @@ class Trainer:
             return self.train_step(batch)
         return self.eval_step(batch)
 
+    # ------------------------------------------------------ K-step groups
+    @property
+    def graphs_on(self) -> bool:
+        """Whether a full group of K steps runs as a CUDA graph replay: one
+        rank on the card."""
+        return self.device.type == "cuda" and self.mesh.size == 1
+
+    def _graph(self, key, step, feed, batch_at, train: bool) -> StepGraph:
+        """The graph for key (feed, train, K, B), captured at its first use
+        with a copy of ``feed`` as its static inputs."""
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._graphs[key] = StepGraph(
+                step, {n: v.clone() for n, v in feed.items()}, batch_at, key[2], self.flow,
+                self.optimizer if train else None)
+        return g
+
+    def _staged_steps(self, split: str, order, k: int, train: bool):
+        """Steps over the staged ``split``, the rows of ``order`` [nsteps, B]
+        being each step's indices, train steps (``_step_or_eval``) or eval
+        steps: full groups of k as graph replays where ``graphs_on``, every
+        other step eager (a group of k eager steps is k single steps).
+        Returns (nll, sd_z), one a step."""
+        data = getattr(self, f"_staged_{split}")
+        step = self._step_or_eval if train else self.eval_step
+        nsteps, b = order.shape
+        full = nsteps - nsteps % k if k > 1 and self.graphs_on else 0
+        losses, sdzs = [], []
+        for s in range(0, full, k):
+            with self.timers.phase("step"):
+                g = self._graph(("staged_" + split, train, k, b), step, {"idx": order[s:s + k]},
+                                lambda f, j: self._gather_staged(data, f["idx"][j]), train)
+                nll, sd_z = g.replay({"idx": order[s:s + k]})
+            losses.append(nll)
+            sdzs.append(sd_z)
+        for s in range(full, nsteps):
+            with self.timers.phase("step"):
+                nll, sd_z = step(self._gather_staged(data, order[s]))
+            losses.append(nll.reshape(1))
+            sdzs.append(sd_z.reshape(1))
+        return torch.cat(losses), torch.cat(sdzs)
+
     # ------------------------------------------------------------- epochs
     def train_epoch(self, batches: Iterable[Dict], steps_per_call: Optional[int] = None):
-        """One pass over host batches; ``steps_per_call`` is accepted for the
-        JAX signature and changes nothing (one eager call a step)."""
+        """One pass over host batches. ``steps_per_call`` (default
+        ``cfg.steps_per_call``) K > 1 groups a trainable flow's steps by K
+        (``_train_epoch_scan``); else one step a batch."""
+        k = steps_per_call if steps_per_call is not None else self._steps_per_call()
+        if k > 1 and self.trainable:
+            return self._train_epoch_scan(batches, k)
         losses, sdzs = [], []
         for mb in _timed_iter(batches, self.timers, "input"):
             with self.timers.phase("step"):
@@ -256,6 +317,47 @@ class Trainer:
             sdzs.append(sd_z)
         with self.timers.phase("sync"):
             return (float(torch.stack(losses).mean()), float(torch.stack(sdzs).mean()))
+
+    def _train_epoch_scan(self, batches: Iterable[Dict], k: int):
+        """The epoch in groups of k host batches (JAX's ``_train_epoch_scan``):
+        full groups only; a ragged tail or a batch-shape change runs single
+        steps. A full group is a graph replay over one static [k, B, ...]
+        buffer a field where ``graphs_on``, else k eager steps."""
+        losses, sdzs = [], []
+
+        def flush(buf):
+            if len(buf) == k and self.graphs_on:
+                stacked = {f: torch.from_numpy(np.stack([np.asarray(mb[f], np.float32)
+                                                         for mb in buf]))
+                           for f in _KEEP}
+                g = self._graph(("host", True, k, stacked["_x"].shape[1]), self.train_step,
+                                {f: v.to(self.device) for f, v in stacked.items()},
+                                lambda f, j: {n: v[j] for n, v in f.items()}, True)
+                nll, sd_z = g.replay(stacked)
+                losses.append(nll)
+                sdzs.append(sd_z)
+                return
+            for mb in buf:
+                nll, sd_z = self.train_step(self._put(mb))
+                losses.append(nll.reshape(1))
+                sdzs.append(sd_z.reshape(1))
+
+        buf = []
+        for mb in _timed_iter(batches, self.timers, "input"):
+            if buf and np.shape(mb["_x"]) != np.shape(buf[0]["_x"]):
+                with self.timers.phase("step"):
+                    flush(buf)
+                buf = []
+            buf.append(mb)
+            if len(buf) == k:
+                with self.timers.phase("step"):
+                    flush(buf)
+                buf = []
+        if buf:
+            with self.timers.phase("step"):
+                flush(buf)
+        with self.timers.phase("sync"):
+            return float(torch.cat(losses).mean()), float(torch.cat(sdzs).mean())
 
     def eval_epoch(self, batches: Iterable[Dict]):
         out = [self.eval_step(self._put(mb)) for mb in batches]
@@ -353,13 +455,20 @@ class Trainer:
             host = {k: v[:max_patches] for k, v in host.items()}
         setattr(self, f"_staged_{split}",
                 {k: torch.as_tensor(v, device=self.device) for k, v in host.items()})
+        self._graphs.clear()   # captured on the set this replaces
         return int(host["_x"].shape[0])
 
     def _gather_staged(self, data: Dict, idx) -> Dict:
         idx = torch.as_tensor(idx, dtype=torch.long, device=self.device)
         return {k: v.index_select(0, idx) for k, v in data.items()}
 
+    def _steps_per_call(self) -> int:
+        return max(int(getattr(self.cfg, "steps_per_call", 1)), 1)
+
     def _train_epoch_staged(self, shuffle_seed: int):
+        """One epoch over the staged train set in a permutation drawn from
+        ``shuffle_seed``, in groups of ``cfg.steps_per_call`` (JAX's
+        ``_train_epoch_staged``); a non-trainable flow takes eval steps."""
         data = self._staged_train
         n = int(data["_x"].shape[0])
         b = self.cfg.n_batch_train
@@ -370,16 +479,13 @@ class Trainer:
                 "stage more patches or lower the batch size")
         order = np.random.default_rng(shuffle_seed).permutation(n)[:nsteps * b]
         order = torch.as_tensor(order.reshape(nsteps, b), device=self.device)
-        losses, sdzs = [], []
-        for s in range(nsteps):
-            with self.timers.phase("step"):
-                nll, sd_z = self._step_or_eval(self._gather_staged(data, order[s]))
-            losses.append(nll)
-            sdzs.append(sd_z)
+        nlls, sdzs = self._staged_steps("train", order, self._steps_per_call(), self.trainable)
         with self.timers.phase("sync"):
-            return (float(torch.stack(losses).mean()), float(torch.stack(sdzs).mean()))
+            return float(nlls.mean()), float(sdzs.mean())
 
     def _staged_test_steps(self, max_batches: int = 0):
+        """[nsteps, n_batch_test]: the staged test set's batches in order
+        (the first ``max_batches`` when it is set)."""
         n = int(self._staged_test["_x"].shape[0])
         b = self.cfg.n_batch_test
         nsteps = n // b
@@ -389,13 +495,13 @@ class Trainer:
                 "stage more patches or lower the batch size")
         if max_batches:
             nsteps = min(nsteps, max_batches)
-        return [torch.arange(s * b, (s + 1) * b, device=self.device) for s in range(nsteps)]
+        return torch.arange(nsteps * b, device=self.device).reshape(nsteps, b)
 
     def _eval_epoch_staged(self):
-        out = [self.eval_step(self._gather_staged(self._staged_test, idx))
-               for idx in self._staged_test_steps()]
-        return (float(torch.stack([o[0] for o in out]).mean()),
-                float(torch.stack([o[1] for o in out]).mean()))
+        """The whole staged test set, in groups of ``cfg.steps_per_call``."""
+        nlls, sdzs = self._staged_steps("test", self._staged_test_steps(),
+                                        self._steps_per_call(), train=False)
+        return float(nlls.mean()), float(sdzs.mean())
 
     def _sample_epoch_staged(self, temp: float, generator=None, sc_sd: float = 1.0,
                              fix_cam_iso: bool = True, vis_dir: Optional[str] = None,
@@ -462,6 +568,7 @@ class Trainer:
             last = latest_checkpoint(ckpt_dir)
             if last:
                 start_epoch = load_checkpoint(last, self.flow, self.optimizer) + 1
+                self._graphs.clear()   # the optimizer's slots are new tensors
 
         best_nll = np.inf
         # each rank draws its own samples

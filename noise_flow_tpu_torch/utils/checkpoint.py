@@ -121,10 +121,13 @@ def _load_optimizer(path: str, module, optimizer, opt: Dict[str, np.ndarray]) ->
                 "current optimizer; resuming without it", path)
             return
         slots.setdefault(name, {})[slot] = v
+    # a capturable optimizer (one a CUDA graph steps) keeps its step count
+    # on the parameter's device, any other on the host
+    capturable = optimizer.defaults.get("capturable", False)
     for name, st in slots.items():
         p = params[name]
         optimizer.state[p] = {
-            k: torch.as_tensor(v) if k == "step" else torch.as_tensor(v, device=p.device)
+            k: torch.as_tensor(v, device=p.device if k != "step" or capturable else None)
             for k, v in st.items()}
 
 

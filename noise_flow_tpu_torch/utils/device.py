@@ -1,6 +1,9 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and constants kept on a
+device."""
 
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
@@ -21,3 +24,18 @@ def resolve_device(device="cuda") -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+_constants: Dict[tuple, torch.Tensor] = {}
+
+
+def device_constant(key, device, make) -> torch.Tensor:
+    """``make()`` (an array) as a tensor on ``device``, made at the first
+    call for ``(key, device)`` and kept. ``torch.tensor(values,
+    device=...)`` copies from the host at every call, which a CUDA graph
+    cannot capture; a kept constant is read in place. Never write to it."""
+    dev = torch.device(device)
+    t = _constants.get((key, dev))
+    if t is None:
+        t = _constants[(key, dev)] = torch.as_tensor(make(), device=dev)
+    return t

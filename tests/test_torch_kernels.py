@@ -1064,3 +1064,49 @@ def test_sampler_probe_chains_match_plain(cuda_device, mm_dtype):
             got = sp.px_chain(v, x, wp)
             torch.cuda.synchronize()
             assert _nrel(got, ref) <= sp.PX_CHAIN_RTOL[mm_dtype], (b, v, _nrel(got, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("oneshot", [True, False])
+def test_step_graph_replays_eager_steps(cuda_device, oneshot):
+    """Trainer with steps_per_call 4 over 10 staged steps at b = 16 (2
+    replays of a CUDA graph of 4 steps and a 2-step eager tail) gives the
+    bits of 10 eager steps from the same weights: each step's NLL and sd_z,
+    every weight and BN buffer, Adam's slots; the launch counts add each
+    replay's kernels (and the 3 warm-up steps before the capture). One-shot
+    step and segment path, float32."""
+    from noise_flow_tpu_torch.training import step_graph
+    from noise_flow_tpu_torch.training.trainer import Trainer
+
+    b, steps = 16, 10
+    g = torch.Generator(device="cpu").manual_seed(3)
+    clean = 0.01 + 0.89 * torch.rand((steps * b, 32, 32, 4), generator=g)
+    data = {"_x": torch.randn((steps * b, 32, 32, 4), generator=g) * torch.sqrt(5e-4 * clean),
+            "_y": clean, "nlf0": torch.full((steps * b,), 5e-4),
+            "nlf1": torch.full((steps * b,), 2e-6),
+            "iso": torch.tensor([100.0, 400.0, 800.0, 1600.0, 3200.0] * (steps * b // 5)),
+            "cam": torch.tensor([0.0, 1.0, 2.0, 3.0, 4.0] * (steps * b // 5))}
+    order = torch.randperm(steps * b, generator=g).reshape(steps, b).to(cuda_device)
+    runs = {}
+    for k in (1, 4):
+        cfg = load_hps(os.path.join(MODEL, "hps.txt"))
+        cfg.use_pallas, cfg.pallas_oneshot, cfg.pallas_train_dtype = True, oneshot, "float32"
+        flow = NoiseFlow((32, 32, 4), cfg, device=cuda_device)
+        load_checkpoint(os.path.join(MODEL, "ckpt", "model.ckpt-best.npz"), flow)
+        tr = Trainer(flow, cfg)
+        tr.stage_dataset([{n: v.numpy() for n, v in data.items()}])
+        fs.launch_counts.clear()
+        nll, sd_z = tr._staged_steps("train", order, k, True)
+        torch.cuda.synchronize()
+        names = {p: n for n, p in flow.named_parameters()}
+        state = dict(flow.state_dict(), **{f"{names[p]}/{s}": v for p, st in
+                                          tr.optimizer.state.items() for s, v in st.items()})
+        runs[k] = (nll, sd_z, state, dict(fs.launch_counts))
+    for a, r in zip(runs[4][:2], runs[1][:2]):
+        assert torch.equal(a, r)
+    assert all(torch.equal(v, runs[1][2][n]) for n, v in runs[4][2].items())
+    per_step = ({"fused_train_step": 1} if oneshot else
+                {"fused_segment_train_forward": 2, "fused_segment_backward": 2})
+    for name, n in per_step.items():
+        assert runs[1][3][name] == steps * n
+        assert runs[4][3][name] == (steps + step_graph.WARMUP_STEPS) * n
