@@ -329,6 +329,15 @@ Phases, each of which fails the run if it fails:
    kernels and modes that ran there (``under_graph``: path, launches, ms a
    step eager and graph); the rank line leaves them out.
 
+56. the DnCNN four-source comparison through ``cli.dncnn_comparison``
+   (the main path of ``experiments/dncnn/run_comparison.py``) at a cut of
+   scale: all 78 scenes at 512x2496 Bayer, 64x64 validation blocks, the
+   four sources at the JAX script's width for 30 epochs of 35 steps at b =
+   128: the noisy input's PSNR equal to a numpy recomputation from the .mat
+   files, the NF source's ``fused_sample_rng`` launches equal to its steps
+   (and no other sampler launch), each source's PSNR above the noisy
+   input's. The kernels line adds its launches to the sampler's RNG mode.
+
 The train template's redesigned step, segment backward and ghost forward
 keep one launch a call, so the exact launch counts of phases 9, 15 and 28
 are those of its parent's design; the sampler's batch-BN calls went from
@@ -3961,6 +3970,83 @@ def _graph_phases(phase):
     return out
 
 
+# Phase 56: the DnCNN four-source comparison (cli.dncnn_comparison) at a cut
+# of scale. The corpus: all 78 scene instances (the test split's 44 image
+# tuples give the 40 validation images, the ISO exclusion's indices up to
+# 38) at 512x2496 Bayer, an eighth of the full frame's area: 80 patches an
+# image, 4,480 train patches, 35 steps of b = 128 an epoch. Validation
+# blocks of 64x64. The DnCNN at the JAX script's width (depth 9, 32 filters), lr
+# 1e-3. From its random weights a DnCNN stays below the noisy input's PSNR
+# for its first several hundred Adam steps (one epoch of the full corpus,
+# 422 steps, is not enough), so the phase takes 30 epochs, the most that the
+# schedule keeps at its first lr: 1,050 steps a source.
+CMP_BAYER, CMP_BLOCK, CMP_EPOCHS = (512, 2496), 64, 30
+
+
+def _dncnn_comparison_phase(phase):
+    """Phase 56 (see the module docstring): the comparison's CLI at a cut of
+    scale, the noisy input's PSNR against numpy, the NF source's sampler
+    launches against its steps, each source above the noisy input. Returns
+    the main path's sampler launches and the results, for the kernels
+    line."""
+    import numpy as np
+    from scipy.io import loadmat
+    from noise_flow_tpu_torch.cli import dncnn_comparison, make_sidd_scale
+    from noise_flow_tpu_torch.cli.test_dncnn import EXCLUDED_ISO_IMAGES
+    from noise_flow_tpu_torch.ops import fused_sample as fs
+
+    work = os.path.join(ROOT, "build", "dncnn_comparison_smoke")
+
+    def comparison():
+        shutil.rmtree(work, ignore_errors=True)
+        root = os.path.join(work, "SIDD_Medium_Raw_synth", "Data")
+        val, out = os.path.join(work, "val"), os.path.join(work, "out")
+        h, w = CMP_BAYER
+        t0 = time.time()
+        make_sidd_scale.main(["--root", root, "--height", str(h), "--width", str(w),
+                              "--mat_version", "v5"])
+        dncnn_comparison.build_validation_blocks(root, val, size=CMP_BLOCK)
+        t_data = time.time() - t0
+        fs.launch_counts.clear()
+        t0 = time.time()
+        rc = dncnn_comparison.main(["--data_root", root, "--val_dir", val, "--out", out,
+                                    "--epochs", str(CMP_EPOCHS), "--device", "cuda"])
+        t_run = time.time() - t0
+        counts = _main_path(dict(fs.launch_counts))
+        with open(os.path.join(out, "results.json")) as f:
+            res = json.load(f)
+        r = res["results"]
+        # the noisy input's PSNR from the .mat files, in numpy
+        noisy, gt = (np.delete(loadmat(os.path.join(val, f"Validation{k}BlocksRaw.mat"))[
+            f"Validation{k}BlocksRaw"], EXCLUDED_ISO_IMAGES, axis=0).astype(np.float64)
+            for k in ("Noisy", "Gt"))
+        base = float(np.mean(10 * np.log10(1 / np.mean((noisy - gt) ** 2, axis=(2, 3)))))
+        nf = r["nf"]
+        print(f"dncnn comparison: 78 scenes of {h}x{w} Bayer and {CMP_BLOCK}x{CMP_BLOCK} "
+              f"blocks in {t_data:.1f} s; {res['n_train_patches']} train patches, blocks "
+              f"{res['val_blocks']}, {CMP_EPOCHS} epochs in {t_run:.1f} s (rc {rc}); noisy input "
+              f"{r['noisy_input']['psnr']:.4f} dB (numpy {base:.4f}), SSIM "
+              f"{r['noisy_input']['ssim']:.4f}; " + "; ".join(
+                  f"{s} {r[s]['psnr']:.4f} dB / {r[s]['ssim']:.4f}, "
+                  f"{r[s]['fit_s'] / r[s]['steps'] * 1e3:.3f} ms a step (host clock)"
+                  for s in dncnn_comparison.SOURCES)
+              + f"; sampler launches {counts} ({nf['steps']} NF steps); {res['device']}")
+        if rc != 0 or res["val_blocks"] != [20, 8, CMP_BLOCK, CMP_BLOCK]:
+            raise AssertionError(f"rc {rc}, blocks {res['val_blocks']}")
+        if abs(r["noisy_input"]["psnr"] - base) > 1e-9 * base:
+            raise AssertionError(f"noisy input {r['noisy_input']['psnr']} dB, numpy {base}")
+        if not (counts.get("fused_sample_rng", 0) == counts.get("fused_sample", 0)
+                == nf["sampler_launches"] == nf["steps"] > 0):
+            raise AssertionError(f"NF: {nf['steps']} steps, sampler launches {counts}")
+        below = [s for s in dncnn_comparison.SOURCES
+                 if not r[s]["psnr"] > r["noisy_input"]["psnr"]]
+        if below:
+            raise AssertionError(f"PSNR not above the noisy input's: {below}")
+        shutil.rmtree(work, ignore_errors=True)
+        return {"launches": nf["sampler_launches"], "results": r}
+    return phase("dncnn comparison: four sources at a cut of scale", comparison)
+
+
 # the kernels line's (kernel, mode) by the production rows of
 # _production_times that time its calls; and the redesign rows (phase 33) by
 # (kernel, mode, kind, launches a call: both segments are two launches)
@@ -4267,6 +4353,7 @@ def main() -> int:
     parallel = _parallel_phases(phase, flagship, smi)
     _spatial_packed_tf_phases(phase, nf, smi)
     graphs = _graph_phases(phase)
+    comparison = _dncnn_comparison_phase(phase)
     shutil.rmtree(flagship["work"], ignore_errors=True)
     print(f"model_family_seconds {json.dumps(family['seconds'])}")
 
@@ -4278,9 +4365,12 @@ def main() -> int:
     rng_errs, rng_t = rng_out["errs"], rng_out["timings"]
     chain_errs = {k: v for k, v in rng_errs.items() if k[0] != "normals"}
     rng_mode = dict(
-        rng_t[("rng", 128)], launches=rng_out["launches"],
+        rng_t[("rng", 128)], launches=rng_out["launches"] + comparison["launches"],
         max_abs_err=max(chain_errs.values()),
-        shape="b=128, bt=128, batch BN (the DnCNN_NF step; launches: its 2-epoch fit)",
+        shape="b=128, bt=128, batch BN (the DnCNN_NF step; launches: its 2-epoch fit and "
+              "the comparison's NF source, phase 56)",
+        comparison={"launches": comparison["launches"],
+                    "psnr": {s: v["psnr"] for s, v in comparison["results"].items()}},
         normals_max_abs_err=max(v for k, v in rng_errs.items() if k[0] == "normals"),
         by_shape={f"b={b},bn={m}": dict(rng_t.get(("rng", b), {}), max_abs_err=e)
                   for (m, b), e in chain_errs.items()},
@@ -4297,7 +4387,8 @@ def main() -> int:
         "route": "cuda",
         "source": "noise_flow_tpu_torch/csrc/fused_sample.cu",
         "replaces": "noise_flow_tpu/ops/pallas_sample.py:374",
-        "launches": launches + rng_out["launches"] + sum(flagship["launches"].values()),
+        "launches": launches + rng_out["launches"] + sum(flagship["launches"].values())
+        + comparison["launches"],
         "max_abs_err": max(max(errs.values()), rng_mode["max_abs_err"],
                            *flagship["max_abs_err"].values()),
         "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],

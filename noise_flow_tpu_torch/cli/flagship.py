@@ -22,13 +22,21 @@ Steps (``--steps``, in this order):
 - ``grid``: ``analysis.ref_parity`` on prod_exact_150 at b = 1024;
 - ``frame``: ``NoiseFlowWrapper.sample_noise_frame_spatial`` on a packed
   1500x2000 frame, timed;
-- ``report``: every step's outputs beside prod_exact_150's train.txt,
-  test.txt and kld_sweep/kld_vs_temp.txt, as one JSON file (the oracle's
-  rows beside condsdn_scale's go there in their own step).
+- ``dncnn``: the DnCNN four-source comparison (``cli.dncnn_comparison``)
+  at the recorded run's setup on the corpus: validation blocks from the
+  test scenes, one DnCNN a noise source for 45 epochs on the train scenes;
+- ``report``: the outputs of the steps that ran beside the JAX runs'
+  records: prod_exact_150's train.txt, test.txt and
+  kld_sweep/kld_vs_temp.txt, and experiments/dncnn/comparison/results.json,
+  as one JSON file (the oracle's rows beside condsdn_scale's go there in
+  their own step).
 
 Run on the card (about 30 GB of .MAT under --work):
     python -m noise_flow_tpu_torch.cli.flagship --work data/flagship \
         --report chiprun_out/flagship.json
+or only the DnCNN comparison on a new corpus:
+    python -m noise_flow_tpu_torch.cli.flagship --steps generate,dncnn,report \
+        --report chiprun_out/dncnn.json
 """
 
 from __future__ import annotations
@@ -71,7 +79,8 @@ CONDSDN = ["--arch", "", "--sidd_cond", "condSDN", "--depth", "1", "--lr", "1e-4
            "--epochs", "2", "--epochs_full_valid", "1", "--temp", "1.0", "--seed", "0",
            "--device_resident_data",
            "--init_checkpoint", os.path.join(JAX_ORACLE, "ckpt", "model.ckpt-best.npz")]
-STEPS = ("generate", "oracle", "train", "sweep", "grid", "frame", "report")
+JAX_DNCNN = os.path.join(REPO, "experiments", "dncnn", "comparison", "results.json")
+STEPS = ("generate", "oracle", "train", "sweep", "grid", "frame", "dncnn", "report")
 
 
 def read_tsv(path: str) -> List[Dict[str, str]]:
@@ -127,6 +136,34 @@ def compare_sweep(port_tsv: str, jax_tsv: str) -> Dict:
     }
 
 
+def compare_dncnn(port_json: str, jax_json: str) -> Dict:
+    """The port's comparison beside the recorded one: each source's PSNR
+    and SSIM, the record's and the differences, the setups, and the
+    paper's claim (NF above Gauss) on each side."""
+    with open(port_json) as f:
+        port = json.load(f)
+    with open(jax_json) as f:
+        jax = json.load(f)
+    rows = {}
+    for src, p in port["results"].items():
+        row = dict(p)
+        if src in jax["results"]:
+            for m in ("psnr", "ssim"):
+                row[f"jax_{m}"] = jax["results"][src][m]
+                row[f"{m}_minus_jax"] = p[m] - jax["results"][src][m]
+        rows[src] = row
+
+    def nf_above_gauss(res):
+        if not {"nf", "gauss"} <= set(res):
+            return None
+        return {m: res["nf"][m] > res["gauss"][m] for m in ("psnr", "ssim")}
+    keys = ("epochs", "batch", "n_train_patches", "val_blocks")
+    return {"setup": {k: port[k] for k in keys}, "jax_setup": {k: jax[k] for k in keys},
+            "device": port.get("device"), "rows": rows,
+            "nf_above_gauss": nf_above_gauss(port["results"]),
+            "jax_nf_above_gauss": nf_above_gauss(jax["results"])}
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--work", default=os.path.join(REPO, "data", "flagship"))
@@ -143,6 +180,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     corpus = os.path.join(a.work, "SIDD_Medium_Raw_synth", "Data")
     prefix = os.path.join(a.work, "prefix")
     sweeps = os.path.join(a.work, "kld_sweep")
+    dncnn_out = os.path.join(a.work, "dncnn")
     report_path = a.report or os.path.join(a.work, "flagship.json")
     report = (json.load(open(report_path)) if os.path.exists(report_path) else {})
     os.makedirs(a.work, exist_ok=True)
@@ -227,30 +265,46 @@ def main(argv: Optional[List[str]] = None) -> int:
                                        "noise_sd": float(noise.std())}
         timed("frame", frame)
 
+    if "dncnn" in steps:
+        from noise_flow_tpu_torch.cli import dncnn_comparison
+        timed("dncnn", lambda: dncnn_comparison.main([
+            "--data_root", corpus, "--val_dir", os.path.join(a.work, "sidd_valblocks"),
+            "--out", dncnn_out, "--device", a.device]))
+
     if "report" in steps:
         def summarize():
-            report["train_rows"] = compare_rows(os.path.join(prefix, "train.txt"),
-                                                os.path.join(JAX_RUN, "train.txt"))
-            report["test_rows"] = compare_rows(os.path.join(prefix, "test.txt"),
-                                               os.path.join(JAX_RUN, "test.txt"))
-            with open(os.path.join(prefix, "phase_timers.txt")) as f:
-                report["phase_timers"] = f.read().strip()
-            recorded = os.path.join(JAX_RUN, "kld_sweep", "kld_vs_temp.txt")
-            report["sweeps"] = {n: compare_sweep(os.path.join(sweeps, n, "kld_vs_temp.txt"),
-                                                 recorded)
-                                for n in sorted(os.listdir(sweeps))}
-            jax_runs = [s for n, s in report["sweeps"].items() if n.startswith("jax_")]
-            report["sweep_seed_spread"] = {
-                "mean_best_kld_nf": [s["mean_best_kld_nf"] for s in jax_runs],
-                "sd": float(np.std([s["mean_best_kld_nf"] for s in jax_runs]))}
-            with open(os.path.join(a.work, "ref_parity", "summary.txt")) as f:
-                report["grid_summary"] = dict(ln.rstrip("\n").split("\t", 1) for ln in f)
-            last = {r: report[f"{r}_rows"][-1] for r in ("train", "test")}
-            report["epoch_gap"] = {
-                r: {"epoch": v["epoch"], "nll_minus_jax": v["NLL"] - v.get("jax_NLL", math.nan),
-                    "sdz": v["sdz"]} for r, v in last.items()}
+            """Each part whose step's outputs are under --work."""
+            if os.path.exists(os.path.join(prefix, "train.txt")):
+                report["train_rows"] = compare_rows(os.path.join(prefix, "train.txt"),
+                                                    os.path.join(JAX_RUN, "train.txt"))
+                report["test_rows"] = compare_rows(os.path.join(prefix, "test.txt"),
+                                                   os.path.join(JAX_RUN, "test.txt"))
+                with open(os.path.join(prefix, "phase_timers.txt")) as f:
+                    report["phase_timers"] = f.read().strip()
+                last = {r: report[f"{r}_rows"][-1] for r in ("train", "test")}
+                report["epoch_gap"] = {
+                    r: {"epoch": v["epoch"],
+                        "nll_minus_jax": v["NLL"] - v.get("jax_NLL", math.nan),
+                        "sdz": v["sdz"]} for r, v in last.items()}
+            if os.path.isdir(sweeps):
+                recorded = os.path.join(JAX_RUN, "kld_sweep", "kld_vs_temp.txt")
+                report["sweeps"] = {n: compare_sweep(os.path.join(sweeps, n, "kld_vs_temp.txt"),
+                                                     recorded)
+                                    for n in sorted(os.listdir(sweeps))}
+                jax_runs = [s for n, s in report["sweeps"].items() if n.startswith("jax_")]
+                report["sweep_seed_spread"] = {
+                    "mean_best_kld_nf": [s["mean_best_kld_nf"] for s in jax_runs],
+                    "sd": float(np.std([s["mean_best_kld_nf"] for s in jax_runs]))}
+            grid = os.path.join(a.work, "ref_parity", "summary.txt")
+            if os.path.exists(grid):
+                with open(grid) as f:
+                    report["grid_summary"] = dict(ln.rstrip("\n").split("\t", 1) for ln in f)
+            if os.path.exists(os.path.join(dncnn_out, "results.json")):
+                report["dncnn"] = compare_dncnn(os.path.join(dncnn_out, "results.json"),
+                                                JAX_DNCNN)
         timed("report", summarize)
-        print(json.dumps({k: report[k] for k in ("epoch_gap", "sweep_seed_spread")}))
+        print(json.dumps({k: report[k] for k in ("epoch_gap", "sweep_seed_spread", "dncnn")
+                          if k in report}))
     return 0
 
 

@@ -352,6 +352,24 @@ def wgrad_reference(ntaps: int, a, g):
     return torch.stack(taps, 1).reshape(a.shape[0], 144)
 
 
+def wgrad_matmul_operands(ntaps: int, a, g):
+    """The operands with which one ``torch.matmul`` computes
+    ``wgrad_reference`` (its output reshaped to [B, ntaps * 16]): a's
+    tap-shifted channels [B, ntaps * 4, 1024] by g's [B, 1024, 4], both
+    rounded to bfloat16, laid out as the matmul takes them (as the JAX
+    probe's ``mm(x.reshape(R, L).T, g)`` takes its operand's transpose)."""
+    a, g = fs.bf16_round(a), fs.bf16_round(g)
+    b = a.shape[0]
+    if ntaps == 1:
+        taps = a[:, None]
+    else:
+        ap = torch.nn.functional.pad(a, (0, 0, 1, 1, 1, 1))
+        taps = torch.stack([ap[:, dh:dh + 32, dw:dw + 32]
+                            for dh in range(3) for dw in range(3)], 1)
+    return (taps.permute(0, 1, 4, 2, 3).reshape(b, ntaps * 4, 1024).contiguous(),
+            g.reshape(b, 1024, 4))
+
+
 def wgrad(variant, ntaps: int, a, g, reps: int = 1):
     """``wgrad_reference`` by a ``WGRAD_VARIANTS`` layout, one CTA a patch
     (``reps`` launches back to back)."""
@@ -601,20 +619,29 @@ def attribution(iters: int = 20, log=print, designs=DESIGNS,
     g = torch.Generator(device="cuda").manual_seed(5)
     a_in = torch.randn((B, 32, 32, 4), generator=g, device="cuda")
     g_in = torch.randn((B, 32, 32, 4), generator=g, device="cuda") / B
+    library_ms = {}
     for ntaps in (9, 1):
         p = wgrad_reference(ntaps, a_in, g_in)
         p_ms = time_ms(lambda: wgrad_reference(ntaps, a_in, g_in), 5)
+        # the library call: one float32 torch.matmul of the operands laid out
+        lhs, rhs = wgrad_matmul_operands(ntaps, a_in, g_in)
+        library_ms[ntaps] = time_ms(lambda: torch.matmul(lhs, rhs), iters)
+        lib_err = _errors(torch.matmul(lhs, rhs).reshape(p.shape), p)
+        log(f"probe wgrad library taps={ntaps}: {library_ms[ntaps]:.4f} ms (one torch.matmul), "
+            f"normwise vs plain {lib_err[0]:.3e}")
         for v in WGRAD_VARIANTS:
             k = wgrad(v, ntaps, a_in, g_in)
             torch.cuda.synchronize()
             ms = time_ms(lambda: wgrad(v, ntaps, a_in, g_in, REPS), iters) / REPS
-            row = held({"ms": ms, "plain_ms": p_ms}, "wgrad", "bfloat16", k, p)
+            row = held({"ms": ms, "plain_ms": p_ms, "library_ms": library_ms[ntaps]},
+                       "wgrad", "bfloat16", k, p)
             variants[f"{v},taps={ntaps}"] = row
             log(f"probe wgrad {v:>5} taps={ntaps}: {ms:.4f} ms, normwise vs plain "
                 f"{row['normwise_vs_plain']:.3e}")
     entry("probe_wgrad", variants["warp,taps=9"]["ms"], variants["warp,taps=9"]["plain_ms"],
           _bound(2.0 * B * 1024 * 144, 4.0 * (2 * B * 4096 + B * 144), True),
-          max(v["max_abs_vs_plain"] for v in variants.values()), variants)
+          max(v["max_abs_vs_plain"] for v in variants.values()), variants,
+          library_ms=library_ms[9])
 
     # -- launch and floor probes with the step's parameter block ----------
     # (no plain version: plain_ms and max_abs_err are null; one_op_ms is the

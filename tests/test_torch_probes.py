@@ -72,6 +72,22 @@ def test_wgrad_reference_is_the_conv_weight_gradient():
         np.testing.assert_allclose(got.sum(0).numpy(), ref.numpy(), rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("ntaps", [9, 1])
+def test_wgrad_library_matmul_computes_the_reference(ntaps):
+    """The library call that the probe times beside the wgrad kernel, one
+    torch.matmul of wgrad_matmul_operands, is wgrad_reference's function:
+    float32 sums of the same products in another order (within 1e-6
+    normwise)."""
+    g = torch.Generator().manual_seed(1)
+    a = torch.randn((3, 32, 32, 4), generator=g)
+    go = torch.randn((3, 32, 32, 4), generator=g)
+    lhs, rhs = tt.wgrad_matmul_operands(ntaps, a, go)
+    assert lhs.shape == (3, ntaps * 4, 1024) and rhs.shape == (3, 1024, 4)
+    got = torch.matmul(lhs, rhs).reshape(3, ntaps * 16)
+    ref = tt.wgrad_reference(ntaps, a, go)
+    assert float((got - ref).norm() / ref.norm()) <= 1e-6
+
+
 @pytest.mark.parametrize("mm_dtype", ["float32", "bfloat16"])
 def test_bn_chain_reference_normalises_each_group(mm_dtype):
     x = 3.0 + 2.0 * torch.randn((6, 32, 32, 4), generator=torch.Generator().manual_seed(1))
