@@ -2747,6 +2747,120 @@ def _flagship_phases(phase, agree, nf, frame):
     return out
 
 
+# Phase 57: a prod-exact fit stopped by SIGINT and resumed, on phase 39's cut
+# corpus with three more train scenes of the same cut: 5 train scenes of 2
+# images of 512 patches, 37 steps of 138 an epoch (one replay of K = 32 and a
+# 5-step tail), 7 test batches
+RESUME_TRAIN_SCENES = 5
+RESUME_EPOCHS = 3
+
+
+def _resume_phase(phase, flagship):
+    """Phase 57 (see the module docstring): cli.train's prod-exact fit for
+    RESUME_EPOCHS epochs straight, against the same fit stopped by SIGINT
+    after epoch 1 and resumed by ``--continue_training`` in a new process's
+    state (a fresh Trainer and NoiseFlow, the staged data and K = 32 graphs
+    captured anew); every parameter, BN buffer and Adam slot must be the
+    same bits, and a resume that drops the optimizer's slots must differ."""
+    import signal
+
+    import torch
+    from noise_flow_tpu_torch.cli import flagship as fl
+    from noise_flow_tpu_torch.cli import make_sidd_scale
+    from noise_flow_tpu_torch.cli import train as cli_train
+    from noise_flow_tpu_torch.ops import fused_sample as fs
+    from noise_flow_tpu_torch.training import trainer as trainer_mod
+    from noise_flow_tpu_torch.training.trainer import Trainer
+
+    def resume():
+        work = os.path.join(flagship["work"], "resume")
+        root = os.path.join(work, "SIDD_Medium_Raw", "Data")
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.copytree(flagship["root"], root)      # phase 39's scenes, copied
+        h, w = FLAGSHIP_BAYER
+        t0 = time.time()
+        make_sidd_scale.main(["--root", root, "--n_train", str(RESUME_TRAIN_SCENES),
+                              "--n_test", "1", "--height", str(h), "--width", str(w),
+                              "--mat_version", make_sidd_scale.available_mat_version()])
+        t_gen = time.time() - t0
+        argv = fl.PROD_EXACT + ["--epochs", str(RESUME_EPOCHS), "--sidd_path", root,
+                                "--device", "cuda"]
+        fits = []
+        real_fit, real_epoch = Trainer.fit, Trainer._train_epoch_staged
+        real_load = trainer_mod.load_checkpoint
+
+        def kept_fit(self, *a, **k):
+            fits.append(self)
+            return real_fit(self, *a, **k)
+
+        def epoch_then_sigint(self, shuffle_seed):
+            out = real_epoch(self, shuffle_seed)
+            if shuffle_seed == self.cfg.seed + 1:     # after epoch 1's training pass
+                signal.raise_signal(signal.SIGINT)
+            return out
+
+        def run(logdir, *extra):
+            t0 = time.time()
+            if cli_train.main(argv + ["--logdir", logdir, *extra]) != 0:
+                raise AssertionError(f"cli.train {extra} failed")
+            tr = fits[-1]
+            if tr._steps_per_call() != GRAPH_K or not tr._graphs:
+                raise AssertionError(f"K {tr._steps_per_call()}, graphs {list(tr._graphs)}")
+            return {k: v.clone() for k, v in _run_state(tr).items()}, time.time() - t0
+
+        def diff(a, b):
+            return [k for k in a if k not in b or not torch.equal(a[k], b[k])]
+
+        det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        Trainer.fit = kept_fit
+        fs.launch_counts.clear()
+        try:
+            whole, t_whole = run(os.path.join(work, "whole"))
+            split = os.path.join(work, "split")
+            Trainer._train_epoch_staged = epoch_then_sigint
+            try:
+                _, t_first = run(split)
+            finally:
+                Trainer._train_epoch_staged = real_epoch
+            first_rows = fl.read_tsv(os.path.join(split, "train.txt"))
+            shutil.copytree(split, os.path.join(work, "fault"))
+            resumed, t_resume = run(split, "--continue_training")
+            # planted fault: the resume loads the weights and BN state only
+            trainer_mod.load_checkpoint = lambda path, flow, opt=None: real_load(path, flow)
+            try:
+                dropped, _ = run(os.path.join(work, "fault"), "--continue_training")
+            finally:
+                trainer_mod.load_checkpoint = real_load
+        finally:
+            Trainer.fit = real_fit
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+        counts = _main_path(dict(fs.launch_counts))
+        bad = diff(whole, resumed)
+        caught = diff(whole, dropped)
+        # the NLL columns; train_time restarts and fit's best restarts at a
+        # resume (msg), as JAX's do
+        rows = {r: [[(x["epoch"], x["NLL"], x["sdz"]) for x in fl.read_tsv(
+            os.path.join(work, d, f"{r}.txt"))] for d in ("whole", "split")]
+            for r in ("train", "test")}
+        same_rows = all(a == b for a, b in rows.values())
+        n_opt = sum(k.startswith("opt/") for k in whole)
+        steps = next(v for k, v in resumed.items() if k.endswith("/step"))
+        print(f"resume: {RESUME_TRAIN_SCENES} train + 1 test scenes of {h}x{w} "
+              f"({t_gen:.1f} s to write the new ones); cli.train prod-exact {RESUME_EPOCHS} "
+              f"epochs straight {t_whole:.1f} s; stopped by SIGINT after epoch "
+              f"{[r['epoch'] for r in first_rows]} {t_first:.1f} s, resumed "
+              f"(--continue_training, K = {GRAPH_K} graphs captured anew) {t_resume:.1f} s; "
+              f"{len(bad)} of {len(whole)} tensors differ ({n_opt} Adam slots; Adam step "
+              f"{float(steps):g} on {steps.device}); train and test rows the same: {same_rows}; "
+              f"planted fault (the resume drops Adam's slots): {len(caught)} tensors differ; "
+              f"cuDNN deterministic; kernel launches {counts}")
+        if bad or not same_rows or not caught or counts or len(first_rows) != 1:
+            raise AssertionError(f"resume: differing {bad[:8]}, rows the same {same_rows}, "
+                                 f"fault caught {bool(caught)}, launches {counts}")
+    phase("resume: prod-exact fit stopped by SIGINT and resumed, against one run", resume)
+
+
 # Phases 42-45: every flow the JAX package builds, on the card. None has a
 # kernel (the fused envelopes exclude them all, as JAX's), so each path runs
 # the plain PyTorch flow, and every one is held to the CPU. Layer kinds at the
@@ -4349,6 +4463,7 @@ def main() -> int:
     coop = _coop_phases(phase, programs)
     eval_rows = _eval_phases(phase)
     flagship = _flagship_phases(phase, agree, nf, frame[0])
+    _resume_phase(phase, flagship)
     family = _model_family_phases(phase, flagship)
     parallel = _parallel_phases(phase, flagship, smi)
     _spatial_packed_tf_phases(phase, nf, smi)

@@ -1,8 +1,8 @@
 """CLI flag surface.
 
 Port of noise_flow_tpu.cli.args: the same flags, plus ``--device`` (default
-``cuda``), ``--init_checkpoint``, ``--dist_backend`` and
-``--pallas_train_dtype``. ``--mesh`` and
+``cuda``), ``--init_checkpoint``, ``--dist_backend``,
+``--pallas_train_dtype`` and ``--stop_after``. ``--mesh`` and
 ``--coordinator_address`` / ``--num_processes`` / ``--process_id`` select
 data-parallel training, one rank a device (cli/train.py).
 
@@ -193,6 +193,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="npz checkpoint (the JAX package's format) whose "
                         "params and state the new flow starts from; the run "
                         "itself is new: epoch 1, new logs, fresh optimizer")
+    p.add_argument("--stop_after", type=float, default=None, metavar="SECONDS",
+                   help="stop as on Ctrl-C once SECONDS have passed since the "
+                        "start: the epoch in progress finishes and a "
+                        "checkpoint is saved after it, from which "
+                        "--continue_training resumes (one rank only)")
     return p
 
 

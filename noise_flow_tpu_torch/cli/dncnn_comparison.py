@@ -19,11 +19,15 @@ validation format (ValidationNoisyBlocksRaw.mat / ValidationGtBlocksRaw.mat,
 20-image ISO exclusion. The paper's core downstream claim: DnCNN-NF beats
 DnCNN-Gauss.
 
-One more argument than the JAX script, ``--device`` (default ``cuda``;
+Three more arguments than the JAX script: ``--device`` (default ``cuda``;
 ``--device cpu`` runs the plain PyTorch path, the sampler's plain version
-included). ``results.json`` carries the JAX script's keys, and per source
-also the sampler's launches, the steps and the fit's seconds, and
-``device``, the card's name and power limit as ``nvidia-smi`` reads them.
+included), and ``--seed`` and ``--dtype``, the arguments of every source's
+``DnCNNTrainer`` (the DnCNN's initial weights, and its convolutions in
+float32 or bfloat16; defaults 0 and float32, the JAX script's trainer
+defaults). ``results.json`` carries the JAX script's keys, ``seed`` and
+``dtype``, per source also the sampler's launches, the steps and the fit's
+seconds, and ``device``, the card's name and power limit as ``nvidia-smi``
+reads them.
 
 Run on the card (the corpus first, about 30 GB):
     python -m noise_flow_tpu_torch.cli.make_sidd_scale
@@ -164,6 +168,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--batch", type=int, default=128)
     p.add_argument("--max_images", type=int, default=0)
     p.add_argument("--sources", default=",".join(SOURCES))
+    p.add_argument("--seed", type=int, default=0, help="DnCNNTrainer(seed=)")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                   help="DnCNNTrainer(dtype=): the DnCNN's convolutions")
     p.add_argument("--device", default="cuda")
     a = p.parse_args(argv)
     device = resolve_device(a.device)   # raises where no card is present
@@ -193,7 +200,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     results = {}
     for src in sources:
         t0 = time.time()
-        results[src] = run_source(make_trainer(src, rows, device, flow), clean, noisy,
+        results[src] = run_source(make_trainer(src, rows, device, flow, seed=a.seed,
+                                               dtype=a.dtype), clean, noisy,
                                   noisy_mat, ref_mat, os.path.join(a.out, f"DnCNN_{src}"),
                                   a.epochs, a.batch, t0=t0)
         r = results[src]
@@ -203,7 +211,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     results["noisy_input"] = {"psnr": float(base_psnr), "ssim": float(base_ssim)}
     with open(os.path.join(a.out, "results.json"), "w") as f:
-        json.dump({"epochs": a.epochs, "batch": a.batch,
+        json.dump({"epochs": a.epochs, "batch": a.batch, "seed": a.seed, "dtype": a.dtype,
                    "n_train_patches": int(len(clean)),
                    "val_blocks": list(noisy_mat.shape),
                    "device": device_name(device),

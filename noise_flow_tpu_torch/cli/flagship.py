@@ -10,16 +10,30 @@ Steps (``--steps``, in this order):
   that run's checkpoint (``--init_checkpoint``), staged data as its run,
   without its npy cache and native loader (``probes.oracle`` reads the
   rest of the gap to its rows);
-- ``train``: a prefix of the ``prod-exact`` recipe (jobs/job_noise_flow.sh
-  prod-exact: exact batch BN on the plain path, b 138, staged data) through
-  ``cli.train``, without the recipe's npy cache and native loader (they
-  change the staged order of the patches, not the patches): the .MAT
-  corpus and its cache are ~50 GB written, more than a card machine of
-  45 GiB takes in one run (chip_smoke.py drives both at a cut of scale);
+- ``train``: the ``prod-exact`` recipe (jobs/job_noise_flow.sh
+  prod-exact: exact batch BN on the plain path, b 138, K = 32 graph
+  replays, staged data) to ``--epochs`` through ``cli.train``, without the
+  recipe's npy cache and native loader (they change the staged order of
+  the patches, not the patches): the .MAT corpus and its cache are ~50 GB
+  written, more than a card machine of 45 GiB takes in one run
+  (chip_smoke.py drives both at a cut of scale). Resumable over calls:
+  ``--stop_after S`` stops it S seconds after this process started (the
+  epoch in progress finishes, then a checkpoint is saved), and the next
+  call, given the same ``--logdir`` (or a copy of it as ``--resume_from``),
+  passes ``--continue_training``. Each call is listed in the logdir's
+  ``calls.json`` (its epochs, seconds, loading split and the corpus's
+  content signature). After each call the checkpoint of the lowest test
+  row so far is kept in ``<logdir>/best_of_run`` (``fit`` starts its best
+  afresh at every resume, so its own ``model.ckpt-best.npz`` is the best
+  of one call only), and the sample phases' .mat dumps
+  (``samples_epoch_*``, about 7 MB a test epoch) are removed, so that the
+  logdir stays small enough to carry between calls;
 - ``sweep``: ``cli.kld_sweep`` over the test split at the recorded
   temperatures, on experiments/sidd/prod_exact_150 (seed 0 and
-  ``--sweep_seeds``) and on the prefix model;
-- ``grid``: ``analysis.ref_parity`` on prod_exact_150 at b = 1024;
+  ``--sweep_seeds``) and on the port's own best model (best_of_run, seed
+  0), through the fused sampler;
+- ``grid``: ``analysis.ref_parity`` at b = 1024 on prod_exact_150 and on
+  the port's best model;
 - ``frame``: ``NoiseFlowWrapper.sample_noise_frame_spatial`` on a packed
   1500x2000 frame, timed;
 - ``dncnn``: the DnCNN four-source comparison (``cli.dncnn_comparison``)
@@ -34,6 +48,12 @@ Steps (``--steps``, in this order):
 Run on the card (about 30 GB of .MAT under --work):
     python -m noise_flow_tpu_torch.cli.flagship --work data/flagship \
         --report chiprun_out/flagship.json
+the 150 epochs over calls of at most an hour, the logdir kept where the
+next call finds it (a copy of the last call's as --resume_from):
+    python -m noise_flow_tpu_torch.cli.flagship --steps generate,train,report \
+        --epochs 150 --stop_after 3000 --logdir chiprun_out/flagship150 \
+        [--resume_from data/flagship150] --report chiprun_out/flagship150.json
+and, in the call that reaches epoch 150, --steps generate,train,sweep,grid,report.
 or only the DnCNN comparison on a new corpus:
     python -m noise_flow_tpu_torch.cli.flagship --steps generate,dncnn,report \
         --report chiprun_out/dncnn.json
@@ -136,6 +156,55 @@ def compare_sweep(port_tsv: str, jax_tsv: str) -> Dict:
     }
 
 
+BEST_DIR = "best_of_run"
+
+
+def keep_best(logdir: str) -> Optional[Dict]:
+    """Keep aside the checkpoint of the lowest test row of the run so far:
+    ``<logdir>/best_of_run/{hps.txt, ckpt/model.ckpt-best.npz, best.json}``,
+    a model directory that ``NoiseFlowWrapper`` loads. ``fit`` restarts its
+    best at every resume (as JAX's), so ``ckpt/model.ckpt-best.npz`` is the
+    lowest test row since the last resume; it replaces the kept one only if
+    its row is lower (the first of equal rows stays, as an uninterrupted
+    run's strict ``<`` keeps it). Call it after every call's ``train``,
+    before the next call's ``fit`` overwrites that file. Returns the kept
+    record ({"epoch", "nll"}) or None."""
+    aside = os.path.join(logdir, BEST_DIR)
+    rec_path = os.path.join(aside, "best.json")
+    kept = None
+    if os.path.exists(rec_path):
+        with open(rec_path) as f:
+            kept = json.load(f)
+    ckpt = os.path.join(logdir, "ckpt", "model.ckpt-best.npz")
+    if not os.path.exists(ckpt):
+        return kept
+    with np.load(ckpt) as z:
+        epoch = int(z["__epoch__"])
+    rows = {int(r["epoch"]): float(r["NLL"]) for r in read_tsv(os.path.join(logdir, "test.txt"))}
+    if kept is not None and not rows[epoch] < kept["nll"]:
+        return kept
+    os.makedirs(os.path.join(aside, "ckpt"), exist_ok=True)
+    if os.path.exists(os.path.join(logdir, "hps.txt")):     # cli.train's, not fit's
+        shutil.copyfile(os.path.join(logdir, "hps.txt"), os.path.join(aside, "hps.txt"))
+    shutil.copyfile(ckpt, os.path.join(aside, "ckpt", "model.ckpt-best.npz"))
+    kept = {"epoch": epoch, "nll": rows[epoch]}
+    with open(rec_path, "w") as f:
+        json.dump(kept, f)
+    return kept
+
+
+def summed_train_time(train_tsv: str, starts: List[int]) -> int:
+    """``train.txt``'s cumulative ``train_time`` restarts at each resume:
+    the sum over the calls (``starts``: each call's first epoch) of each
+    call's last value."""
+    rows = [(int(r["epoch"]), int(r["train_time"])) for r in read_tsv(train_tsv)]
+    bounds = sorted(starts)[1:]
+    last = {}
+    for epoch, t in rows:
+        last[sum(epoch >= b for b in bounds)] = t
+    return sum(last.values())
+
+
 def compare_dncnn(port_json: str, jax_json: str) -> Dict:
     """The port's comparison beside the recorded one: each source's PSNR
     and SSIM, the record's and the differences, the setups, and the
@@ -158,7 +227,10 @@ def compare_dncnn(port_json: str, jax_json: str) -> Dict:
             return None
         return {m: res["nf"][m] > res["gauss"][m] for m in ("psnr", "ssim")}
     keys = ("epochs", "batch", "n_train_patches", "val_blocks")
-    return {"setup": {k: port[k] for k in keys}, "jax_setup": {k: jax[k] for k in keys},
+    setup = {k: port[k] for k in keys}
+    # the port's DnCNNTrainer arguments (the JAX script's trainer defaults)
+    setup.update(seed=port.get("seed", 0), dtype=port.get("dtype", "float32"))
+    return {"setup": setup, "jax_setup": {k: jax[k] for k in keys},
             "device": port.get("device"), "rows": rows,
             "nf_above_gauss": nf_above_gauss(port["results"]),
             "jax_nf_above_gauss": nf_above_gauss(jax["results"])}
@@ -172,13 +244,23 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--sweep_seeds", default="1,2,3")
     p.add_argument("--steps", default=",".join(STEPS))
     p.add_argument("--report", default=None, help="JSON report (default <work>/flagship.json)")
+    p.add_argument("--logdir", default=None, help="the train step's logdir "
+                   "(default <work>/prefix); a resumed run keeps it across calls")
+    p.add_argument("--resume_from", default=None,
+                   help="a copy of an earlier call's logdir, copied to --logdir "
+                        "when that holds no checkpoint yet")
+    p.add_argument("--stop_after", type=float, default=None, metavar="SECONDS",
+                   help="the train step stops itself SECONDS after this process "
+                        "started (cli.train --stop_after)")
     p.add_argument("--device", default="cuda")
     a = p.parse_args(argv)
+    t_start = time.time()
     steps = a.steps.split(",")
     if set(steps) - set(STEPS):
         raise SystemExit(f"--steps takes {STEPS}, got {steps}")
     corpus = os.path.join(a.work, "SIDD_Medium_Raw_synth", "Data")
-    prefix = os.path.join(a.work, "prefix")
+    prefix = a.logdir or os.path.join(a.work, "prefix")
+    best_dir = os.path.join(prefix, BEST_DIR)
     sweeps = os.path.join(a.work, "kld_sweep")
     dncnn_out = os.path.join(a.work, "dncnn")
     report_path = a.report or os.path.join(a.work, "flagship.json")
@@ -192,6 +274,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"[flagship] {name}: {report['seconds'][name]:.1f} s", flush=True)
         with open(report_path, "w") as f:
             json.dump(report, f, indent=1)
+
+    def counted(name, entry, argv):
+        """Run ``entry(argv)``; the fused sampler's launches in it go to the
+        report."""
+        from noise_flow_tpu_torch.ops import fused_sample as fs
+        before = dict(fs.launch_counts)
+        if entry(argv):
+            raise RuntimeError(f"{name} failed")
+        report.setdefault("sampler_launches", {})[name] = {
+            k: v - before.get(k, 0) for k, v in fs.launch_counts.items()
+            if v != before.get(k, 0)}
 
     if "generate" in steps:
         from noise_flow_tpu_torch.cli import make_sidd_scale
@@ -223,28 +316,72 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if "train" in steps:
         from noise_flow_tpu_torch.cli import train as cli_train
+        from noise_flow_tpu_torch.cli.dncnn_comparison import device_name
+        from noise_flow_tpu_torch.utils.checkpoint import latest_checkpoint
+        from noise_flow_tpu_torch.utils.device import resolve_device
 
         def train():
-            if cli_train.main(PROD_EXACT + [
-                    "--epochs", str(a.epochs), "--seed", str(a.seed), "--sidd_path", corpus,
-                    "--logdir", prefix, "--device", a.device]):
+            ckpt_dir = os.path.join(prefix, "ckpt")
+            if a.resume_from and not latest_checkpoint(ckpt_dir):
+                shutil.copytree(a.resume_from, prefix, dirs_exist_ok=True)
+            keep_best(prefix)     # before fit's resume overwrites model.ckpt-best
+            last = latest_checkpoint(ckpt_dir)
+            argv = PROD_EXACT + ["--epochs", str(a.epochs), "--seed", str(a.seed),
+                                 "--sidd_path", corpus, "--logdir", prefix,
+                                 "--device", a.device]
+            if last:
+                argv.append("--continue_training")
+            if a.stop_after is not None:
+                argv += ["--stop_after", str(max(a.stop_after - (time.time() - t_start), 0.0))]
+            calls_path = os.path.join(prefix, "calls.json")
+            calls = []
+            if os.path.exists(calls_path):
+                with open(calls_path) as f:
+                    calls = json.load(f)
+            start = 1
+            if last:
+                with np.load(last) as z:
+                    start = int(z["__epoch__"]) + 1
+            t0 = time.time()
+            if cli_train.main(argv):
                 raise RuntimeError("cli.train failed")
+            rows = read_tsv(os.path.join(prefix, "train.txt"))
+            with open(os.path.join(prefix, "loading.json")) as f:
+                loading = json.load(f)
+            calls.append({"start_epoch": start, "end_epoch": int(rows[-1]["epoch"]),
+                          "seconds": time.time() - t0, "loading": loading,
+                          "device": device_name(resolve_device(a.device))})
+            with open(calls_path, "w") as f:
+                json.dump(calls, f, indent=1)
+            best = keep_best(prefix)
+            for d in os.listdir(prefix):
+                if d.startswith("samples_epoch_"):
+                    shutil.rmtree(os.path.join(prefix, d))
+            split = {k: round(v, 1) for k, v in loading.items() if k.endswith("_s")}
+            print(f"[flagship] train: epochs {start}-{calls[-1]['end_epoch']} of {a.epochs}, "
+                  f"loading {split}, best so far {best}", flush=True)
         timed("train", train)
 
     if "sweep" in steps:
         from noise_flow_tpu_torch.cli import kld_sweep
         runs = [(f"jax_seed{s}", JAX_RUN, s) for s in [0] + [
-            int(s) for s in a.sweep_seeds.split(",") if s]] + [("prefix_seed0", prefix, 0)]
+            int(s) for s in a.sweep_seeds.split(",") if s]]
+        if os.path.isdir(best_dir):
+            runs.append(("port_best_seed0", best_dir, 0))
         for name, model, seed in runs:
-            timed(f"sweep_{name}", lambda m=model, s=seed, n=name: kld_sweep.main([
-                "--model_dir", m, "--sidd_path", corpus, "--temps", SWEEP_TEMPS,
-                "--seed", str(s), "--logdir", os.path.join(sweeps, n), "--device", a.device]))
+            argv = ["--model_dir", model, "--sidd_path", corpus, "--temps", SWEEP_TEMPS,
+                    "--seed", str(seed), "--logdir", os.path.join(sweeps, name),
+                    "--device", a.device]
+            timed(f"sweep_{name}", lambda n=name, v=argv: counted(n, kld_sweep.main, v))
 
     if "grid" in steps:
         from noise_flow_tpu_torch.analysis import ref_parity
-        timed("grid", lambda: ref_parity.main([
-            "--model_dir", JAX_RUN, "--batch", "1024", "--device", a.device,
-            "--out_dir", os.path.join(a.work, "ref_parity")]))
+        grids = [("grid", JAX_RUN, "ref_parity")] + (
+            [("grid_port_best", best_dir, "ref_parity_port")] if os.path.isdir(best_dir) else [])
+        for name, model, out in grids:
+            argv = ["--model_dir", model, "--batch", "1024", "--device", a.device,
+                    "--out_dir", os.path.join(a.work, out)]
+            timed(name, lambda n=name, v=argv: counted(n, ref_parity.main, v))
 
     if "frame" in steps:
         from noise_flow_tpu_torch.data.synthetic import make_synthetic_samples
@@ -286,6 +423,29 @@ def main(argv: Optional[List[str]] = None) -> int:
                     r: {"epoch": v["epoch"],
                         "nll_minus_jax": v["NLL"] - v.get("jax_NLL", math.nan),
                         "sdz": v["sdz"]} for r, v in last.items()}
+                report["epochs_as_jax"] = {
+                    r: [x["epoch"] for x in report[f"{r}_rows"]] == [
+                        int(x["epoch"]) for x in read_tsv(os.path.join(JAX_RUN, f"{r}.txt"))
+                        if int(x["epoch"]) <= last[r]["epoch"]] for r in ("train", "test")}
+                calls_path = os.path.join(prefix, "calls.json")
+                if os.path.exists(calls_path):
+                    with open(calls_path) as f:
+                        calls = json.load(f)
+                    report["calls"] = calls
+                    report["train_time_s"] = summed_train_time(
+                        os.path.join(prefix, "train.txt"), [c["start_epoch"] for c in calls])
+                    sigs = {json.dumps([c["loading"]["content_sig_train"],
+                                        c["loading"]["content_sig_test"]]) for c in calls}
+                    report["content_sig_equal"] = len(sigs) == 1
+                best_rec = os.path.join(best_dir, "best.json")
+                if os.path.exists(best_rec):
+                    with open(best_rec) as f:
+                        best = json.load(f)
+                    jax_best = min(read_tsv(os.path.join(JAX_RUN, "test.txt")),
+                                   key=lambda r: float(r["NLL"]))
+                    report["best_gap"] = dict(best, jax_epoch=int(jax_best["epoch"]),
+                                              jax_nll=float(jax_best["NLL"]),
+                                              nll_minus_jax=best["nll"] - float(jax_best["NLL"]))
             if os.path.isdir(sweeps):
                 recorded = os.path.join(JAX_RUN, "kld_sweep", "kld_vs_temp.txt")
                 report["sweeps"] = {n: compare_sweep(os.path.join(sweeps, n, "kld_vs_temp.txt"),
@@ -295,15 +455,18 @@ def main(argv: Optional[List[str]] = None) -> int:
                 report["sweep_seed_spread"] = {
                     "mean_best_kld_nf": [s["mean_best_kld_nf"] for s in jax_runs],
                     "sd": float(np.std([s["mean_best_kld_nf"] for s in jax_runs]))}
-            grid = os.path.join(a.work, "ref_parity", "summary.txt")
-            if os.path.exists(grid):
-                with open(grid) as f:
-                    report["grid_summary"] = dict(ln.rstrip("\n").split("\t", 1) for ln in f)
+            for key, out in (("grid_summary", "ref_parity"),
+                             ("grid_summary_port_best", "ref_parity_port")):
+                grid = os.path.join(a.work, out, "summary.txt")
+                if os.path.exists(grid):
+                    with open(grid) as f:
+                        report[key] = dict(ln.rstrip("\n").split("\t", 1) for ln in f)
             if os.path.exists(os.path.join(dncnn_out, "results.json")):
                 report["dncnn"] = compare_dncnn(os.path.join(dncnn_out, "results.json"),
                                                 JAX_DNCNN)
         timed("report", summarize)
-        print(json.dumps({k: report[k] for k in ("epoch_gap", "sweep_seed_spread", "dncnn")
+        print(json.dumps({k: report[k] for k in ("epoch_gap", "best_gap", "train_time_s",
+                                                 "sweep_seed_spread", "dncnn")
                           if k in report}))
     return 0
 

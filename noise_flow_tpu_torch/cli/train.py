@@ -35,6 +35,13 @@ Run (the published config on the card, fused kernels):
         --arch "sdn5|unc|unc|unc|unc|gain4|unc|unc|unc|unc" --width 4 \
         --lr 1e-4 --n_batch_train 138 --patch_height 32 --use_pallas \
         --n_patches_per_image 2898 --epochs 2000 --logdir exp/nf
+A run longer than one sitting: ``--stop_after SECONDS`` stops it as Ctrl-C
+does (the epoch in progress finishes, then a checkpoint is saved), and the
+same command with ``--continue_training`` resumes from that checkpoint.
+The loading is split into its parts (decode of each split, stats and
+baselines, staging): printed, and written to ``loading.json`` in the logdir
+with the patch sets' content signatures.
+
 Smoke run without SIDD, on the CPU:
     python -m noise_flow_tpu_torch.cli.train --synthetic_data 2 --epochs 2 \
         --patch_height 32 --n_batch_train 8 --device cpu --logdir /tmp/nf
@@ -43,9 +50,12 @@ Smoke run without SIDD, on the CPU:
 from __future__ import annotations
 
 import itertools
+import json
 import logging
 import os
+import signal
 import sys
+import threading
 import time
 from typing import List, Optional
 
@@ -168,11 +178,47 @@ def stats_and_baselines(args, cfg, tr, ts):
     return stats, nll_gauss, nll_sdn
 
 
+class StopTimer:
+    """Raise SIGINT in this process at ``deadline`` (``time.time()``), once
+    ``Trainer.fit``'s Ctrl-C handler is installed: fit then finishes the
+    epoch, saves a checkpoint and returns. While the timer lives, SIGINT that
+    lands outside fit is taken by a handler that only notes it, so that no
+    KeyboardInterrupt escapes around fit. ``close()`` stops the timer and
+    puts the previous handler back. Main thread only."""
+
+    def __init__(self, deadline: float):
+        self.deadline = deadline
+        self._done = threading.Event()
+        self._prev = signal.signal(signal.SIGINT, self._outside)
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _outside(self, signum, frame):
+        logging.info("SIGINT outside the epoch loop: ignored")
+
+    def _run(self):
+        if self._done.wait(max(self.deadline - time.time(), 0.0)):
+            return
+        while signal.getsignal(signal.SIGINT) == self._outside:
+            if self._done.wait(0.2):
+                return
+        logging.info("--stop_after: the deadline passed; stopping after this epoch")
+        os.kill(os.getpid(), signal.SIGINT)
+
+    def close(self):
+        self._done.set()
+        self._thread.join()
+        signal.signal(signal.SIGINT, self._prev)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     args, cfg = parse_config(argv)
     add_trace_level()
     logging.basicConfig(level=logging.INFO)
+    if args.stop_after is not None and (args.coordinator_address
+                                        or mesh_ranks(args.mesh, args.device) > 1):
+        raise SystemExit("--stop_after stops one rank; it takes no --mesh or coordinator")
     if args.coordinator_address:
         if args.num_processes is None or args.process_id is None:
             raise ValueError("--coordinator_address needs --num_processes and --process_id")
@@ -215,10 +261,17 @@ def _train(args, cfg, device_name: str) -> int:
     chief = pd.rank() == 0
 
     # data + stats + analytic baselines (ref:train_noise_flow.py:264-280)
+    loading = {}
+    t0 = time.time()
     tr = load_split(args, cfg, "train")
+    loading["decode_train_s"] = time.time() - t0
+    t0 = time.time()
     ts = load_split(args, cfg, "test")
+    loading["decode_test_s"] = time.time() - t0
     logging.info("train patches: %d, test patches: %d", len(tr), len(ts))
+    t0 = time.time()
     stats, nll_gauss, nll_sdn = stats_and_baselines(args, cfg, tr, ts)
+    loading["stats_baselines_s"] = time.time() - t0
     logging.info("baselines: NLL_G=%.3f NLL_SDN=%.3f", nll_gauss, nll_sdn)
 
     # --calc_*_only early exits (ref:Initialization.py:31-75 modes)
@@ -321,13 +374,27 @@ def _train(args, cfg, device_name: str) -> int:
         t0 = time.time()
         n_tr = trainer.stage_dataset(train_fn(), "train")
         n_ts = trainer.stage_dataset(test_fn(), "test", max_patches=args.staged_test_patches)
+        loading["stage_s"] = time.time() - t0
         logging.info("staged %d train + %d test patches on %s (%.1fs)",
-                     n_tr, n_ts, device, time.time() - t0)
+                     n_tr, n_ts, device, loading["stage_s"])
         trainer.sample_batches_cap = args.n_sample_batches
+    loading["to_fit_s"] = time.time() - t_start
+    loading.update(train_patches=len(tr), test_patches=len(ts),
+                   content_sig_train=content_sig(tr.x), content_sig_test=content_sig(ts.x))
+    logging.info("loading: %s", " ".join(f"{k}={v:.1f}" for k, v in loading.items()
+                                         if k.endswith("_s")))
+    if chief:
+        with open(os.path.join(cfg.logdir, "loading.json"), "w") as f:
+            json.dump(loading, f, indent=1)
 
-    trainer.fit(train_fn, test_fn, cfg.logdir, epochs=cfg.epochs, nll_gauss=nll_gauss,
-                nll_sdn=nll_sdn, sc_sd=stats["sc_in_sd"], do_sampling=args.do_sample,
-                verbose=True, sample_batches_fn=sample_fn)
+    stop = StopTimer(t_start + args.stop_after) if args.stop_after is not None else None
+    try:
+        trainer.fit(train_fn, test_fn, cfg.logdir, epochs=cfg.epochs, nll_gauss=nll_gauss,
+                    nll_sdn=nll_sdn, sc_sd=stats["sc_in_sd"], do_sampling=args.do_sample,
+                    verbose=True, sample_batches_fn=sample_fn)
+    finally:
+        if stop is not None:
+            stop.close()
 
     total = time.time() - t_start
     if chief:
