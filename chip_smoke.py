@@ -338,6 +338,37 @@ Phases, each of which fails the run if it fails:
    (and no other sampler launch), each source's PSNR above the noisy
    input's. The kernels line adds its launches to the sampler's RNG mode.
 
+57. (run after phase 41) ``cli.train``'s prod-exact fit on phase 39's corpus
+   plus three train scenes, 3 epochs straight against the same fit stopped
+   by SIGINT after epoch 1 and resumed by ``--continue_training`` in a fresh
+   Trainer: every parameter, BN buffer and Adam slot the same bits; a
+   planted resume without Adam's slots must differ.
+
+58. (run after phase 55) K train steps a dispatch under a mesh: each rank's
+   K steps with their nccl all-reduces captured as one CUDA graph
+   (``training.step_graph``, ``parallel.distributed._all_reduce_``). (a) On
+   any card: a one-rank nccl group (a process started here), the trainer's
+   mesh step written out so that it issues its collectives on one rank: the
+   plain exact-BN step (65 all-reduces a step: the BatchNorm sums forward
+   and backward, the flat all-reduce) and the one-shot f32 step (1), at b =
+   138 from the flagship's weights, 2 replays of a K = 4 graph against the
+   same 8 steps eager: every step's NLL and sd_z, the weights, BN state and
+   Adam's slots the same bits (or, where the collectives sum in another
+   order, the first difference named and held to phase 46's tolerances);
+   each replay counting its K x 65 or K all-reduces and its K step
+   launches; the planted fault (the graph's static input buffer, which the
+   captured BN all-reduces read, rebound after capture) must differ. (b)
+   With two cards or more: ``cli.train --mesh N --steps_per_call 32``, N the
+   visible cards up to 4, nccl, on phase 39's corpus (random patches, 2
+   epochs of 70 steps at 276: 2 replays and a 6-step tail an epoch), the
+   plain and the one-shot f32 path, against the same N ranks at K = 1: the
+   same comparisons by rank, the ranks' graph runs the same bits, one graph
+   a rank, a replay's 32 step launches and its all-reduces; each rank's ms a
+   step, eager and graph (host clock over epoch 2, input included). (c) A
+   line says whether (b) ran, and why not ("1 card visible; nccl takes one
+   rank a card"). The kernels line gives the one-shot step's launches of
+   (a) and, by rank, of (b) under its entry's ``parallel.mesh_graphs``.
+
 The train template's redesigned step, segment backward and ghost forward
 keep one launch a call, so the exact launch counts of phases 9, 15 and 28
 are those of its parent's design; the sampler's batch-BN calls went from
@@ -4084,6 +4115,335 @@ def _graph_phases(phase):
     return out
 
 
+# Phase 58: K train steps a dispatch under a mesh. Each rank captures its K
+# steps with every all-reduce they issue as one CUDA graph (the nccl
+# collectives recorded through parallel.distributed._all_reduce_), as XLA
+# puts the gradient all-reduce inside JAX's sharded scan. (a) runs on any
+# card: a one-rank nccl group (started here, ranks of their own process),
+# the trainer's mesh step written out so that its collectives are issued on
+# one rank (the trainer's own skip them there, as JAX's psum over one device
+# is the identity): the plain exact-BN step (the BN sums forward and
+# backward, then the flat all-reduce: 65 a step) and the one-shot step (its
+# kernel, then the flat all-reduce of gradients, metrics and BN state: 1 a
+# step), K = 4 a replay over 2 groups, against the same 8 steps eager from
+# the same state. (b) needs two cards or more, as nccl takes one rank a
+# card: cli.train --mesh N --steps_per_call 32 (N = the visible cards, at
+# most 4) against the same N ranks at K = 1, 2 epochs of 70 steps at the
+# multihost recipe's global batch of 276 on phase 39's corpus.
+MESH_GRAPH_K1 = 4
+MESH_GRAPH_K = 32
+MESH_GRAPH_MAX_RANKS = 4
+MESH_GRAPH_STEPS = 70            # an epoch at 276: 2 replays and a 6-step tail
+MESH_GRAPH_EPOCHS = 2
+# random patches an image: 4 train images x 4830 = 70 x 276
+MESH_GRAPH_PATCHES = MESH_GRAPH_STEPS * PAR_B // 4
+MESH_GRAPH_SPAWN_S = 600
+MESH_GRAPH_DIR = os.path.join(ROOT, "build", "chip_smoke_mesh_graphs")
+MESH_GRAPH_PATHS = (("plain exact BN", False), ("one-shot f32", True))
+
+
+def _opt_state(flow, optimizer):
+    """The flow's state dict and the optimizer's slots, by name, on the CPU."""
+    out = {f"flow/{k}": v.detach().cpu().clone() for k, v in flow.state_dict().items()}
+    names = {p: n for n, p in flow.named_parameters()}
+    for p, st in optimizer.state.items():
+        for slot, v in st.items():
+            out[f"opt/{names[p]}/{slot}"] = v.detach().cpu().clone()
+    return out
+
+
+def _first_difference(a, b):
+    """(step, name) of the first difference between two runs' (nll [n],
+    sd_z [n], state); None where they are the same bits."""
+    import torch
+    for j in range(len(b["nll"])):
+        for name in ("nll", "sd_z"):
+            if not torch.equal(a[name][j], b[name][j]):
+                return j, name
+    for name, v in b["state"].items():
+        if name not in a["state"] or not torch.equal(a["state"][name], v):
+            return None, name
+    return None
+
+
+def _one_rank_capture(rank, device):
+    """Part (a) of phase 58 in a one-rank nccl group: for the plain and the
+    one-shot f32 step, 2 groups of K = 4 at b = 138 eager, as replays of one
+    graph, and as replays with the graph's static input buffer rebound after
+    capture (the planted fault: the captured BN all-reduces read the stale
+    buffer)."""
+    import torch
+    from noise_flow_tpu_torch.config import load_hps
+    from noise_flow_tpu_torch.models.flow import NoiseFlow
+    from noise_flow_tpu_torch.ops import fused_sample as fs
+    from noise_flow_tpu_torch.ops.fused_train import FusedTrainStep, pick_block
+    from noise_flow_tpu_torch.parallel import distributed as pd
+    from noise_flow_tpu_torch.parallel.mesh import Mesh
+    from noise_flow_tpu_torch.probes.mesh import set_deterministic
+    from noise_flow_tpu_torch.training.step_graph import StepGraph
+    from noise_flow_tpu_torch.training.trainer import batch_to_cond, make_optimizer
+    from noise_flow_tpu_torch.utils.checkpoint import load_checkpoint
+
+    torch.cuda.set_device(device)
+    set_deterministic(PAR_DETERMINISM)
+    k, b = MESH_GRAPH_K1, TRAIN_B
+    groups = []
+    for gi in range(2):
+        x, cond = _train_batch(k * b, GRAPH_SEED + gi)
+        groups.append({"_x": x.reshape(k, b, 32, 32, 4),
+                       "_y": cond["clean"].reshape(k, b, 32, 32, 4),
+                       **{n: cond[n].reshape(k, b) for n in ("nlf0", "nlf1", "iso", "cam")}})
+
+    def at(feed, j):
+        return {n: v[j] for n, v in feed.items()}
+
+    def run(oneshot, graph, plant=None):
+        cfg = load_hps(os.path.join(MODEL, "hps.txt"))
+        flow = NoiseFlow(cfg.x_shape, cfg, device=device, seed=cfg.seed)
+        load_checkpoint(PAR_INIT, flow)
+        opt = make_optimizer(cfg, list(flow.parameters()))
+        fstep = FusedTrainStep(flow, bt=pick_block(b, target=64, stretch=8),
+                               mm_dtype="float32") if oneshot else None
+
+        def psum(t):
+            return pd._AllReduceSum.apply(t, None)
+
+        def step(batch):
+            """Trainer.train_step under a mesh, its collectives issued."""
+            if oneshot:
+                nll, sd_z, new_state = fstep.loss(batch["_x"], batch_to_cond(batch))
+            else:
+                nll, sd_z, new_state = flow.loss(batch["_x"], batch_to_cond(batch), train=True,
+                                                 psum=psum)
+            opt.zero_grad(set_to_none=True)
+            nll.backward()
+            metrics = torch.stack([nll.detach(), sd_z.detach()])
+            tensors = [p.grad for p in flow.parameters() if p.grad is not None] + [metrics] + (
+                list(new_state.values()) if oneshot else [])
+            flat = pd._all_reduce_(torch.cat([t.detach().reshape(-1) for t in tensors]), None)
+            off = 0
+            with torch.no_grad():
+                for t in tensors:
+                    t.copy_(flat[off:off + t.numel()].view_as(t))
+                    off += t.numel()
+            opt.step()
+            flow.apply_state(new_state)
+            return metrics[0], metrics[1]
+
+        fs.launch_counts.clear()
+        pd.collective_stats["calls"] = 0
+        nll, sd_z, per_replay, g = [], [], [], None
+        if graph:
+            g = StepGraph(step, {n: v.clone() for n, v in groups[0].items()}, at, k, flow, opt,
+                          Mesh(1, 0, device))
+            if plant:
+                plant(g)
+            for grp in groups:
+                before = pd.collective_stats["calls"]
+                n_, s_ = g.replay(grp)
+                per_replay.append(pd.collective_stats["calls"] - before)
+                nll.append(n_)
+                sd_z.append(s_)
+        else:
+            for grp in groups:
+                for j in range(k):
+                    n_, s_ = step(at(grp, j))
+                    nll.append(n_.reshape(1))
+                    sd_z.append(s_.reshape(1))
+        torch.cuda.synchronize()
+        return {"nll": torch.cat(nll).cpu(), "sd_z": torch.cat(sd_z).cpu(),
+                "state": _opt_state(flow, opt), "collectives": pd.collective_stats["calls"],
+                "per_replay": per_replay, "captured": g.collectives if g else None,
+                "launches": dict(fs.launch_counts),
+                "replay_launches": dict(g.launches) if g else None,
+                "n_bn": sum(key.endswith(".mean") for key in flow.state_dict())}
+
+    def rebound(g):
+        g.feed["_x"] = g.feed["_x"].clone()
+    out = {}
+    for name, oneshot in MESH_GRAPH_PATHS:
+        out[name] = {"eager": run(oneshot, False), "graph": run(oneshot, True)}
+    out["fault"] = run(False, True, rebound)
+    set_deterministic("off")
+    return out
+
+
+def _mesh_cli_rank(rank, device, argv):
+    """A rank of part (b): cli.train's main in the group of --mesh N on its
+    card; each train epoch's steps (nll, sd_z) and seconds, the state after,
+    the launches and all-reduces, the graphs' per-replay counts."""
+    import torch
+    from noise_flow_tpu_torch.cli import train as cli_train
+    from noise_flow_tpu_torch.ops import fused_sample as fs
+    from noise_flow_tpu_torch.parallel import distributed as pd
+    from noise_flow_tpu_torch.probes.mesh import set_deterministic
+    from noise_flow_tpu_torch.training.trainer import Trainer
+
+    set_deterministic(PAR_DETERMINISM)
+    kept = {"epochs": []}
+    real = Trainer.train_epoch
+
+    def keep(self, *a, **kw):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = real(self, *a, **kw)
+        kept["epochs"].append((time.perf_counter() - t0, [t.cpu() for t in self.epoch_steps]))
+        kept["trainer"] = self
+        return out
+    Trainer.train_epoch = keep
+    fs.launch_counts.clear()
+    pd.collective_stats["calls"] = 0
+    try:
+        rc = cli_train.main(argv + ["--device", str(device)])
+    finally:
+        Trainer.train_epoch = real
+        set_deterministic("off")
+    tr = kept["trainer"]
+    return {"rc": rc, "graphs_on": tr.graphs_on,
+            "nll": torch.cat([e[1][0] for e in kept["epochs"]]),
+            "sd_z": torch.cat([e[1][1] for e in kept["epochs"]]),
+            "epoch_s": [e[0] for e in kept["epochs"]],
+            "steps": [len(e[1][0]) for e in kept["epochs"]],
+            "state": _opt_state(tr.flow, tr.optimizer), "launches": dict(fs.launch_counts),
+            "n_bn": sum(key.endswith(".mean") for key in tr.flow.state_dict()),
+            "collectives": pd.collective_stats["calls"],
+            "graphs": [{"key": list(key), "launches": dict(g.launches),
+                        "collectives": g.collectives} for key, g in tr._graphs.items()]}
+
+
+def _mesh_graph_phases(phase, flagship, smi):
+    """Phase 58 (see the module docstring): (a) on one card, (b) on 2-4
+    cards where visible, (c) the line that says whether (b) ran. Returns
+    each kernel's per-rank launches of (b) and its times, for the kernels
+    line."""
+    import torch
+    from noise_flow_tpu_torch.parallel import distributed as pd
+    from noise_flow_tpu_torch.probes import mesh as pm
+    from noise_flow_tpu_torch.training import step_graph
+
+    out = {"launches": {}, "ms": {}, "ranks": 0, "one_rank": None}
+
+    def hold(label, got, ref):
+        """Bits, or the first difference and phase 46's tolerances."""
+        first = _first_difference(got, ref)
+        if first is None:
+            return "the same bits"
+        d = float((got["nll"] - ref["nll"]).abs().max() / ref["nll"].abs().max())
+        flow_got = {k[5:]: v for k, v in got["state"].items() if k.startswith("flow/")}
+        flow_ref = {k[5:]: v for k, v in ref["state"].items() if k.startswith("flow/")}
+        ratio, _, key = pm.weights_agreement(flow_got, flow_ref)
+        msg = (f"first difference at step {first[0]} in {first[1]}; NLL max rel {d:.3e} (tol "
+               f"{PAR_NLL_RTOL}); weights {ratio:.3f} of probes.mesh.PARAM_TOL ({key})")
+        if d > PAR_NLL_RTOL or ratio > 1.0:
+            raise AssertionError(f"{label}: {msg}")
+        return msg
+
+    def one_rank():
+        (r,) = pd.spawn_ranks(1, _one_rank_capture, (), "cuda:0", "nccl",
+                              timeout=MESH_GRAPH_SPAWN_S)
+        k = MESH_GRAPH_K1
+        for name, oneshot in MESH_GRAPH_PATHS:
+            eager, graph = r[name]["eager"], r[name]["graph"]
+            per_step = 1 if oneshot else 4 * eager["n_bn"] + 1
+            read = hold(f"(a) {name}", graph, eager)
+            want_launch = {"fused_train_step": step_graph.WARMUP_STEPS + 2 * k} if oneshot else {}
+            print(f"mesh graphs (a) {name}: one-rank nccl group on cuda:0, b={TRAIN_B}, K={k}, "
+                  f"2 replays against {2 * k} eager steps: {read}; collectives a replay "
+                  f"{graph['per_replay']} (captured {graph['captured']}, want {k * per_step}), "
+                  f"eager {eager['collectives']} ({per_step} a step); launches graph "
+                  f"{graph['launches']} (a replay {graph['replay_launches']}), eager "
+                  f"{eager['launches']}")
+            if graph["per_replay"] != [k * per_step] * 2 or graph["captured"] != k * per_step or \
+                    eager["collectives"] != 2 * k * per_step or \
+                    graph["collectives"] != (step_graph.WARMUP_STEPS + 2 * k) * per_step:
+                raise AssertionError(f"(a) {name}: collective counts")
+            if {n: v for n, v in graph["launches"].items() if v} != want_launch:
+                raise AssertionError(f"(a) {name}: launches {graph['launches']}")
+            if oneshot:
+                out["one_rank"] = {"launches": graph["launches"]["fused_train_step"],
+                                   "per_replay": graph["replay_launches"]["fused_train_step"],
+                                   "k": k, "collectives_per_replay": graph["per_replay"][0]}
+        fault = r["fault"]
+        first = _first_difference(fault, r[MESH_GRAPH_PATHS[0][0]]["eager"])
+        print(f"mesh graphs (a) planted fault (the static input buffer rebound after capture): "
+              f"first difference {first}")
+        if first is None:
+            raise AssertionError("the comparison missed the rebound input buffer")
+    phase("mesh graphs (a): K steps with their nccl all-reduces captured, one-rank group",
+          one_rank)
+
+    cards = torch.cuda.device_count()
+    n = min(cards, MESH_GRAPH_MAX_RANKS)
+    if n < 2:
+        why = f"{cards} card visible; nccl takes one rank a card"
+        print(f"mesh graphs (b): did not run: {why}")
+        out["not_run"] = why
+        return out
+
+    def cli_runs():
+        root = flagship["root"]
+        shutil.rmtree(MESH_GRAPH_DIR, ignore_errors=True)
+        out["ranks"] = n
+        for name, oneshot in MESH_GRAPH_PATHS:
+            runs = {}
+            for k in (1, MESH_GRAPH_K):
+                argv = ["--n_batch_train", str(PAR_B), "--n_batch_test", str(PAR_B),
+                        "--patch_height", "32", "--patch_sampling", "random",
+                        "--n_patches_per_image", str(MESH_GRAPH_PATCHES),
+                        "--epochs", str(MESH_GRAPH_EPOCHS), "--sidd_path", root,
+                        "--init_checkpoint", PAR_INIT, "--mesh", str(n),
+                        "--steps_per_call", str(k),
+                        "--logdir", os.path.join(MESH_GRAPH_DIR, f"{oneshot:d}_{k}")] + (
+                    ["--use_pallas", "--pallas_train_dtype", "float32"] if oneshot else [])
+                t0 = time.time()
+                runs[k] = pd.spawn_ranks(n, _mesh_cli_rank, (argv,), "cuda", "nccl",
+                                         timeout=MESH_GRAPH_SPAWN_S)
+                runs[k + 0.5] = time.time() - t0
+            eager, graph = runs[1], runs[MESH_GRAPH_K]
+            per_step = 1 if oneshot else 4 * graph[0]["n_bn"] + 1
+            for r in eager + graph:
+                if r["rc"] != 0 or r["steps"] != [MESH_GRAPH_STEPS] * MESH_GRAPH_EPOCHS:
+                    raise AssertionError(f"(b) {name}: rc {r['rc']}, steps {r['steps']}")
+            reads = [hold(f"(b) {name} rank {i}", g, e)
+                     for i, (g, e) in enumerate(zip(graph, eager))]
+            same = all(_first_difference(g, graph[0]) is None for g in graph[1:])
+            ms = {"eager": [e["epoch_s"][-1] / MESH_GRAPH_STEPS * 1e3 for e in eager],
+                  "graph": [g["epoch_s"][-1] / MESH_GRAPH_STEPS * 1e3 for g in graph]}
+            out["ms"][name] = ms
+            replays = [[dict(g_["launches"]) for g_ in r["graphs"]] for r in graph]
+            coll = [[g_["collectives"] for g_ in r["graphs"]] for r in graph]
+            print(f"mesh graphs (b) {name}: cli.train --mesh {n} --steps_per_call "
+                  f"{MESH_GRAPH_K} against K=1, {MESH_GRAPH_EPOCHS} epochs of {MESH_GRAPH_STEPS}"
+                  f" steps at {PAR_B} ({PAR_B // n} a rank; {runs[MESH_GRAPH_K + 0.5]:.1f} s "
+                  f"and {runs[1.5]:.1f} s): graph against eager by rank {reads}; ranks' graph "
+                  f"runs the same bits: {same}; graphs_on {[r['graphs_on'] for r in graph]}; "
+                  f"ms a step (epoch 2, host clock, input included) by rank eager "
+                  f"{['%.3f' % v for v in ms['eager']]}, graph "
+                  f"{['%.3f' % v for v in ms['graph']]}; a replay's launches by rank "
+                  f"{replays}, its all-reduces {coll}; launches by rank graph "
+                  f"{[r['launches'] for r in graph]}, eager {[r['launches'] for r in eager]}; "
+                  f"all-reduces by rank graph {[r['collectives'] for r in graph]}, eager "
+                  f"{[r['collectives'] for r in eager]}; {smi}")
+            if not same or not all(r["graphs_on"] for r in graph) or \
+                    any(len(r["graphs"]) != 1 for r in graph):
+                raise AssertionError(f"(b) {name}: ranks differ, graphs off, or not one graph")
+            want = {"fused_train_step": MESH_GRAPH_K} if oneshot else {}
+            if any(r != [want] for r in replays) or \
+                    any(c != [MESH_GRAPH_K * per_step] for c in coll):
+                raise AssertionError(f"(b) {name}: a replay's launches {replays}, "
+                                     f"all-reduces {coll}")
+            if oneshot:
+                out["launches"]["fused_train_step"] = [
+                    r["launches"]["fused_train_step"] for r in graph]
+            elif any(r["launches"] for r in graph + eager):
+                raise AssertionError(f"(b) {name}: the exact-BN path launched kernels")
+        shutil.rmtree(MESH_GRAPH_DIR, ignore_errors=True)
+    phase(f"mesh graphs (b): cli.train --mesh {n} --steps_per_call {MESH_GRAPH_K} against "
+          f"K=1, plain and one-shot", cli_runs)
+    print(f"mesh graphs (b): ran on {n} cards")
+    return out
+
+
 # Phase 56: the DnCNN four-source comparison (cli.dncnn_comparison) at a cut
 # of scale. The corpus: all 78 scene instances (the test split's 44 image
 # tuples give the 40 validation images, the ISO exclusion's indices up to
@@ -4468,6 +4828,7 @@ def main() -> int:
     parallel = _parallel_phases(phase, flagship, smi)
     _spatial_packed_tf_phases(phase, nf, smi)
     graphs = _graph_phases(phase)
+    mesh_graphs = _mesh_graph_phases(phase, flagship, smi)
     comparison = _dncnn_comparison_phase(phase)
     shutil.rmtree(flagship["work"], ignore_errors=True)
     print(f"model_family_seconds {json.dumps(family['seconds'])}")
@@ -4536,6 +4897,14 @@ def main() -> int:
         if k["name"] in parallel["launches"]:
             k["parallel"] = {"launches_by_rank": parallel["launches"][k["name"]],
                              "ranks": PAR_RANKS, "on": "2 ranks sharing one card, gloo"}
+    for k in kernels:   # phase 58: the one-shot step's launches under mesh graphs
+        if k["name"] == "fused_train_step":
+            k.setdefault("parallel", {})["mesh_graphs"] = {
+                "one_rank_nccl": mesh_graphs["one_rank"], "k": MESH_GRAPH_K,
+                "ranks": mesh_graphs["ranks"],
+                "launches_by_rank": mesh_graphs["launches"].get("fused_train_step"),
+                "step_ms_by_rank": mesh_graphs["ms"].get("one-shot f32"),
+                "not_run": mesh_graphs.get("not_run")}
     if {k["name"] for k in kernels} - set(bf16_modes):
         print("chip_smoke: a kernel has no bf16 mode in the kernels line", file=sys.stderr)
         return 1

@@ -23,6 +23,9 @@ Data-parallel training, one rank a device, in JAX's two modes:
 The process group's backend is nccl on the card and gloo on the CPU;
 ``--dist_backend gloo`` puts ranks that share one card on gloo (nccl refuses
 two ranks on one card). Only rank 0 writes logs, checkpoints and the cache.
+``--steps_per_call K`` holds in both modes: on nccl each rank's full group
+of K is one CUDA graph replay with its all-reduces inside, on gloo K eager
+steps (``Trainer.graphs_on``).
 
 The published multi-process recipe (jobs/job_noise_flow.sh ``multihost``:
 global batch 276 over 2 processes), on one host with two cards:

@@ -58,13 +58,15 @@ def batch_moments(x, dims, psum: Psum = None):
     first, then the mean of the squared deviations from it. With ``psum``
     (a differentiable sum over the ranks, ``parallel.mesh.Mesh.psum()``)
     both sums and the element count span every rank's rows, and the
-    gradients flow through both sums."""
+    gradients flow through both sums. The count is a device fill, not a
+    copy from the host, so that a CUDA graph can capture it."""
     if psum is None:
         m = x.mean(dim=dims)
         return m, ((x - m) ** 2).mean(dim=dims)
     sums = x.sum(dim=dims)
-    s = psum(torch.cat([sums.reshape(-1), x.new_tensor([float(math.prod(
-        x.shape[d] for d in dims))])]))
+    count = torch.full((1,), float(math.prod(x.shape[d] for d in dims)), dtype=x.dtype,
+                       device=x.device)
+    s = psum(torch.cat([sums.reshape(-1), count]))
     m = (s[:-1] / s[-1]).reshape(sums.shape)
     return m, psum(((x - m) ** 2).sum(dim=dims)) / s[-1].detach()
 

@@ -25,6 +25,14 @@ CUDA tensors on the card's PyTorch; its send and recv of one kill the rank
 BatchNorm over the global batch takes its moments' sums through
 ``all_reduce_sum``, whose backward is the all-reduce of the cotangents
 (``ops.nn.batch_moments``, given ``mesh.Mesh.psum()``).
+
+Every all-reduce goes through ``_all_reduce_``, which counts it. While the
+current CUDA stream captures a graph (``training.step_graph``), the
+collective is recorded into the graph, not run: it counts in
+``captured_collectives``, and the graph's owner adds that count to
+``collective_stats`` at each replay. Only an nccl group captures (gloo's
+collectives go through the host); a capture that reaches a gloo collective,
+or collective timing (which synchronizes the card), raises.
 """
 
 from __future__ import annotations
@@ -42,6 +50,9 @@ import torch.distributed as dist
 _PROCESS = {"count": 1, "index": 0}
 # all-reduces issued by this process and, with timing on, their seconds
 collective_stats = {"calls": 0, "seconds": 0.0, "timing": False}
+# all-reduces recorded into CUDA graphs since the owner of the last capture
+# read them; they run, and count in collective_stats, at each replay
+captured_collectives = {"calls": 0}
 
 
 def default_backend(device) -> str:
@@ -77,6 +88,11 @@ def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _PROCESS.update(count=1, index=0)
+
+
+def backend(group=None) -> Optional[str]:
+    """The group's backend ("nccl", "gloo"); None without a process group."""
+    return dist.get_backend(group) if dist.is_initialized() else None
 
 
 def world_size() -> int:
@@ -180,8 +196,24 @@ def _world(group) -> int:
     return dist.get_world_size(group) if dist.is_initialized() else 1
 
 
+def _capturing(t: torch.Tensor) -> bool:
+    """Whether the current stream of ``t``'s card captures a CUDA graph."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
 def _all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
-    """In-place sum over the group's ranks."""
+    """In-place sum over the group's ranks (issued on one rank too); under a
+    capture, recorded into the graph (see the module docstring)."""
+    if _capturing(t):
+        if collective_stats["timing"]:
+            raise RuntimeError("collective timing synchronizes the card, which a CUDA graph "
+                               "capture forbids; turn collective_stats['timing'] off")
+        if backend(group) != "nccl":
+            raise RuntimeError(f"a CUDA graph captures nccl collectives only, not "
+                               f"{backend(group)}'s")
+        captured_collectives["calls"] += 1
+        dist.all_reduce(t, group=group)
+        return t
     collective_stats["calls"] += 1
     if not collective_stats["timing"]:
         dist.all_reduce(t, group=group)

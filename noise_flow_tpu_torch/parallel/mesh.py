@@ -101,6 +101,23 @@ def shard_batch(mesh: Mesh, batch: Dict, dtype=None) -> Dict:
     return out
 
 
+def shard_batch_stacked(mesh: Mesh, batches, dtype=None) -> Dict:
+    """This rank's [K, B/N, ...] stack of K host batches (a list of dicts):
+    the slice ``[r B/N, (r+1) B/N)`` of each, as ``shard_batch`` slices it,
+    stacked along a new leading dim (JAX's ``shard_batch_stacked``: dim 0
+    the scan axis, dim 1 over the mesh). Each batch is sliced before the
+    stack, so a rank copies only its rows."""
+    out = {}
+    for k in batches[0]:
+        b = np.shape(batches[0][k])[0]
+        if b % mesh.size:
+            raise ValueError(f"batch of {b} ({k}) does not divide over {mesh.size} ranks")
+        lo, hi = mesh.rank * b // mesh.size, (mesh.rank + 1) * b // mesh.size
+        out[k] = pd._to_tensor(np.stack([np.asarray(mb[k])[lo:hi] for mb in batches]),
+                               mesh.device, dtype)
+    return out
+
+
 def replicate(mesh: Mesh, module: torch.nn.Module, optimizer=None) -> None:
     """Give every rank rank 0's parameters, buffers and optimizer slots
     (JAX replicates params, state and opt_state over the mesh)."""

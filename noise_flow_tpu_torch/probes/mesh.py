@@ -7,14 +7,30 @@
 On N cards (``--device cuda``, nccl) or N CPU processes (``--device cpu``,
 gloo), for the plain exact-BN path and the one-shot kernel path (float32):
 ``cli.train --mesh N`` and ``cli.train --mesh 1`` on the same synthetic
-split at a global batch of 276 (the ``multihost`` recipe's), from the
-flagship's weights, with the stats cache under one ``--cache_dir`` (the N-rank
-run writes it, the one-rank run reads it): the train and test rows and the
-last checkpoint's weights side by side. Then each path's step time on every
-rank (host clock around ``train_step`` on the same global batch, 10 steps
-after 3) and the time of its all-reduces, beside one rank's step at 276;
-and ``cli.train_dncnn --mesh N`` (DnCNN_NF, batch 128): its losses. Prints
-the report as one JSON line and writes it to ``--out``.
+split at a global batch of 276 (the ``multihost`` recipe's; ``--global_batch``),
+from the flagship's weights, with the stats cache under one ``--cache_dir``
+(the N-rank run writes it, the one-rank run reads it): the train and test
+rows and the last checkpoint's weights side by side. Then each path's step
+time on every rank (host clock around ``train_step`` on the same global
+batch, 10 steps after 3) and the time of its all-reduces, beside one rank's
+step at 276; and ``cli.train_dncnn --mesh N`` (DnCNN_NF, batch 128; not with
+``--no_dncnn``): its losses. Prints the report as one JSON line and writes it
+to ``--out``.
+
+``--steps_per_call K`` (K > 1) runs every ``cli.train`` with K steps a
+dispatch, on enough images for 2 full groups and a 6-step tail an epoch, and
+adds ``cli.train --mesh N`` at K = 1 on the same split: each path's
+``graph_vs_eager`` (the N-rank run under graphs against the same N ranks
+eager: whether the last checkpoint is the same bits, its first tensor that
+is not, the rows and the weights' agreement). Each rank's and one rank's
+times then add a graph of K steps (where ``Trainer.graphs_on``: on the card,
+one rank or nccl; null elsewhere): ``graph_step_ms`` (host clock over replays
+of the same batch), and from a ``torch.profiler`` trace of one replay the
+device time a step and, the NCCL kernels grouped, the all-reduces a step and
+their device ms a step (null where the trace shows no device activity).
+
+    python -m noise_flow_tpu_torch.probes.mesh --ranks 4 --steps_per_call 32 \
+        --no_dncnn --out mesh_graphs.json
 
 ``--agreement`` measures instead what the comparisons of N ranks against
 one rank read, and how far they move from run to run: the plain path's
@@ -141,9 +157,63 @@ def trainer(use_pallas, mesh):
     return Trainer(flow, cfg, mesh)
 
 
-def step_times(mesh, batch) -> dict:
+GRAPH_REPLAYS = 3     # replays timed a rank, after one
+
+
+def replay_profile(fn, k: int):
+    """One call of ``fn`` (a replay of K steps) under torch.profiler: the
+    device ms a step over every device event, and the NCCL kernels' count
+    and device ms a step; None where the trace shows no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ev:
+        return None
+    nccl = [e for e in ev if "nccl" in e.name.lower()]
+    return {"device_ms": sum(e.device_time for e in ev) / 1e3 / k,
+            "allreduces": len(nccl) / k,
+            "allreduce_device_ms": sum(e.device_time for e in nccl) / 1e3 / k,
+            "nccl_kernels": sorted({e.name for e in nccl})}
+
+
+def graph_times(tr, batch, k: int) -> dict:
+    """A graph of K train steps on ``batch`` (the trainer's host-batch
+    feed): host ms a step over GRAPH_REPLAYS replays after one, and one
+    replay's profile; every field None where the trainer runs no graphs."""
+    from noise_flow_tpu_torch.parallel import distributed as pd
+
+    out = {"graph_step_ms": None, "replay_device_ms": None, "replay_allreduces": None,
+           "replay_allreduce_device_ms": None, "nccl_kernels": None}
+    if k < 2 or not tr.graphs_on:
+        return out
+    tr.train_epoch(iter([batch] * k), steps_per_call=k)     # captures, replays once
+    (g,) = tr._graphs.values()
+    feed = tr._put_stacked([batch] * k)
+    _sync(tr.device)
+    pd.barrier(tr.mesh.group)
+    t0 = time.perf_counter()
+    for _ in range(GRAPH_REPLAYS):
+        g.replay(feed)
+    _sync(tr.device)
+    out["graph_step_ms"] = (time.perf_counter() - t0) / (GRAPH_REPLAYS * k) * 1e3
+    pd.barrier(tr.mesh.group)
+    prof = replay_profile(lambda: g.replay(feed), k)
+    if prof is not None:
+        out.update(replay_device_ms=prof["device_ms"], replay_allreduces=prof["allreduces"],
+                   replay_allreduce_device_ms=prof["allreduce_device_ms"],
+                   nccl_kernels=prof["nccl_kernels"])
+    return out
+
+
+def step_times(mesh, batch, k: int = 1) -> dict:
     """Each path's step ms (host clock) on this rank and its all-reduce ms
-    and count a step."""
+    and count a step; with k > 1 also ``graph_times``."""
     from noise_flow_tpu_torch.parallel import distributed as pd
 
     out = {}
@@ -167,14 +237,16 @@ def step_times(mesh, batch) -> dict:
         out["oneshot" if use_pallas else "plain"] = {
             "step_ms": ms, "allreduce_ms": stats["seconds"] / TIME_STEPS * 1e3,
             "allreduces": stats["calls"] / TIME_STEPS}
+        if k > 1:
+            out["oneshot" if use_pallas else "plain"].update(graph_times(tr, batch, k))
     return out
 
 
-def _time_rank(rank, device, batch):
+def _time_rank(rank, device, batch, k=1):
     """A rank of the timing spawn: its step times."""
     from noise_flow_tpu_torch.parallel.mesh import make_mesh
 
-    return step_times(make_mesh(None, device), batch)
+    return step_times(make_mesh(None, device), batch, k)
 
 
 def _rows(logdir, name):
@@ -201,7 +273,7 @@ def _global_batches(args_list, n):
 
     args, cfg = parse_config(args_list)
     tr = cli_train.load_split(args, cfg, "train")
-    it = tr.batches(GLOBAL_B, shuffle=True, seed=cfg.seed, drop_remainder=True,
+    it = tr.batches(cfg.n_batch_train, shuffle=True, seed=cfg.seed, drop_remainder=True,
                     batch_scalar_cond=not cfg.per_example_cond)
     return [next(it) for _ in range(n)]
 
@@ -364,6 +436,10 @@ def main(argv=None) -> int:
     p.add_argument("--backend", type=str, default=None, choices=("gloo", "nccl"))
     p.add_argument("--repeats", type=int, default=3)
     p.add_argument("--deterministic", type=str, default="off", choices=DETERMINISM)
+    p.add_argument("--steps_per_call", type=int, default=1)
+    p.add_argument("--global_batch", type=int, default=GLOBAL_B)
+    p.add_argument("--epochs", type=int, default=EPOCHS)
+    p.add_argument("--no_dncnn", action="store_true")
     a = p.parse_args(argv)
     if a.deterministic == "all":
         # before the first cuBLAS call of this process and of the ranks
@@ -376,7 +452,7 @@ def main(argv=None) -> int:
     from noise_flow_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(a.device)
-    report = {"ranks": a.ranks, "device": a.device, "global_batch": GLOBAL_B}
+    report = {"ranks": a.ranks, "device": a.device, "global_batch": a.global_batch}
     report["backend"] = a.backend or pd.default_backend(device)
     if device.type == "cuda":
         report["card"] = subprocess.run(
@@ -396,34 +472,53 @@ def main(argv=None) -> int:
         except RuntimeError as e:   # "all": the op with no deterministic algorithm
             report["error"] = str(e)[:2000]
         return _report(report, a)
-    common = ["--synthetic_data", str(IMAGES), "--patch_height", "32", "--n_batch_train",
-              str(GLOBAL_B), "--n_batch_test", str(GLOBAL_B), "--epochs", str(EPOCHS),
-              "--init_checkpoint", INIT,
+    k, gb = a.steps_per_call, a.global_batch
+    # K > 1: 2 full groups and a 6-step tail an epoch (16 patches an image)
+    images = IMAGES if k < 2 else -(-(2 * k + 6) * gb // 16)
+    common = ["--synthetic_data", str(images), "--patch_height", "32", "--n_batch_train",
+              str(gb), "--n_batch_test", str(gb), "--epochs", str(a.epochs),
+              "--init_checkpoint", INIT, "--steps_per_call", str(k),
               "--device", a.device, "--pallas_train_dtype", "float32"]
+    report["steps_per_call"], report["images"] = k, images
+    ckpt = f"ckpt/model.ckpt-{a.epochs}.npz"
     for name, flags in (("plain", []), ("oneshot", ["--use_pallas"])):
         runs = {}
         cache = os.path.join(a.work, f"cache_{name}")
         os.makedirs(cache)
-        for n in (a.ranks, 1):
-            logdir = os.path.join(a.work, f"{name}_{n}")
+        # (ranks, K): N ranks and one rank at K, and N ranks eager where K > 1
+        for n, kk in [(a.ranks, k), (1, k)] + ([(a.ranks, 1)] if k > 1 else []):
+            logdir = os.path.join(a.work, f"{name}_{n}_{kk}")
             t0 = time.time()
             cli_train.main(common + flags + ["--mesh", str(n), "--cache_dir", cache,
-                                             "--logdir", logdir])
-            runs[n] = {"seconds": time.time() - t0, "train": _rows(logdir, "train.txt"),
-                       "test": _rows(logdir, "test.txt")}
-        ckpt = f"ckpt/model.ckpt-{EPOCHS}.npz"
-        ratio, _, key = weights_agreement(
-            _checkpoint_state(os.path.join(a.work, f"{name}_{a.ranks}", ckpt)),
-            _checkpoint_state(os.path.join(a.work, f"{name}_1", ckpt)))
-        rel = {s: max(abs(x - y) / abs(y) for x, y in zip(runs[a.ranks][s], runs[1][s]))
-               for s in ("train", "test")}
-        report[name] = {"runs": runs, "max_rel": rel, "weights_ratio": ratio,
-                        "weights_worst": key}
+                                             "--steps_per_call", str(kk), "--logdir", logdir])
+            runs[f"{n}_{kk}"] = {"seconds": time.time() - t0,
+                                 "train": _rows(logdir, "train.txt"),
+                                 "test": _rows(logdir, "test.txt")}
+
+        def state(n, kk):
+            return _checkpoint_state(os.path.join(a.work, f"{name}_{n}_{kk}", ckpt))
+
+        def rel(x, y):
+            return {s: max(abs(u - v) / abs(v) for u, v in zip(runs[x][s], runs[y][s]))
+                    for s in ("train", "test")}
+        ratio, _, key = weights_agreement(state(a.ranks, k), state(1, k))
+        report[name] = {"runs": runs, "max_rel": rel(f"{a.ranks}_{k}", f"1_{k}"),
+                        "weights_ratio": ratio, "weights_worst": key}
+        if k > 1:
+            graph, eager = state(a.ranks, k), state(a.ranks, 1)
+            differ = [n for n, v in eager.items() if not bool((graph[n] == v).all())]
+            g_ratio, _, g_key = weights_agreement(graph, eager)
+            report[name]["graph_vs_eager"] = {
+                "same_bits": not differ, "first_differing": differ[0] if differ else None,
+                "differing": len(differ), "max_rel": rel(f"{a.ranks}_{k}", f"{a.ranks}_1"),
+                "weights_ratio": g_ratio, "weights_worst": g_key}
 
     batch = _global_batches(common, 1)[0]
-    report["times"] = pd.spawn_ranks(a.ranks, _time_rank, (batch,), a.device, a.backend,
+    report["times"] = pd.spawn_ranks(a.ranks, _time_rank, (batch, k), a.device, a.backend,
                                      timeout=SPAWN_S)
-    report["one_rank"] = step_times(Mesh(1, 0, device), batch)
+    report["one_rank"] = step_times(Mesh(1, 0, device), batch, k)
+    if a.no_dncnn:
+        return _report(report, a)
 
     save = os.path.join(a.work, "dncnn")
     t0 = time.time()

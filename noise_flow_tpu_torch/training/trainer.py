@@ -28,11 +28,15 @@ steps): ``train_epoch(steps_per_call=K)`` and, with ``cfg.steps_per_call =
 K``, the staged train and eval epochs run the batches in groups of K, with
 JAX's rules: only full groups of K; a ragged tail, or a change of batch
 shape, runs single steps; a non-trainable flow (condSDN) runs its staged
-epoch as eval steps. With one rank on the card each full group is one replay
-of a CUDA graph of K steps (``training.step_graph``), captured once for each
-(train or eval, feed, K, batch) and kept; the tail runs as eager steps. On
-the CPU, and under a mesh of more than one rank (the host-batch path; staging
-is single-rank, as JAX's), a group is K eager steps: the same arithmetic.
+epoch as eval steps. On the card each full group is one replay of a CUDA
+graph of K steps (``training.step_graph``), captured once for each (train or
+eval, feed, K, local batch) and kept; the tail runs as eager steps. That
+holds for one rank and for a mesh whose group is nccl: each rank's graph
+holds its K steps with their all-reduces, as XLA puts the gradient
+all-reduce inside JAX's scan (staging is single-rank, as JAX's; a mesh
+feeds host batches). A mesh on gloo (ranks that share one card) cannot
+capture its collectives, which go through the host, and runs a group as K
+eager steps, as the CPU does: the same arithmetic.
 """
 
 from __future__ import annotations
@@ -49,7 +53,12 @@ import torch
 
 from noise_flow_tpu_torch.ops.fused_train import FusedFlow, FusedTrainStep, pick_block
 from noise_flow_tpu_torch.parallel import distributed as pd
-from noise_flow_tpu_torch.parallel.mesh import as_mesh, replicate, shard_batch
+from noise_flow_tpu_torch.parallel.mesh import (
+    as_mesh,
+    replicate,
+    shard_batch,
+    shard_batch_stacked,
+)
 from noise_flow_tpu_torch.training.step_graph import StepGraph
 from noise_flow_tpu_torch.utils.checkpoint import (
     latest_checkpoint,
@@ -135,6 +144,8 @@ class Trainer:
         self._step_cache: Dict[int, FusedTrainStep] = {}
         # CUDA graphs of K steps, by (train, feed, K, batch)
         self._graphs: Dict[tuple, StepGraph] = {}
+        # the last train epoch's (nll, sd_z), one a step, on the device
+        self.epoch_steps = None
         self.use_fused = False
         self.use_oneshot = False
         if getattr(cfg, "use_pallas", False):
@@ -178,6 +189,17 @@ class Trainer:
         if self.mesh.size > 1 and not self.mesh.process_local:
             return shard_batch(self.mesh, keep, torch.float32)
         return pd.global_batch(self.mesh, keep, torch.float32)
+
+    def _put_stacked(self, buf) -> Dict:
+        """A full group's host batches -> one [K, B, ...] float32 tensor a
+        field on the flow's device: under a mesh, this rank's slice of dim 1
+        (JAX's ``shard_batch_stacked``), or in coordinator mode the
+        process's own batches whole (JAX's ``global_batch_stacked``)."""
+        if self.mesh.size > 1 and not self.mesh.process_local:
+            return shard_batch_stacked(self.mesh, [{f: mb[f] for f in _KEEP} for mb in buf],
+                                       torch.float32)
+        stacked = {f: np.stack([np.asarray(mb[f], np.float32) for mb in buf]) for f in _KEEP}
+        return pd.global_batch(self.mesh, stacked, torch.float32)
 
     def _mean_over_ranks(self, tensors):
         """Average each tensor over the mesh's ranks in place, in one
@@ -262,9 +284,14 @@ class Trainer:
     # ------------------------------------------------------ K-step groups
     @property
     def graphs_on(self) -> bool:
-        """Whether a full group of K steps runs as a CUDA graph replay: one
-        rank on the card."""
-        return self.device.type == "cuda" and self.mesh.size == 1
+        """Whether a full group of K steps runs as a CUDA graph replay: on
+        the card, for one rank or a mesh whose group is nccl. The rule, not
+        a fallback: a gloo group's collectives cannot be captured, so a mesh
+        on gloo runs a group as K eager steps, and a capture that fails
+        raises."""
+        if self.device.type != "cuda":
+            return False
+        return self.mesh.size == 1 or pd.backend(self.mesh.group) == "nccl"
 
     def _graph(self, key, step, feed, batch_at, train: bool) -> StepGraph:
         """The graph for key (feed, train, K, B), captured at its first use
@@ -273,7 +300,7 @@ class Trainer:
         if g is None:
             g = self._graphs[key] = StepGraph(
                 step, {n: v.clone() for n, v in feed.items()}, batch_at, key[2], self.flow,
-                self.optimizer if train else None)
+                self.optimizer if train else None, self.mesh)
         return g
 
     def _staged_steps(self, split: str, order, k: int, train: bool):
@@ -315,25 +342,32 @@ class Trainer:
                 nll, sd_z = self._step_or_eval(self._put(mb))
             losses.append(nll)
             sdzs.append(sd_z)
+        self.epoch_steps = (torch.stack(losses), torch.stack(sdzs))
         with self.timers.phase("sync"):
-            return (float(torch.stack(losses).mean()), float(torch.stack(sdzs).mean()))
+            return (float(self.epoch_steps[0].mean()), float(self.epoch_steps[1].mean()))
 
     def _train_epoch_scan(self, batches: Iterable[Dict], k: int):
         """The epoch in groups of k host batches (JAX's ``_train_epoch_scan``):
         full groups only; a ragged tail or a batch-shape change runs single
-        steps. A full group is a graph replay over one static [k, B, ...]
-        buffer a field where ``graphs_on``, else k eager steps."""
+        steps. A full group is fed as one [k, B, ...] tensor a field
+        (``_put_stacked``; B the rank's) and runs as a graph replay over a
+        static copy of it where ``graphs_on``, else as k eager steps on its
+        rows."""
         losses, sdzs = [], []
 
+        def at(feed, j):
+            return {n: v[j] for n, v in feed.items()}
+
         def flush(buf):
-            if len(buf) == k and self.graphs_on:
-                stacked = {f: torch.from_numpy(np.stack([np.asarray(mb[f], np.float32)
-                                                         for mb in buf]))
-                           for f in _KEEP}
-                g = self._graph(("host", True, k, stacked["_x"].shape[1]), self.train_step,
-                                {f: v.to(self.device) for f, v in stacked.items()},
-                                lambda f, j: {n: v[j] for n, v in f.items()}, True)
-                nll, sd_z = g.replay(stacked)
+            if len(buf) == k:
+                feed = self._put_stacked(buf)
+                if self.graphs_on:
+                    g = self._graph(("host", True, k, feed["_x"].shape[1]), self.train_step,
+                                    feed, at, True)
+                    nll, sd_z = g.replay(feed)
+                else:
+                    outs = [self.train_step(at(feed, j)) for j in range(k)]
+                    nll, sd_z = (torch.stack(v) for v in zip(*outs))
                 losses.append(nll)
                 sdzs.append(sd_z)
                 return
@@ -356,8 +390,9 @@ class Trainer:
         if buf:
             with self.timers.phase("step"):
                 flush(buf)
+        self.epoch_steps = (torch.cat(losses), torch.cat(sdzs))
         with self.timers.phase("sync"):
-            return float(torch.cat(losses).mean()), float(torch.cat(sdzs).mean())
+            return float(self.epoch_steps[0].mean()), float(self.epoch_steps[1].mean())
 
     def eval_epoch(self, batches: Iterable[Dict]):
         out = [self.eval_step(self._put(mb)) for mb in batches]
@@ -480,6 +515,7 @@ class Trainer:
         order = np.random.default_rng(shuffle_seed).permutation(n)[:nsteps * b]
         order = torch.as_tensor(order.reshape(nsteps, b), device=self.device)
         nlls, sdzs = self._staged_steps("train", order, self._steps_per_call(), self.trainable)
+        self.epoch_steps = (nlls, sdzs)
         with self.timers.phase("sync"):
             return float(nlls.mean()), float(sdzs.mean())
 
