@@ -369,6 +369,23 @@ Phases, each of which fails the run if it fails:
    rank a card"). The kernels line gives the one-shot step's launches of
    (a) and, by rank, of (b) under its entry's ``parallel.mesh_graphs``.
 
+59. (run after phase 58) the kernel-path training recipe: ``cli.train``
+   with ``cli.flagship --recipe ghost``'s flags (jobs/job_noise_flow.sh
+   prod-synth-scale: the one-shot step with ghost BN over blocks of 69 and
+   the running-BN eval forward, both in bf16, K = 32, staged data, the
+   sample phase) on phase 39's corpus (random patches: 70 train steps an
+   epoch at b = 138, 35 test batches), 2 epochs at K = 32 against K = 1 with
+   cuDNN held to deterministic algorithms: every staged train and eval
+   step's NLL and sd_z, the weights, BN state and Adam's slots the same
+   bits, and the rows of train.txt, test.txt and sample.txt (NLL, sd_z);
+   the eval graph, captured at epoch 1, replayed after epoch 2's train
+   groups against eager eval on those BN buffers, the same bits; a planted
+   fault (the eval graph fed running moments kept from its capture) must
+   differ; launches exactly the steps' and warm-ups', a replay's 32 step
+   and 64 eval-forward launches, all in bf16; then ms a step eager and
+   graph of the bf16 train and eval steps. The kernels line adds the graph
+   run's launches to the bf16 modes (``under_graph``).
+
 The train template's redesigned step, segment backward and ghost forward
 keep one launch a call, so the exact launch counts of phases 9, 15 and 28
 are those of its parent's design; the sampler's batch-BN calls went from
@@ -4444,6 +4461,175 @@ def _mesh_graph_phases(phase, flagship, smi):
     return out
 
 
+# Phase 59: the kernel-path training recipe (cli.flagship --recipe ghost:
+# jobs/job_noise_flow.sh prod-synth-scale's flags, the one-shot step and the
+# running-BN eval forward in bfloat16, K = 32) through cli.train at a cut of
+# scale on phase 39's corpus: random patches, 70 train steps an epoch at b =
+# 138 (2 replays and a 6-step tail) and 35 test batches (a replay and a
+# 3-step tail), 2 epochs; at K = 32 against K = 1, and a planted fault.
+GHOST_EPOCHS = 2
+GHOST_STEPS = 70
+GHOST_DIR = os.path.join(ROOT, "build", "chip_smoke_ghost")
+GHOST_TIMED = 32       # steps timed a turn: one replay, or 32 eager steps
+
+
+def _ghost_recipe_phase(phase, flagship):
+    """Phase 59 (see the module docstring). Returns the graph run's launches
+    of the bf16 step and eval forward and their ms a step, for the kernels
+    line."""
+    import torch
+    from noise_flow_tpu_torch.cli import flagship as fl
+    from noise_flow_tpu_torch.cli import train as cli_train
+    from noise_flow_tpu_torch.ops import fused_sample as fs
+    from noise_flow_tpu_torch.ops import fused_train as ft
+    from noise_flow_tpu_torch.training import step_graph
+    from noise_flow_tpu_torch.training.trainer import Trainer
+
+    out = {"launches": {}, "ms": {}}
+    images = 2 * 2                                  # phase 39's train scenes, 2 images each
+    per_image = GHOST_STEPS * TRAIN_B // images
+
+    def run(k, name):
+        """cli.train --recipe ghost's flags at K = k: each staged group's
+        (split, nll, sd_z), the trainer, its state after, the launches, the
+        logdir."""
+        kept = {"steps": []}
+        real_steps, real_fit = Trainer._staged_steps, Trainer.fit
+
+        def steps(self, split, order, kk, train):
+            nll, sd_z = real_steps(self, split, order, kk, train)
+            kept["steps"].append((split, nll.clone(), sd_z.clone()))
+            return nll, sd_z
+
+        def fit(self, *a, **kw):
+            kept["trainer"] = self
+            return real_fit(self, *a, **kw)
+        logdir = os.path.join(GHOST_DIR, name)
+        argv = fl.RECIPES["ghost"].flags + [
+            "--steps_per_call", str(k), "--epochs", str(GHOST_EPOCHS),
+            "--patch_sampling", "random", "--n_patches_per_image", str(per_image),
+            "--sidd_path", flagship["root"], "--logdir", logdir, "--device", "cuda"]
+        Trainer._staged_steps, Trainer.fit = steps, fit
+        fs.launch_counts.clear()
+        t0 = time.time()
+        try:
+            if cli_train.main(argv) != 0:
+                raise AssertionError(f"cli.train --recipe ghost K={k} failed")
+        finally:
+            Trainer._staged_steps, Trainer.fit = real_steps, real_fit
+        torch.cuda.synchronize()
+        counts = dict(fs.launch_counts)
+        tr = kept["trainer"]
+        state = {n: v.clone() for n, v in _run_state(tr).items()}
+        return {"steps": kept["steps"], "tr": tr, "state": state, "counts": counts,
+                "logdir": logdir, "s": time.time() - t0}
+
+    def differing(a, b):
+        """Names of the groups (split and index) and tensors that differ."""
+        bad = [f"{sa}{i}" for i, ((sa, na, za), (sb, nb, zb)) in enumerate(
+            zip(a["steps"], b["steps"])) if sa != sb or not (torch.equal(na, nb) and
+                                                            torch.equal(za, zb))]
+        if len(a["steps"]) != len(b["steps"]):
+            bad.append("groups")
+        return bad + [n for n in a["state"] if not torch.equal(a["state"][n], b["state"][n])]
+
+    def eval_steps(tr, k):
+        return tr._staged_steps("test", tr._staged_test_steps(), k, False)
+
+    def ghost():
+        shutil.rmtree(GHOST_DIR, ignore_errors=True)
+        det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            eager = run(1, "eager")
+            graph = run(GRAPH_K, "graph")
+            main = _main_path(graph["counts"])
+            tr = graph["tr"]
+            # the eval graph, captured at epoch 1 before any training, replayed
+            # now, after epoch 2's train groups, against eager eval on these
+            # buffers, and against epoch 2's eval
+            replayed = eval_steps(tr, GRAPH_K)
+            fresh = eval_steps(tr, 1)
+            epoch2 = [n for split, n, _ in graph["steps"] if split == "test"][-1]
+            replay_same = all(torch.equal(a, b) for a, b in zip(replayed, fresh))
+            moved = not torch.equal(replayed[0], epoch2)
+            real = ft.FusedFlow.running_moments
+            kept = {}
+
+            def stale(self, lo, hi):
+                if (lo, hi) not in kept:
+                    kept[(lo, hi)] = real(self, lo, hi).clone()
+                return kept[(lo, hi)]
+            ft.FusedFlow.running_moments = stale
+            try:
+                planted = run(GRAPH_K, "planted")
+            finally:
+                ft.FusedFlow.running_moments = real
+            planted_bad = [b for b in differing(planted, eager) if b.startswith("test")]
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+        bad = differing(graph, eager)
+        # every column but the times (and the sample rows' KLDs, whose
+        # histograms sum in no fixed order)
+        cols = {"train": ("epoch", "NLL", "sdz"), "test": ("epoch", "NLL", "sdz", "msg"),
+                "sample": ("epoch", "NLL", "sdz")}
+        rows_same = {r: [[x[c] for c in cs] for x in fl.read_tsv(os.path.join(
+            graph["logdir"], f"{r}.txt"))] == [[x[c] for c in cs] for x in fl.read_tsv(
+            os.path.join(eager["logdir"], f"{r}.txt"))] for r, cs in cols.items()}
+        graphs = {key[0]: dict(g.launches) for key, g in tr._graphs.items()}
+        n_test = int(tr._staged_test["_x"].shape[0]) // TRAIN_B
+        warm = step_graph.WARMUP_STEPS
+        want = {"fused_train_step": GHOST_EPOCHS * GHOST_STEPS + warm,
+                "fused_segment_forward": 2 * (GHOST_EPOCHS * (n_test + 1) + warm)}
+        want.update({f"{k}_bf16": v for k, v in list(want.items())})
+        want_replay = {"staged_train": {"fused_train_step": GRAPH_K,
+                                        "fused_train_step_bf16": GRAPH_K},
+                       "staged_test": {"fused_segment_forward": 2 * GRAPH_K,
+                                       "fused_segment_forward_bf16": 2 * GRAPH_K}}
+        out["launches"] = main
+        out["replay"] = graphs
+
+        def turns(fn):
+            t = []
+            for k in (1, GRAPH_K, GRAPH_K, 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(k)
+                torch.cuda.synchronize()
+                t.append((time.perf_counter() - t0) * 1e3 / GHOST_TIMED)
+            return {"eager_ms": (t[0] + t[3]) / 2, "graph_ms": (t[1] + t[2]) / 2, "turns": t}
+        order = torch.arange(GHOST_TIMED * TRAIN_B, device="cuda").reshape(GHOST_TIMED, TRAIN_B)
+        out["ms"] = {
+            "train": turns(lambda k: tr._staged_steps("train", order, k, True)),
+            "eval": turns(lambda k: tr._staged_steps("test", tr._staged_test_steps()[
+                :GHOST_TIMED], k, False))}
+        print(f"ghost recipe: cli.train --recipe ghost's flags (one-shot step and eval forward "
+              f"in bf16, bt {tr._step_for_batch(TRAIN_B).bt}), {GHOST_EPOCHS} epochs of "
+              f"{GHOST_STEPS} steps at b={TRAIN_B} and {n_test} test batches on phase 39's "
+              f"corpus ({per_image} random patches an image), K={GRAPH_K} against K=1 "
+              f"({graph['s']:.1f} s and {eager['s']:.1f} s): {len(bad)} of "
+              f"{len(graph['steps'])} groups and {len(graph['state'])} tensors differ "
+              f"{bad[:6]}; rows the same {rows_same}; the eval graph (captured at epoch 1) "
+              f"replayed after epoch 2's train groups against eager eval on those buffers: "
+              f"the same bits {replay_same}, moved from epoch 2's eval {moved}; planted fault "
+              f"(the eval graph fed running moments kept from its capture): eval groups "
+              f"differing {planted_bad}; launches graph run {main} (want {want}), eager run "
+              f"{eager['counts']}; a replay's launches {graphs}; ms a step eager / graph "
+              f"(host clock, {GHOST_TIMED} steps a turn) train {out['ms']['train']['eager_ms']:.3f}"
+              f" / {out['ms']['train']['graph_ms']:.3f}, bf16 eval "
+              f"{out['ms']['eval']['eager_ms']:.3f} / {out['ms']['eval']['graph_ms']:.3f}")
+        if bad or not all(rows_same.values()) or not replay_same or not moved:
+            raise AssertionError(f"graph against eager: {bad[:8]}, rows {rows_same}, "
+                                 f"replay {replay_same}, moved {moved}")
+        if not planted_bad:
+            raise AssertionError("the comparison missed the planted stale running moments")
+        if main != want or graphs != want_replay or not all(main.get(k) for k in want):
+            raise AssertionError(f"launches {main} (want {want}), a replay's {graphs}")
+        shutil.rmtree(GHOST_DIR, ignore_errors=True)
+    phase("ghost recipe: bf16 one-shot train and eval graphs against eager, cli.train", ghost)
+    return out
+
+
 # Phase 56: the DnCNN four-source comparison (cli.dncnn_comparison) at a cut
 # of scale. The corpus: all 78 scene instances (the test split's 44 image
 # tuples give the 40 validation images, the ISO exclusion's indices up to
@@ -4829,6 +5015,7 @@ def main() -> int:
     _spatial_packed_tf_phases(phase, nf, smi)
     graphs = _graph_phases(phase)
     mesh_graphs = _mesh_graph_phases(phase, flagship, smi)
+    ghost = _ghost_recipe_phase(phase, flagship)
     comparison = _dncnn_comparison_phase(phase)
     shutil.rmtree(flagship["work"], ignore_errors=True)
     print(f"model_family_seconds {json.dumps(family['seconds'])}")
@@ -4939,6 +5126,22 @@ def main() -> int:
             k.setdefault("under_graph", {})[mode or "float32"] = {
                 "path": label, "launches": n, "k": GRAPH_K,
                 "eager_step_ms": ms.get("eager_ms"), "graph_step_ms": ms.get("graph_ms")}
+    # phase 59: the ghost recipe's graph run (cli.train at K = 32), its bf16
+    # step and eval forward launches beside their modes
+    for k in kernels:
+        for name, mode, counter, part in (
+                ("fused_train_step", "bf16", "fused_train_step_bf16", "train"),
+                ("fused_segment_forward", "running_bf16", "fused_segment_forward_bf16", "eval")):
+            if k["name"] != name:
+                continue
+            n = ghost["launches"].get(counter, 0)
+            k["by_mode"][mode]["launches"] += n
+            replay = ghost["replay"]["staged_" + ("train" if part == "train" else "test")]
+            k.setdefault("under_graph", {})[mode + "_ghost_recipe"] = {
+                "path": "cli.train --recipe ghost's flags (phase 59)", "launches": n,
+                "a_replay": replay.get(counter), "k": GRAPH_K,
+                "eager_step_ms": ghost["ms"][part]["eager_ms"],
+                "graph_step_ms": ghost["ms"][part]["graph_ms"]}
     # the probe sites: train template, then the sampler group
     for probe in [*redesign["probes"].values(), *sampler["probes"].values()]:
         probe["launches"] = sum(MAIN_PATH.get(c, 0) for c in probe["counters"])

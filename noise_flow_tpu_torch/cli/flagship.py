@@ -10,12 +10,19 @@ Steps (``--steps``, in this order):
   that run's checkpoint (``--init_checkpoint``), staged data as its run,
   without its npy cache and native loader (``probes.oracle`` reads the
   rest of the gap to its rows);
-- ``train``: the ``prod-exact`` recipe (jobs/job_noise_flow.sh
+- ``train``: the ``--recipe`` (``RECIPES``) to ``--epochs`` through
+  ``cli.train``: ``prod-exact`` (the default; jobs/job_noise_flow.sh
   prod-exact: exact batch BN on the plain path, b 138, K = 32 graph
-  replays, staged data) to ``--epochs`` through ``cli.train``, without the
-  recipe's npy cache and native loader (they change the staged order of
-  the patches, not the patches): the .MAT corpus and its cache are ~50 GB
-  written, more than a card machine of 45 GiB takes in one run
+  replays, staged data, held to experiments/sidd/prod_exact_150), or the
+  kernel path of jobs/job_noise_flow.sh prod-synth-scale (the one-shot
+  train kernel with ghost BN over blocks of 69, the running-BN eval kernel,
+  K = 32 graph replays of both, staged data): ``ghost`` and ``ghost-f32``
+  at 60 epochs in bfloat16 and float32, held to experiments/sidd/bn_delta/
+  ghost and ghost_f32 (``GHOST_GATES``), and ``prod-synth-scale`` at 150,
+  held to experiments/sidd/prod_synth_scale (``PSS_GATES``). Each runs
+  without its recipe's npy cache and native loader (they change the staged
+  order of the patches, not the patches): the .MAT corpus and its cache
+  are ~50 GB written, more than a card machine of 45 GiB takes in one run
   (chip_smoke.py drives both at a cut of scale). Resumable over calls:
   ``--stop_after S`` stops it S seconds after this process started (the
   epoch in progress finishes, then a checkpoint is saved), and the next
@@ -29,21 +36,22 @@ Steps (``--steps``, in this order):
   (``samples_epoch_*``, about 7 MB a test epoch) are removed, so that the
   logdir stays small enough to carry between calls;
 - ``sweep``: ``cli.kld_sweep`` over the test split at the recorded
-  temperatures, on experiments/sidd/prod_exact_150 (seed 0 and
-  ``--sweep_seeds``) and on the port's own best model (best_of_run, seed
-  0), through the fused sampler;
-- ``grid``: ``analysis.ref_parity`` at b = 1024 on prod_exact_150 and on
-  the port's best model;
+  temperatures, through the fused sampler, on the port's own best model
+  (best_of_run, seed 0) and, for prod-exact, on
+  experiments/sidd/prod_exact_150 (seed 0 and ``--sweep_seeds``);
+- ``grid``: ``analysis.ref_parity`` at b = 1024 on the port's best model
+  and, for prod-exact, on prod_exact_150;
 - ``frame``: ``NoiseFlowWrapper.sample_noise_frame_spatial`` on a packed
   1500x2000 frame, timed;
 - ``dncnn``: the DnCNN four-source comparison (``cli.dncnn_comparison``)
   at the recorded run's setup on the corpus: validation blocks from the
   test scenes, one DnCNN a noise source for 45 epochs on the train scenes;
 - ``report``: the outputs of the steps that ran beside the JAX runs'
-  records: prod_exact_150's train.txt, test.txt and
-  kld_sweep/kld_vs_temp.txt, and experiments/dncnn/comparison/results.json,
-  as one JSON file (the oracle's rows beside condsdn_scale's go there in
-  their own step).
+  records: the recipe's train.txt, test.txt, sample.txt (NLL, sd_z and the
+  KLD columns) and kld_sweep/kld_vs_temp.txt, each epoch's train NLL gap,
+  the recipe's gates (the exit code is 1 when one fails), and
+  experiments/dncnn/comparison/results.json, as one JSON file (the
+  oracle's rows beside condsdn_scale's go there in their own step).
 
 Run on the card (about 30 GB of .MAT under --work):
     python -m noise_flow_tpu_torch.cli.flagship --work data/flagship \
@@ -54,6 +62,13 @@ next call finds it (a copy of the last call's as --resume_from):
         --epochs 150 --stop_after 3000 --logdir chiprun_out/flagship150 \
         [--resume_from data/flagship150] --report chiprun_out/flagship150.json
 and, in the call that reaches epoch 150, --steps generate,train,sweep,grid,report.
+the kernel-path recipes the same way, each in its own logdir
+(<work>/ghost, ghost_f32, prod_synth_scale) and report:
+    python -m noise_flow_tpu_torch.cli.flagship --recipe ghost \
+        --steps generate,train,report --report chiprun_out/ghost.json
+    python -m noise_flow_tpu_torch.cli.flagship --recipe prod-synth-scale \
+        --steps train,sweep,grid,report --stop_after 3000 \
+        --logdir chiprun_out/pss [--resume_from data/pss] --report chiprun_out/pss.json
 or only the DnCNN comparison on a new corpus:
     python -m noise_flow_tpu_torch.cli.flagship --steps generate,dncnn,report \
         --report chiprun_out/dncnn.json
@@ -62,13 +77,14 @@ or only the DnCNN comparison on a new corpus:
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import os
 import shutil
 import sys
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 
@@ -101,6 +117,54 @@ CONDSDN = ["--arch", "", "--sidd_cond", "condSDN", "--depth", "1", "--lr", "1e-4
            "--init_checkpoint", os.path.join(JAX_ORACLE, "ckpt", "model.ckpt-best.npz")]
 JAX_DNCNN = os.path.join(REPO, "experiments", "dncnn", "comparison", "results.json")
 STEPS = ("generate", "oracle", "train", "sweep", "grid", "frame", "dncnn", "report")
+BN_DELTA = os.path.join(REPO, "experiments", "sidd", "bn_delta")
+JAX_PSS = os.path.join(REPO, "experiments", "sidd", "prod_synth_scale")
+# jobs/job_noise_flow.sh prod-synth-scale, less --epochs, the paths, the cache
+# and the native loader: the one-shot kernel (ghost BN over JAX's block,
+# pick_block(138, 64, 8) = 69), K = 32 graph replays, staged data, the sample
+# phase over 24 test batches; bn_delta/ghost and bn_delta/ghost_f32 are the
+# same flags at 60 epochs in bfloat16 and float32 (their hps.txt)
+KERNEL_PATH = ["--arch", "sdn5|unc|unc|unc|unc|gain4|unc|unc|unc|unc", "--width", "4",
+               "--lr", "1e-4", "--n_batch_train", "138", "--patch_height", "32",
+               "--shuffle_patches", "--n_patches_per_image", "2898",
+               "--epochs_full_valid", "10", "--temp", "0.6", "--do_sample",
+               "--n_sample_batches", "24", "--use_pallas", "--steps_per_call", "32",
+               "--device_resident_data"]
+
+
+class Recipe(NamedTuple):
+    """A train step's flags (``cli.train``, less --epochs and the paths),
+    the JAX run whose records it is held to, its default --epochs and its
+    default logdir under --work."""
+    flags: List[str]
+    record: str
+    epochs: int
+    logdir: str
+
+
+RECIPES = {
+    "prod-exact": Recipe(PROD_EXACT, JAX_RUN, 10, "prefix"),
+    "ghost": Recipe(KERNEL_PATH + ["--pallas_train_dtype", "bfloat16"],
+                    os.path.join(BN_DELTA, "ghost"), 60, "ghost"),
+    "ghost-f32": Recipe(KERNEL_PATH + ["--pallas_train_dtype", "float32"],
+                        os.path.join(BN_DELTA, "ghost_f32"), 60, "ghost_f32"),
+    "prod-synth-scale": Recipe(KERNEL_PATH + ["--pallas_train_dtype", "bfloat16"], JAX_PSS,
+                               150, "prod_synth_scale"),
+}
+# the gates of the kernel-path recipes at the record's last epoch: |port -
+# record| of the train and test NLL, nats, for bn_delta's runs (JAX's own
+# bfloat16 and float32 runs part by 15.6 and 25.4, one semantics,
+# bn_delta/README.md), and how far above JAX's exact-BN train row both must
+# read (the ghost-BN gap); prod_synth_scale's record trained at a block of
+# 46, the port at JAX's current 69, so its rows stand beside the record
+# ungated, and it is held to NF below Gauss at temp 1.0 in every sweep cell
+# and to the last test sd_z
+GHOST_GATES = {"train_nll": 20.0, "test_nll": 30.0, "above_exact": 100.0}
+JAX_EXACT = os.path.join(BN_DELTA, "exact")
+PSS_GATES = {"sdz": 0.05, "cells_nf_below_g_at_temp1": 15}
+SAMPLE_COLS = ("NLL", "sdz", "KLD_G", "KLD_NLF", "KLD_NF")
+ORDER_NOTE = ("cli.train runs without the recipe's npy cache and native loader: the staged "
+              "order of the patches differs from the JAX run's, the patches do not")
 
 
 def read_tsv(path: str) -> List[Dict[str, str]]:
@@ -144,6 +208,9 @@ def compare_sweep(port_tsv: str, jax_tsv: str) -> Dict:
     jcells = {}
     for r in jax.values():
         jcells.setdefault((r["cam"], r["iso"]), []).append(float(r["KLD_NF"]))
+
+    def below_at_temp1(rs):
+        return sum(float(r["KLD_NF"]) < float(r["KLD_G"]) for r in rs if float(r["temp"]) == 1.0)
     return {
         "rows": len(rows), "recorded_rows": len(jax),
         "g_nlf_rows_differing": [list(k) for k in diff],
@@ -153,6 +220,8 @@ def compare_sweep(port_tsv: str, jax_tsv: str) -> Dict:
         "mean_best_kld_nf": float(np.mean([v[0] for v in best.values()])),
         "recorded_mean_best_kld_nf": float(np.mean([min(v) for v in jcells.values()])),
         "mean_kld_g": float(np.mean([v[2] for v in best.values()])),
+        "cells_nf_below_g_at_temp1": below_at_temp1(rows),
+        "recorded_cells_nf_below_g_at_temp1": below_at_temp1(jax.values()),
     }
 
 
@@ -205,6 +274,49 @@ def summed_train_time(train_tsv: str, starts: List[int]) -> int:
     return sum(last.values())
 
 
+def train_gap(train_rows: List[Dict]) -> Dict:
+    """Each epoch's port-minus-record train NLL, and the largest in size."""
+    by_epoch = {r["epoch"]: r["NLL"] - r["jax_NLL"] for r in train_rows if "jax_NLL" in r}
+    worst = max(by_epoch, key=lambda e: abs(by_epoch[e]), default=None)
+    return {"by_epoch": by_epoch, "max_abs": None if worst is None else abs(by_epoch[worst]),
+            "epoch_of_max": worst}
+
+
+def recipe_gates(name: str, report: Dict) -> Optional[Dict]:
+    """The gates of a kernel-path recipe (``GHOST_GATES``, ``PSS_GATES``)
+    over its report, each {"value", "limit", "ok"}; {"reached": False} until
+    the run reaches the record's last epoch; None for prod-exact."""
+    if name == "prod-exact":
+        return None
+    record = RECIPES[name].record
+    last = int(read_tsv(os.path.join(record, "train.txt"))[-1]["epoch"])
+    rows = {r: {x["epoch"]: x for x in report[f"{r}_rows"]} for r in ("train", "test")}
+    if last not in rows["train"] or last not in rows["test"]:
+        return {"reached": False, "record_epoch": last,
+                "epoch": max(rows["train"], default=0)}
+
+    def gate(value, limit, ok):
+        return {"value": value, "limit": limit, "ok": bool(ok)}
+    out = {"reached": True, "epoch": last}
+    if name in ("ghost", "ghost-f32"):
+        for r in ("train", "test"):
+            d = rows[r][last]["NLL"] - rows[r][last]["jax_NLL"]
+            out[f"{r}_nll"] = gate(d, GHOST_GATES[f"{r}_nll"], abs(d) <= GHOST_GATES[f"{r}_nll"])
+        exact = {int(x["epoch"]): float(x["NLL"])
+                 for x in read_tsv(os.path.join(JAX_EXACT, "train.txt"))}[last]
+        d = rows["train"][last]["NLL"] - exact
+        out["above_exact"] = gate(d, GHOST_GATES["above_exact"], d > GHOST_GATES["above_exact"])
+        return out
+    sdz = rows["test"][last]["sdz"]
+    out["sdz"] = gate(sdz - 1.0, PSS_GATES["sdz"], abs(sdz - 1.0) <= PSS_GATES["sdz"])
+    sweep = report.get("sweeps", {}).get("port_best_seed0")
+    if sweep is not None:
+        n = sweep["cells_nf_below_g_at_temp1"]
+        out["cells_nf_below_g_at_temp1"] = gate(n, PSS_GATES["cells_nf_below_g_at_temp1"],
+                                                n >= PSS_GATES["cells_nf_below_g_at_temp1"])
+    return out
+
+
 def compare_dncnn(port_json: str, jax_json: str) -> Dict:
     """The port's comparison beside the recorded one: each source's PSNR
     and SSIM, the record's and the differences, the setups, and the
@@ -239,13 +351,18 @@ def compare_dncnn(port_json: str, jax_json: str) -> Dict:
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--work", default=os.path.join(REPO, "data", "flagship"))
-    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--recipe", default="prod-exact", choices=sorted(RECIPES),
+                   help="the train step's recipe and the JAX run its report holds it to")
+    p.add_argument("--epochs", type=int, default=None,
+                   help="the train step's epochs (default: the recipe's: prod-exact 10, "
+                        "ghost and ghost-f32 60, prod-synth-scale 150)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--sweep_seeds", default="1,2,3")
     p.add_argument("--steps", default=",".join(STEPS))
     p.add_argument("--report", default=None, help="JSON report (default <work>/flagship.json)")
     p.add_argument("--logdir", default=None, help="the train step's logdir "
-                   "(default <work>/prefix); a resumed run keeps it across calls")
+                   "(default <work>/prefix for prod-exact, else <work>/<recipe>); a resumed "
+                   "run keeps it across calls")
     p.add_argument("--resume_from", default=None,
                    help="a copy of an earlier call's logdir, copied to --logdir "
                         "when that holds no checkpoint yet")
@@ -258,12 +375,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     steps = a.steps.split(",")
     if set(steps) - set(STEPS):
         raise SystemExit(f"--steps takes {STEPS}, got {steps}")
+    recipe = RECIPES[a.recipe]
+    exact = a.recipe == "prod-exact"
+    epochs = a.epochs or recipe.epochs
     corpus = os.path.join(a.work, "SIDD_Medium_Raw_synth", "Data")
-    prefix = a.logdir or os.path.join(a.work, "prefix")
+    prefix = a.logdir or os.path.join(a.work, recipe.logdir)
     best_dir = os.path.join(prefix, BEST_DIR)
-    sweeps = os.path.join(a.work, "kld_sweep")
+    # the kernel-path recipes' sweeps and grids run on the port's model only
+    tag = "" if exact else "_" + recipe.logdir
+    sweeps = os.path.join(a.work, "kld_sweep" + tag)
     dncnn_out = os.path.join(a.work, "dncnn")
-    report_path = a.report or os.path.join(a.work, "flagship.json")
+    report_path = a.report or os.path.join(
+        a.work, "flagship.json" if exact else f"flagship_{recipe.logdir}.json")
     report = (json.load(open(report_path)) if os.path.exists(report_path) else {})
     os.makedirs(a.work, exist_ok=True)
 
@@ -317,6 +440,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if "train" in steps:
         from noise_flow_tpu_torch.cli import train as cli_train
         from noise_flow_tpu_torch.cli.dncnn_comparison import device_name
+        from noise_flow_tpu_torch.ops import fused_sample as fs
         from noise_flow_tpu_torch.utils.checkpoint import latest_checkpoint
         from noise_flow_tpu_torch.utils.device import resolve_device
 
@@ -326,7 +450,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 shutil.copytree(a.resume_from, prefix, dirs_exist_ok=True)
             keep_best(prefix)     # before fit's resume overwrites model.ckpt-best
             last = latest_checkpoint(ckpt_dir)
-            argv = PROD_EXACT + ["--epochs", str(a.epochs), "--seed", str(a.seed),
+            argv = recipe.flags + ["--epochs", str(epochs), "--seed", str(a.seed),
                                  "--sidd_path", corpus, "--logdir", prefix,
                                  "--device", a.device]
             if last:
@@ -343,13 +467,19 @@ def main(argv: Optional[List[str]] = None) -> int:
                 with np.load(last) as z:
                     start = int(z["__epoch__"]) + 1
             t0 = time.time()
+            before = dict(fs.launch_counts)
             if cli_train.main(argv):
                 raise RuntimeError("cli.train failed")
+            # the train and eval kernels' launches in this call, warm-ups included
+            launches = {k: v - before.get(k, 0) for k, v in fs.launch_counts.items()
+                        if v != before.get(k, 0)}
             rows = read_tsv(os.path.join(prefix, "train.txt"))
             with open(os.path.join(prefix, "loading.json")) as f:
                 loading = json.load(f)
-            calls.append({"start_epoch": start, "end_epoch": int(rows[-1]["epoch"]),
+            calls.append({"recipe": a.recipe, "start_epoch": start,
+                          "end_epoch": int(rows[-1]["epoch"]),
                           "seconds": time.time() - t0, "loading": loading,
+                          "launches": launches,
                           "device": device_name(resolve_device(a.device))})
             with open(calls_path, "w") as f:
                 json.dump(calls, f, indent=1)
@@ -358,14 +488,15 @@ def main(argv: Optional[List[str]] = None) -> int:
                 if d.startswith("samples_epoch_"):
                     shutil.rmtree(os.path.join(prefix, d))
             split = {k: round(v, 1) for k, v in loading.items() if k.endswith("_s")}
-            print(f"[flagship] train: epochs {start}-{calls[-1]['end_epoch']} of {a.epochs}, "
+            print(f"[flagship] train ({a.recipe}): epochs {start}-{calls[-1]['end_epoch']} "
+                  f"of {epochs}, "
                   f"loading {split}, best so far {best}", flush=True)
         timed("train", train)
 
     if "sweep" in steps:
         from noise_flow_tpu_torch.cli import kld_sweep
         runs = [(f"jax_seed{s}", JAX_RUN, s) for s in [0] + [
-            int(s) for s in a.sweep_seeds.split(",") if s]]
+            int(s) for s in a.sweep_seeds.split(",") if s]] if exact else []
         if os.path.isdir(best_dir):
             runs.append(("port_best_seed0", best_dir, 0))
         for name, model, seed in runs:
@@ -376,8 +507,9 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if "grid" in steps:
         from noise_flow_tpu_torch.analysis import ref_parity
-        grids = [("grid", JAX_RUN, "ref_parity")] + (
-            [("grid_port_best", best_dir, "ref_parity_port")] if os.path.isdir(best_dir) else [])
+        grids = ([("grid", JAX_RUN, "ref_parity")] if exact else []) + (
+            [("grid_port_best", best_dir, "ref_parity_port" + tag)]
+            if os.path.isdir(best_dir) else [])
         for name, model, out in grids:
             argv = ["--model_dir", model, "--batch", "1024", "--device", a.device,
                     "--out_dir", os.path.join(a.work, out)]
@@ -412,10 +544,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         def summarize():
             """Each part whose step's outputs are under --work."""
             if os.path.exists(os.path.join(prefix, "train.txt")):
+                report["recipe"] = {"name": a.recipe, "record": os.path.relpath(
+                    recipe.record, REPO), "flags": recipe.flags, "note": ORDER_NOTE}
                 report["train_rows"] = compare_rows(os.path.join(prefix, "train.txt"),
-                                                    os.path.join(JAX_RUN, "train.txt"))
+                                                    os.path.join(recipe.record, "train.txt"))
                 report["test_rows"] = compare_rows(os.path.join(prefix, "test.txt"),
-                                                   os.path.join(JAX_RUN, "test.txt"))
+                                                   os.path.join(recipe.record, "test.txt"))
+                if os.path.exists(os.path.join(prefix, "sample.txt")):
+                    report["sample_rows"] = compare_rows(
+                        os.path.join(prefix, "sample.txt"),
+                        os.path.join(recipe.record, "sample.txt"), cols=SAMPLE_COLS)
                 with open(os.path.join(prefix, "phase_timers.txt")) as f:
                     report["phase_timers"] = f.read().strip()
                 last = {r: report[f"{r}_rows"][-1] for r in ("train", "test")}
@@ -425,13 +563,17 @@ def main(argv: Optional[List[str]] = None) -> int:
                         "sdz": v["sdz"]} for r, v in last.items()}
                 report["epochs_as_jax"] = {
                     r: [x["epoch"] for x in report[f"{r}_rows"]] == [
-                        int(x["epoch"]) for x in read_tsv(os.path.join(JAX_RUN, f"{r}.txt"))
+                        int(x["epoch"]) for x in read_tsv(os.path.join(recipe.record,
+                                                                       f"{r}.txt"))
                         if int(x["epoch"]) <= last[r]["epoch"]] for r in ("train", "test")}
                 calls_path = os.path.join(prefix, "calls.json")
                 if os.path.exists(calls_path):
                     with open(calls_path) as f:
                         calls = json.load(f)
                     report["calls"] = calls
+                    report["train_launches"] = dict(sum(
+                        (collections.Counter(c.get("launches", {})) for c in calls),
+                        collections.Counter()))
                     report["train_time_s"] = summed_train_time(
                         os.path.join(prefix, "train.txt"), [c["start_epoch"] for c in calls])
                     sigs = {json.dumps([c["loading"]["content_sig_train"],
@@ -441,22 +583,23 @@ def main(argv: Optional[List[str]] = None) -> int:
                 if os.path.exists(best_rec):
                     with open(best_rec) as f:
                         best = json.load(f)
-                    jax_best = min(read_tsv(os.path.join(JAX_RUN, "test.txt")),
+                    jax_best = min(read_tsv(os.path.join(recipe.record, "test.txt")),
                                    key=lambda r: float(r["NLL"]))
                     report["best_gap"] = dict(best, jax_epoch=int(jax_best["epoch"]),
                                               jax_nll=float(jax_best["NLL"]),
                                               nll_minus_jax=best["nll"] - float(jax_best["NLL"]))
             if os.path.isdir(sweeps):
-                recorded = os.path.join(JAX_RUN, "kld_sweep", "kld_vs_temp.txt")
+                recorded = os.path.join(recipe.record, "kld_sweep", "kld_vs_temp.txt")
                 report["sweeps"] = {n: compare_sweep(os.path.join(sweeps, n, "kld_vs_temp.txt"),
                                                      recorded)
                                     for n in sorted(os.listdir(sweeps))}
                 jax_runs = [s for n, s in report["sweeps"].items() if n.startswith("jax_")]
-                report["sweep_seed_spread"] = {
-                    "mean_best_kld_nf": [s["mean_best_kld_nf"] for s in jax_runs],
-                    "sd": float(np.std([s["mean_best_kld_nf"] for s in jax_runs]))}
-            for key, out in (("grid_summary", "ref_parity"),
-                             ("grid_summary_port_best", "ref_parity_port")):
+                if jax_runs:
+                    report["sweep_seed_spread"] = {
+                        "mean_best_kld_nf": [s["mean_best_kld_nf"] for s in jax_runs],
+                        "sd": float(np.std([s["mean_best_kld_nf"] for s in jax_runs]))}
+            grids = [("grid_summary", "ref_parity")] if exact else []
+            for key, out in grids + [("grid_summary_port_best", "ref_parity_port" + tag)]:
                 grid = os.path.join(a.work, out, "summary.txt")
                 if os.path.exists(grid):
                     with open(grid) as f:
@@ -464,10 +607,18 @@ def main(argv: Optional[List[str]] = None) -> int:
             if os.path.exists(os.path.join(dncnn_out, "results.json")):
                 report["dncnn"] = compare_dncnn(os.path.join(dncnn_out, "results.json"),
                                                 JAX_DNCNN)
+            if "train_rows" in report:
+                report["train_gap"] = train_gap(report["train_rows"])
+                report["gates"] = recipe_gates(a.recipe, report)
         timed("report", summarize)
         print(json.dumps({k: report[k] for k in ("epoch_gap", "best_gap", "train_time_s",
-                                                 "sweep_seed_spread", "dncnn")
+                                                 "sweep_seed_spread", "dncnn", "gates")
                           if k in report}))
+        failed = [k for k, v in (report.get("gates") or {}).items()
+                  if isinstance(v, dict) and not v["ok"]]
+        if failed:
+            print(f"[flagship] {a.recipe}: gates failed: {failed}", flush=True)
+            return 1
     return 0
 
 

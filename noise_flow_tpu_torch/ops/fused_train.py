@@ -675,6 +675,18 @@ SEGMENT_PLAIN = (segment_train_forward_reference, segment_backward_reference)
 # the segment path
 # ---------------------------------------------------------------------------
 
+def _zero_bn_biases(grad_rec) -> None:
+    """Write exact zeros into the b1/b2 entries of a records' gradient, in
+    place: the conv biases that feed a BatchNorm, whose mean BN removes, as
+    JAX's one-shot and segment paths give them (its ``b1s``/``b2s``
+    cotangents are zeros). The kernels already write zeros there; the plain
+    versions leave autograd's near-zeros, which Adam would turn into
+    lr-sized steps of the biases and so shift the running means."""
+    for name in ("b1", "b2"):
+        off, shape = _REC_LAYOUT[name]
+        grad_rec[:, off:off + shape[0]] = 0.0
+
+
 class SegmentFn(torch.autograd.Function):
     """One segment of the segment path as an autograd function, the
     counterpart of the JAX ``make_segment_fn`` custom_vjp.
@@ -702,9 +714,7 @@ class SegmentFn(torch.autograd.Function):
         gx, grad_rec, grad_offs, grad_mixes = ctx.bwd(
             x, rec, offs, mixes, ctx.ops_code, ctx.bt, gz.contiguous(), gldj.contiguous(),
             mm_dtype=ctx.mm_dtype)
-        for name in ("b1", "b2"):
-            off, shape = _REC_LAYOUT[name]
-            grad_rec[:, off:off + shape[0]] = 0.0
+        _zero_bn_biases(grad_rec)
         return gx, grad_rec, grad_offs, grad_mixes, None, None, None, None
 
 
@@ -729,6 +739,7 @@ class FusedNLL(torch.autograd.Function):
     @staticmethod
     def forward(ctx, rec, offs, mixes, sa, sb, x, clean, ops_code, bt, step_fn, mm_dtype):
         out = step_fn(x, clean, sa, sb, rec, offs, mixes, ops_code, bt, mm_dtype=mm_dtype)
+        _zero_bn_biases(out["grad_rec"])
         ctx.save_for_backward(out["grad_rec"], out["grad_offs"], out["grad_mixes"],
                               out["gsa"], out["gsb"])
         ldj, zs, z2 = out["rows"].unbind(1)
@@ -940,8 +951,9 @@ class FusedFlow(_Fused):
                              _pad_last(q.bn2.mean, C), _pad_last(q.bn2.var, C, 1.0)])
                 for q in (flow.layers[i].nn for i in range(lo, hi)
                           if flow.specs[i].kind == "coupling")]
-        if not rows:
-            return torch.tensor([[[0.0] * C, [1.0] * C] * 2], device=flow.device)
+        if not rows:   # kept on the device: a captured eval step copies nothing
+            return device_constant("bnrun_none", flow.device,
+                                   lambda: np.array([[[0.0] * C, [1.0] * C] * 2], np.float32))
         return torch.stack(rows).contiguous()
 
     def inverse(self, x, cond, train: bool, seg_fns=SEGMENT_KERNELS):

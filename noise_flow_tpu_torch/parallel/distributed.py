@@ -126,19 +126,23 @@ def _rank_entry(rank_: int, world: int, address: Optional[str], backend: str,
         shutdown()
 
 
-def spawn_ranks(n: int, fn, args=(), device="cpu", backend: Optional[str] = None,
+def spawn_ranks(n: int, fn, args=(), device="cuda", backend: Optional[str] = None,
                 timeout: Optional[float] = None, group: bool = True) -> List:
     """Run ``fn(rank, device, *args)`` in n new processes and return what
     each returned, in rank order. With ``group`` the processes are the ranks
     of one process group (rendezvous on a free localhost port; ``backend``:
     the device's ``default_backend``); without, ``fn`` brings up its own
-    (coordinator mode). ``device``: cuda:r for rank r where it is "cuda",
-    the named card for every rank where it names one ("cuda:0"), else the
-    CPU. A rank that fails ends the others and raises here; ranks still
-    running after ``timeout`` seconds are killed and TimeoutError is raised.
-    ``fn`` must be importable (a module-level function)."""
+    (coordinator mode). ``device``: cuda:r for rank r where it is "cuda"
+    (the default; without a card it raises here, before any process
+    starts), the named card for every rank where it names one ("cuda:0"),
+    or "cpu". A rank that fails ends the others and raises here; ranks
+    still running after ``timeout`` seconds are killed and TimeoutError is
+    raised. ``fn`` must be importable (a module-level function)."""
     import torch.multiprocessing as mp
 
+    from noise_flow_tpu_torch.utils.device import resolve_device
+
+    resolve_device(device)
     backend = backend or default_backend(device)
     address = f"localhost:{free_port()}" if group else None
     with tempfile.TemporaryDirectory() as out_dir:

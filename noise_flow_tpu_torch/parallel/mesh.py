@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from noise_flow_tpu_torch.parallel import distributed as pd
+from noise_flow_tpu_torch.utils.device import resolve_device
 
 
 @dataclass
@@ -41,16 +42,18 @@ class Mesh:
         return functools.partial(pd.all_reduce_sum, group=self.group)
 
 
-def make_mesh(n_data: Optional[int] = None, device="cpu") -> Mesh:
+def make_mesh(n_data: Optional[int] = None, device="cuda") -> Mesh:
     """The mesh over every rank of the default process group (one rank when
-    there is none). ``n_data`` (None: all) must be that world size, as JAX's
-    ``make_mesh`` cannot take more devices than it sees."""
+    there is none), computing on ``device``: the card unless the caller asks
+    for the CPU; without a card ``"cuda"`` raises (``resolve_device``).
+    ``n_data`` (None: all) must be that world size, as JAX's ``make_mesh``
+    cannot take more devices than it sees."""
     world = pd.world_size()
     n = world if n_data is None else n_data
     if n != world:
         raise ValueError(f"a mesh of {n} ranks needs a process group of {n}; this one "
                          f"has {world}")
-    dev = torch.device(device)
+    dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is not None:
         torch.cuda.set_device(dev)
     return Mesh(n, pd.rank(), dev, None, process_local=pd.process_count() > 1)

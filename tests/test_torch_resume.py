@@ -36,7 +36,10 @@ torch.set_num_threads(1)
 ARCH = "sdn5|unc|gain4|unc"
 PATHS = {"plain": {}, "oneshot": {"use_pallas": True, "pallas_train_dtype": "float32"},
          "segment": {"use_pallas": True, "pallas_oneshot": False,
-                     "pallas_train_dtype": "float32"}}
+                     "pallas_train_dtype": "float32"},
+         # the kernel-path recipes' default: the one-shot step and the eval
+         # forward in bfloat16
+         "oneshot_bf16": {"use_pallas": True, "pallas_train_dtype": "bfloat16"}}
 # (lr, epochs, the epoch after which the run stops) where the test NLL is
 # lowest at the stop and higher in every later epoch, so that the stop lands
 # in the best test epoch and the resumed call's first test epoch is worse
@@ -253,8 +256,9 @@ def test_flagship_train_step_resumes_over_calls(corpus, tmp_path, monkeypatch):
     content signatures; the report sums train_time over them and keeps the
     lowest test row's checkpoint; the rows are those of one run."""
     work = tmp_path / "work"
-    monkeypatch.setattr(flagship, "PROD_EXACT", flagship.PROD_EXACT + [
-        "--staged_test_patches", "138"])
+    exact = flagship.RECIPES["prod-exact"]
+    monkeypatch.setitem(flagship.RECIPES, "prod-exact", exact._replace(
+        flags=exact.flags + ["--staged_test_patches", "138"]))
     common = ["--work", str(work), "--epochs", "3", "--device", "cpu", "--steps", "train,report"]
     os.makedirs(work / "SIDD_Medium_Raw_synth")
     os.symlink(corpus, work / "SIDD_Medium_Raw_synth" / "Data")
