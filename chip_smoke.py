@@ -156,9 +156,16 @@ Phases, each of which fails the run if it fails:
    ``kernel_sweep.py`` (concat-K, interleave, precast and their
    combinations), at (R) running BN with in-kernel RNG, b = 8192, and (W)
    batch BN on eps, b = bt = 138, both precisions; the chains of 56
-   dependent products of ``mxu_bound_probe.py`` at the literal shape and
-   at the sampler's, torch.matmul at 4096^2 (k) and the production sampler
-   in float32 against bfloat16 (R). Each is timed as device time in turns;
+   dependent products of ``mxu_bound_probe.py`` at the literal shape in
+   the Hopper redesign (bf16 ``wgmma`` with the tile in registers and the
+   weights fed by bulk copies; float32 FMAs over a persistent grid, the
+   parent's bits) and the parent's design, beside 56 torch.matmul, and at the
+   sampler's 4 channels beside 56 torch.matmul, torch.matmul at 4096^2 (k)
+   and the production sampler in float32 against bfloat16 (R); the
+   calibration line gives the chain's k from the redesign and from the
+   parent, and the matmul share from the redesign's k; the SASS of the
+   bf16 redesign must hold HGMMA (wgmma) and UBLKCP (bulk copies). Each is
+   timed as device time in turns;
    each variant is held to its plain version (float32 within TOL, bfloat16
    normwise within BF16_SAMPLE_RTOL, notrans at NOTRANS_RTOL, the chains at
    CHAIN_RTOL, over their first CHAIN_PREFIX products at CHAIN_PREFIX_RTOL,
@@ -172,8 +179,10 @@ Phases, each of which fails the run if it fails:
    make_sampler) and the eval forward re-timed as device times;
 36. plant faults those comparisons must catch: a wrong polynomial in
    notrans (tanh u -> u), an interleaved stream reading the other patch's
-   clean, a precast record rounded toward zero, one chain product skipped,
-   a bfloat16 chain whose intermediates are not rounded again;
+   clean, a precast record rounded toward zero, one chain product skipped
+   and one weight replaced by the one before it (a stale ring slot), both
+   through each chain design, a bfloat16 chain whose intermediates are not
+   rounded again (and each bfloat16 chain kernel held to it);
 37. the sampler's redesign (batch BN in one cooperative launch with merged
    moments, each patch kept on chip where the card holds every CTA; bf16
    weights rounded once) against the parent's design (the probe library's
@@ -433,6 +442,10 @@ TOL = (1e-6, 1e-5)
 # couplings
 BATCH_BN_LAUNCHES = 1
 PARENT_BATCH_BN_LAUNCHES = 40
+# phase 36's stale-slot fault: the literal chain's weights with w[m] replaced
+# by w[m - 1] at this m (past the redesign's first pass through its ring of
+# 4 slots)
+STALE_PRODUCT = 5
 # The train step, kernel vs plain, at b = 138 (flagship weights). Float32 sums
 # in another order; the gradients of the early couplings also go through
 # ReLU kinks where a float32 rounding flips a mask (one or two flips a step,
@@ -2232,7 +2245,8 @@ def _sampler_phases(phase, programs, flow):
         rows = {f"{site}: {k}": r for site, e in res.items() for k, r in e["variants"].items()}
         bad = [k for k, r in rows.items()
                if r.get("agrees") is False or r.get("bit_equal") is False
-               or r.get("bit_equal_to_production") is False]
+               or r.get("bit_equal_to_production") is False
+               or r.get("bit_equal_to_parent") is False]
         held = sum(1 for r in rows.values() if "agrees" in r)
         calls = {k: r["launches_a_call"] for k, r in rows.items() if "launches_a_call" in r}
         wrong = [k for k, n in calls.items()
@@ -2257,6 +2271,14 @@ def _sampler_phases(phase, programs, flow):
         print("sampler probe full (the parent's design): bit-equal to the production kernel in "
               "running BN and within the sampler's tolerance of it in batch BN, in both "
               "precisions and both input modes")
+        # the redesigned bfloat16 chain runs on wgmma fed by bulk copies
+        sass = {k: v for k, v in sp.sass_counts().items() if "mm_chain" in k or "precast" in k}
+        for kernel, ops in sass.items():
+            print(f"sass[sample_probe] {kernel}: {ops}")
+        bf = [v for k, v in sass.items() if "mm_chain_bf16E" in k]
+        if len(bf) != 1 or not bf[0].get("HGMMA") or not bf[0].get("UBLKCP"):
+            raise AssertionError(f"the bfloat16 chain redesign lacks HGMMA or UBLKCP: {bf}")
+        res["probe_mm_chain"]["sass"] = sass
         out["probes"] = res
         out["production"] = _production_times(programs, flow)
     phase("sampler probe attribution", attribution)
@@ -2265,9 +2287,11 @@ def _sampler_phases(phase, programs, flow):
         """Faults of each kind the comparisons of phase 35 must catch: a
         wrong polynomial in notrans (tanh u -> u), an interleaved stream
         reading the other patch's clean, a precast record rounded toward
-        zero, one chain product skipped, and a bfloat16 chain whose
-        intermediates are not rounded again (the chains at their timed
-        shape)."""
+        zero, one chain product skipped and one weight replaced by the one
+        before it (a stale slot of the redesign's ring), each run through
+        both chain designs, and a bfloat16 chain whose intermediates are not
+        rounded again, against the plain chain and against each bfloat16
+        kernel (the chains at their timed shape)."""
         inp = sp.shape_inputs(programs, "W")
         prog, x, clean, sa, sb, b = (inp[k] for k in ("program", "x", "clean", "sa", "sb", "b"))
         caught = {}
@@ -2281,10 +2305,18 @@ def _sampler_phases(phase, programs, flow):
             p = sp.variant_reference(prog, "interleave", x, clean, sa, sb, b, dt)
             caught[f"interleave reads the other patch's clean ({dt})"] = not _sampler_check(
                 "sample", dt, k, p)
-            got, ref = sp.mm_chain(xc, wc[1:].contiguous(), dt), sp.mm_chain_reference(xc, wc, dt)
-            caught[f"chain with a product skipped ({dt})"] = not _sampler_check(
-                "mm_chain", dt, got, ref)
-            print(f"chain with a product skipped ({dt}): normwise {_norm_rel(got, ref):.3e}")
+            ref = sp.mm_chain_reference(xc, wc, dt)
+            stale = wc.clone()
+            stale[STALE_PRODUCT] = wc[STALE_PRODUCT - 1]
+            for design in sp.CHAIN_DESIGNS:
+                for fault, w_in in (("a product skipped", wc[1:].contiguous()),
+                                    (f"w[{STALE_PRODUCT}] replaced by w[{STALE_PRODUCT - 1}] "
+                                     "(a stale ring slot)", stale)):
+                    got = sp.mm_chain(xc, w_in, dt, design)
+                    caught[f"{design} chain with {fault} ({dt})"] = not _sampler_check(
+                        "mm_chain", dt, got, ref)
+                    print(f"{design} chain with {fault} ({dt}): normwise "
+                          f"{_norm_rel(got, ref):.3e}")
         for n in (sp.N_MM, sp.CHAIN_PREFIX):   # the full chain's reading, for the record
             got = sp.chain_without_rerounding(xc, wc[:n])
             ref = sp.mm_chain_reference(xc, wc[:n], "bfloat16")
@@ -2292,6 +2324,15 @@ def _sampler_phases(phase, programs, flow):
                   f"{_norm_rel(got, ref):.3e}")
         caught["chain without re-rounding (bfloat16)"] = not _sampler_check(
             "mm_chain_prefix", "bfloat16", got, ref)
+        # and the other way round: each bfloat16 kernel held to the chain
+        # without re-rounding as if that were its plain version must fail,
+        # so the kernels do round every product's input
+        for design in sp.CHAIN_DESIGNS:
+            kern = sp.mm_chain(xc, wc[:sp.CHAIN_PREFIX].contiguous(), "bfloat16", design)
+            caught[f"{design} bfloat16 chain held to one without re-rounding"] = (
+                not _sampler_check("mm_chain_prefix", "bfloat16", kern, got))
+            print(f"{design} bfloat16 chain against the chain without re-rounding, "
+                  f"{sp.CHAIN_PREFIX} products: normwise {_norm_rel(kern, got):.3e}")
         trunc = copy.copy(prog)
         coup = prog.coup.clone()
         weights = torch.zeros(fs.REC, dtype=torch.bool, device="cuda")

@@ -69,7 +69,11 @@ SIGNATURES["segment_probe"] = {
     "nf_segment_parent_occupancy": ([_I, ctypes.POINTER(_I)], _I),
 }
 _CHAIN = ([_I] + [_P] * 3 + [_I] * 2 + [_P, ctypes.POINTER(_I)], _I)
-SIGNATURES["sample_probe"] = {"nf_mm_chain": _CHAIN, "nf_px_chain": _CHAIN}
+SIGNATURES["sample_probe"] = {
+    "nf_mm_chain": ([_I, _I] + [_P] * 4 + [_I] * 2 + [_P, ctypes.POINTER(_I)], _I),
+    "nf_chain_precast": ([_P, _P, _I, _P, ctypes.POINTER(_I)], _I),
+    "nf_px_chain": _CHAIN,
+}
 SAMPLE_VARIANT_LIBRARIES = ("sample_variants_f32", "sample_variants_bf16")
 for _name in SAMPLE_VARIANT_LIBRARIES:
     SIGNATURES[_name] = {

@@ -13,9 +13,12 @@ with the question it asked):
   interleaved patches, bfloat16 weights rounded once into shared memory,
   and their combinations (``DESIGN_BITS``);
 - ``mxu_bound_probe.py`` (products or latency?): a chain of 56 dependent
-  [2048, 128] x [128, 128] products a CTA in float32 FMAs and in bfloat16
-  ``mma.sync`` (``csrc/sample_probe.cu``), the same chain at the sampler's
-  4 channels, and the dense rate factor k and sampler ratio R that read it.
+  [rows, 128] x [128, 128] products (``csrc/sample_probe.cu``) in the Hopper
+  redesign (float32 FMAs over a persistent grid; bfloat16 ``wgmma`` with the
+  tile in registers and the weights fed by bulk copies) and the parent's
+  design (a CTA a 2048-row block, float32 FMAs and bfloat16 ``mma.sync``),
+  the same chain at the sampler's 4 channels, and the dense rate factor k
+  and sampler ratio R that read it.
 
 The sampler's production design (batch BN in one cooperative launch with
 merged moments, ``coop_kernel``; bfloat16 weights rounded once) is not
@@ -97,6 +100,9 @@ SAME_BITS = {"interleave": "full", "precast": "full", "ppt2": "full", "ppt8": "f
              "concat_k_interleave": "concat_k", "concat_k_interleave_precast": "concat_k"}
 N_MM, CHAIN_K = 56, 128       # mxu_bound_probe.py:62-63: 56 [bt * 32, 128] x [128, 128]
 PX_VARIANTS = {"f32": 0, "bf16_fma": 1, "bf16_mma": 2}
+# the literal chain's designs (enum ChainDesign of csrc/sample_probe.cu): the
+# Hopper redesign and the parent's kernels, the probe's first design
+CHAIN_DESIGNS = {tt.PROD: 0, tt.PARENT: 1}
 DENSE_N = 4096
 # device times: medians of ROUNDS rounds of tt.alternated_ms in turns, each
 # round the mean of ITERS calls (CHAIN_ITERS for the literal chain, 5-15 ms
@@ -142,9 +148,11 @@ SITES = (
          ("sample_probe_fold",)),
     Site("probe_mm_chain", "mxu_bound_probe.py", 85, "pallas_mm_chain_rate",
          "is the sampler bound by its products or by its latency",
-         "56 dependent [2048, 128] x [128, 128] products a CTA: f32 CUDA-core FMAs against "
-         "bf16 mma.sync; the same chain at the sampler's 4 channels (f32 FMA, bf16 FMA, bf16 "
-         "mma.sync); torch.matmul at 4096^2 for k; the production sampler f32/bf16 for R",
+         "56 dependent [rows, 128] x [128, 128] products: f32 CUDA-core FMAs against bf16 "
+         "wgmma with the tile in registers and a TMA ring (the parent's design: a CTA a "
+         "2048-row block, bf16 mma.sync); the same chain at the sampler's 4 channels (f32 FMA, "
+         "bf16 FMA, bf16 mma.sync); torch.matmul at 4096^2 for k; the production sampler "
+         "f32/bf16 for R",
          ("sample_probe_mm_chain",)),
 )
 
@@ -251,6 +259,31 @@ def chain_without_rerounding(x, w):
     return x
 
 
+# the redesigned bfloat16 chain's weight layout (chain_precast): for row n
+# of w^T, the logical 16-byte chunk c of a 64-value block sits at chunk c ^
+# (n % 8), the 128-byte swizzle; the XOR is its own inverse
+_SWZ_ROWS = torch.arange(CHAIN_K)[:, None]
+_SWZ_CHUNKS = torch.arange(8)[None, :] ^ (_SWZ_ROWS % 8)
+
+
+def precast_reference(w):
+    """The plain version of ``precast_weights``: w [n, 128, 128] rounded to
+    bfloat16 (nearest even) and laid out as the redesigned bfloat16 chain's
+    wgmma B operand, K-major with the 128-byte swizzle: each product's w^T
+    as two [128 n][64 k] blocks, the 16-byte chunk c of row n stored at chunk
+    c ^ (n % 8). Returns bfloat16 [n, 128 * 128]."""
+    n = w.shape[0]
+    t = w.to(torch.bfloat16).transpose(1, 2).reshape(n, CHAIN_K, 2, 8, 8).permute(0, 2, 1, 3, 4)
+    return t[:, :, _SWZ_ROWS, _SWZ_CHUNKS, :].reshape(n, CHAIN_K * CHAIN_K).contiguous()
+
+
+def precast_undo(wb):
+    """The bfloat16 [n, 128, 128] weights that ``precast_reference`` laid out."""
+    n = wb.shape[0]
+    t = wb.reshape(n, 2, CHAIN_K, 8, 8)[:, :, _SWZ_ROWS, _SWZ_CHUNKS, :]
+    return t.permute(0, 2, 1, 3, 4).reshape(n, CHAIN_K, CHAIN_K).transpose(1, 2).contiguous()
+
+
 def chain_inputs(generator):
     """The literal chain's checked inputs at its timed shape (b = R_B
     patches of 32 rows): x [R_B * 32, 128] ~ N(0, 1) and w [N_MM, 128, 128]
@@ -316,10 +349,16 @@ def _chain_check(name, x, w, k):
         raise ValueError(f"{name}: contiguous inputs on one device")
 
 
-def mm_chain(x, w, mm_dtype="float32"):
+def mm_chain(x, w, mm_dtype="float32", design=tt.PROD):
     """``mm_chain_reference`` at the literal shape, x [rows, 128] (rows a
-    multiple of 128; a CTA takes 2048 rows), w [n, 128, 128]: float32 FMAs
-    or bfloat16 ``mma.sync`` on the card."""
+    multiple of 128), w [n, 128, 128], by ``design`` (``CHAIN_DESIGNS``). The
+    redesign: float32 FMAs over a persistent grid with the weights
+    double-buffered by bulk copies; bfloat16 ``wgmma`` with the tile in
+    registers, after ``chain_precast`` rounds the weights into scratch (two
+    launches). The parent: a CTA takes 2048 rows, float32 FMAs or bfloat16
+    ``mma.sync``."""
+    if design not in CHAIN_DESIGNS:
+        raise ValueError(f"unknown chain design {design!r}: one of {tuple(CHAIN_DESIGNS)}")
     _chain_check("mm_chain", x, w, CHAIN_K)
     if fs._device_kind(x) == "cpu":
         return mm_chain_reference(x, w, mm_dtype)
@@ -328,11 +367,29 @@ def mm_chain(x, w, mm_dtype="float32"):
         raise ValueError(f"mm_chain takes a multiple of 128 rows, got {rows}")
     from noise_flow_tpu_torch.ops._build import load_library
 
+    bf = fs.is_bf16(mm_dtype)
+    wb = (torch.empty((w.shape[0], CHAIN_K * CHAIN_K), dtype=torch.bfloat16, device=x.device)
+          if bf and design == tt.PROD else None)
     out = torch.empty_like(x)
     tt._launch("sample_probe_mm_chain", load_library("sample_probe").nf_mm_chain, x.device,
-             int(fs.is_bf16(mm_dtype)), x.data_ptr(), w.data_ptr(), out.data_ptr(), rows,
-             w.shape[0])
+               int(bf), CHAIN_DESIGNS[design], x.data_ptr(), w.data_ptr(),
+               None if wb is None else wb.data_ptr(), out.data_ptr(), rows, w.shape[0])
     return out
+
+
+def precast_weights(w):
+    """The redesigned bfloat16 chain's first launch alone (``chain_precast``):
+    w [n, 128, 128] rounded to bfloat16 in its B operand's layout, as
+    ``precast_reference``."""
+    _chain_check("precast_weights", w[0], w, CHAIN_K)
+    if fs._device_kind(w) == "cpu":
+        return precast_reference(w)
+    from noise_flow_tpu_torch.ops._build import load_library
+
+    wb = torch.empty((w.shape[0], CHAIN_K * CHAIN_K), dtype=torch.bfloat16, device=w.device)
+    tt._launch("sample_probe_mm_chain", load_library("sample_probe").nf_chain_precast, w.device,
+               w.data_ptr(), wb.data_ptr(), w.shape[0])
+    return wb
 
 
 def px_chain(variant: str, x, w):
@@ -553,44 +610,56 @@ def attribution(check: Optional[Check] = None) -> Dict[str, dict]:
     x_px = torch.randn((R_B, 32, 32, 4), generator=g, device="cuda")
     w_px = random_rotations(N_MM, 4, g)
     variants = {}
-    ms = tt.alternated_ms({**{("chain", dt): functools.partial(mm_chain, x_lit, w_lit, dt)
-                              for dt in DTYPES},
+    ms = tt.alternated_ms({**{(d, dt): functools.partial(mm_chain, x_lit, w_lit, dt, d)
+                              for dt in DTYPES for d in CHAIN_DESIGNS},
                            **{("torch", dt): functools.partial(_torch_chain, x_lit, w_lit, dt)
                               for dt in DTYPES}}, ROUNDS, CHAIN_ITERS)
+    flops = 2.0 * R_B * 32 * CHAIN_K * CHAIN_K * N_MM
+    pre = w_chk[:CHAIN_PREFIX].contiguous()
     for dt in DTYPES:
-        got, ref = mm_chain(x_chk, w_chk, dt), mm_chain_reference(x_chk, w_chk, dt)
         plain_ms = tt.time_ms(functools.partial(mm_chain_reference, x_lit, w_lit, dt), 2)
-        flops = 2.0 * R_B * 32 * CHAIN_K * CHAIN_K * N_MM
         bound = tt._bound(flops, 2 * 4.0 * x_lit.numel() + 4.0 * w_lit.numel(), fs.is_bf16(dt))
-        row = held({"ms": ms[("chain", dt)], "plain_ms": plain_ms,
-                    "library_ms": ms[("torch", dt)], "bound_ms": bound[0],
-                    "bound_by": bound[1], "tflops": flops / ms[("chain", dt)] / 1e9,
-                    "patches_per_s": R_B / ms[("chain", dt)] * 1e3},
-                   "mm_chain", dt, got, ref)
-        pre = w_chk[:CHAIN_PREFIX].contiguous()
-        got, ref = mm_chain(x_chk, pre, dt), mm_chain_reference(x_chk, pre, dt)
-        row["prefix_normwise_vs_plain"] = tt._errors(got, ref)[0]
-        if check is not None:
-            row["agrees"] = row["agrees"] and bool(check("mm_chain_prefix", dt, got, ref))
-        variants[f"literal,{dt}"] = row
-        print(f"probe mm chain literal {dt}: {row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s), "
-              f"torch.matmul chain {row['library_ms']:.4f} ms, bound {bound[0]:.4f} ms; "
-              f"normwise vs plain {row['normwise_vs_plain']:.2e} ({CHAIN_PREFIX} products: "
-              f"{row['prefix_normwise_vs_plain']:.2e})")
-    px_ms = tt.alternated_ms({v: functools.partial(px_chain, v, x_px, w_px) for v in PX_VARIANTS},
-                             ROUNDS, ITERS)
+        ref, ref_pre = mm_chain_reference(x_chk, w_chk, dt), mm_chain_reference(x_chk, pre, dt)
+        for d in CHAIN_DESIGNS:
+            t = ms[(d, dt)]
+            row = held({"ms": t, "plain_ms": plain_ms, "library_ms": ms[("torch", dt)],
+                        "bound_ms": bound[0], "bound_by": bound[1], "share_of_bound": bound[0] / t,
+                        "tflops": flops / t / 1e9, "patches_per_s": R_B / t * 1e3},
+                       "mm_chain", dt, mm_chain(x_chk, w_chk, dt, d), ref)
+            got = mm_chain(x_chk, pre, dt, d)
+            row["prefix_normwise_vs_plain"] = tt._errors(got, ref_pre)[0]
+            if check is not None:
+                row["agrees"] = row["agrees"] and bool(check("mm_chain_prefix", dt, got, ref_pre))
+            if d == tt.PROD:
+                row["parent_ms"] = ms[(tt.PARENT, dt)]
+            variants[f"literal,{dt}" if d == tt.PROD else f"literal_parent,{dt}"] = row
+            print(f"probe mm chain literal {dt} {d}: {t:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
+                  f"{100 * row['share_of_bound']:.1f}% of the bound {bound[0]:.4f} ms, "
+                  f"{bound[1]}), torch.matmul chain {row['library_ms']:.4f} ms; normwise vs "
+                  f"plain {row['normwise_vs_plain']:.2e} ({CHAIN_PREFIX} products: "
+                  f"{row['prefix_normwise_vs_plain']:.2e})")
+        if not fs.is_bf16(dt):
+            variants[f"literal,{dt}"]["bit_equal_to_parent"] = bool(torch.equal(
+                mm_chain(x_chk, w_chk, dt), mm_chain(x_chk, w_chk, dt, tt.PARENT)))
+    # at the sampler's 4 channels, beside the same chain as 56 torch.matmul
+    px_ms = tt.alternated_ms({**{v: functools.partial(px_chain, v, x_px, w_px)
+                                 for v in PX_VARIANTS},
+                              **{("torch", dt): functools.partial(_torch_chain, x_px, w_px, dt)
+                                 for dt in DTYPES}}, ROUNDS, ITERS)
     for v in PX_VARIANTS:
         dt = "float32" if v == "f32" else "bfloat16"
         got, ref = px_chain(v, x_px, w_px), mm_chain_reference(x_px, w_px, dt)
-        flops = 2.0 * R_B * 1024 * 16 * N_MM
-        bound = tt._bound(flops, 2 * 4.0 * x_px.numel() + 4.0 * w_px.numel(), dt == "bfloat16")
+        px_flops = 2.0 * R_B * 1024 * 16 * N_MM
+        bound = tt._bound(px_flops, 2 * 4.0 * x_px.numel() + 4.0 * w_px.numel(), dt == "bfloat16")
         row = held({"ms": px_ms[v], "plain_ms": tt.time_ms(
                         functools.partial(mm_chain_reference, x_px, w_px, dt), 2),
-                    "bound_ms": bound[0], "bound_by": bound[1],
-                    "tflops_useful": flops / px_ms[v] / 1e9}, "px_chain", dt, got, ref)
+                    "library_ms": px_ms[("torch", dt)], "bound_ms": bound[0],
+                    "bound_by": bound[1], "tflops_useful": px_flops / px_ms[v] / 1e9},
+                   "px_chain", dt, got, ref)
         variants[f"sampler_shape,{v}"] = row
         print(f"probe px chain {v}: {row['ms']:.4f} ms ({row['tflops_useful']:.2f} useful "
-              f"TFLOP/s), bound {bound[0]:.4f} ms; normwise vs plain "
+              f"TFLOP/s), bound {bound[0]:.4f} ms ({bound[1]}), plain {row['plain_ms']:.4f} ms, "
+              f"torch.matmul chain {row['library_ms']:.4f} ms; normwise vs plain "
               f"{row['normwise_vs_plain']:.2e}")
 
     # calibration: the dense rate factor k (torch.matmul 4096^2) and the
@@ -609,8 +678,10 @@ def attribution(check: Optional[Check] = None) -> Dict[str, dict]:
     k = dense["bfloat16"] / dense["float32"]
     r = cal["sampler_float32"] / cal["sampler_bfloat16"]
     k_chain = variants["literal,float32"]["ms"] / variants["literal,bfloat16"]["ms"]
+    k_chain_parent = (variants["literal_parent,float32"]["ms"]
+                      / variants["literal_parent,bfloat16"]["ms"])
     calibration = {
-        "dense_tflops": dense, "k": k, "k_chain": k_chain,
+        "dense_tflops": dense, "k": k, "k_chain": k_chain, "k_chain_parent": k_chain_parent,
         "k_sampler_shape": variants["sampler_shape,f32"]["ms"]
         / variants["sampler_shape,bf16_mma"]["ms"],
         "sampler_ms": {dt: cal[f"sampler_{dt}"] for dt in DTYPES}, "R": r,
@@ -619,14 +690,16 @@ def attribution(check: Optional[Check] = None) -> Dict[str, dict]:
         "sampler_over_chain_rate": variants["literal,bfloat16"]["ms"] / cal["sampler_bfloat16"],
     }
     print(f"probe calibration: dense {dense['float32']:.1f} / {dense['bfloat16']:.1f} TFLOP/s "
-          f"(f32 / bf16), k = {k:.2f}, chain k = {k_chain:.2f}; sampler (R) f32 "
-          f"{cal['sampler_float32']:.4f} ms, bf16 {cal['sampler_bfloat16']:.4f} ms, R = "
-          f"{r:.3f}; matmul share (R-1)/(k-1) = {calibration['matmul_share']}; sampler bf16 "
-          f"rate / chain bf16 rate = {calibration['sampler_over_chain_rate']:.3f}")
+          f"(f32 / bf16), k = {k:.2f}, chain k = {k_chain:.2f} (parent {k_chain_parent:.2f}); "
+          f"sampler (R) f32 {cal['sampler_float32']:.4f} ms, bf16 {cal['sampler_bfloat16']:.4f} "
+          f"ms, R = {r:.3f}; matmul share (R-1)/(k-1) = {calibration['matmul_share']}, with "
+          f"the chain's k {calibration['matmul_share_chain_k']}; sampler bf16 rate / chain "
+          f"bf16 rate = {calibration['sampler_over_chain_rate']:.3f}")
     h = variants["literal,bfloat16"]
     entry("probe_mm_chain", h["ms"], h["plain_ms"], (h["bound_ms"], h["bound_by"]),
           max(v["max_abs_vs_plain"] for v in variants.values()), variants,
-          library_ms=h["library_ms"], calibration=calibration)
+          library_ms=h["library_ms"], design=tt.PROD, parent_ms=h["parent_ms"],
+          calibration=calibration)
     return res
 
 
@@ -650,6 +723,38 @@ def _torch_chain(x, w, mm_dtype):
     return x
 
 
+SASS_OPS = ("HGMMA", "HMMA", "UBLKCP", "SYNCS", "FFMA", "LDS", "LDS.128")
+
+
+def sass_counts() -> Dict[str, Dict[str, int]]:
+    """Each kernel of the built ``sample_probe`` library by opcode: kernel ->
+    {opcode: instructions} for ``SASS_OPS`` (LDS.128 also counts under LDS),
+    read from the CUDA toolkit's ``cuobjdump --dump-sass``. Shows which
+    instructions a kernel compiled to (HGMMA is wgmma, UBLKCP a bulk copy,
+    SYNCS an mbarrier operation)."""
+    import re
+
+    from noise_flow_tpu_torch.ops import _build
+
+    so = _build.build_all(["sample_probe"])["sample_probe"]
+    sass = subprocess.run([os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"),
+                           "--dump-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    out: Dict[str, Dict[str, int]] = {}
+    cur = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = out.setdefault(line.split("Function :")[1].strip(), {})
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", line)
+        if cur is None or not m:
+            continue
+        for op in SASS_OPS:
+            if m.group(1) == op or m.group(1).startswith(op + "."):
+                cur[op] = cur.get(op, 0) + 1
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", help="write the table as JSON here")
@@ -668,7 +773,10 @@ def main(argv=None) -> int:
         for k in _build.kernel_resources(name):
             print(f"ptxas[{name}] {k['kernel']}: {k.get('registers')} registers, spill "
                   f"{k['spill_stores']} B stores / {k['spill_loads']} B loads")
-    table = {"device": smi, "probes": attribution()}
+    sass = {k: v for k, v in sass_counts().items() if "mm_chain" in k or "precast" in k}
+    for kernel, ops in sass.items():
+        print(f"sass[sample_probe] {kernel}: {ops}")
+    table = {"device": smi, "probes": attribution(), "sass": sass}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -1067,6 +1067,50 @@ def test_sampler_probe_chains_match_plain(cuda_device, mm_dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("design", ["redesign", "parent"])
+@pytest.mark.parametrize("mm_dtype", ["float32", "bfloat16"])
+def test_mm_chain_designs_match_plain(cuda_device, mm_dtype, design):
+    """Both designs of the literal chain against mm_chain_reference at n_mm
+    = 1, 8 and 56 products and at 128 rows (one tile), 133 x 128 (a ragged
+    last wave of the redesign's persistent grid: 133 float32 tiles or 266
+    bfloat16 ones over 132 SMs) and 262,144 (the timed shape), at the
+    module's tolerances: CHAIN_PREFIX_RTOL up to CHAIN_PREFIX products,
+    CHAIN_RTOL past them. The float32 redesign runs its FMAs in the parent's
+    order: the same bits."""
+    from noise_flow_tpu_torch.probes import sampler as sp
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    x_full, w = sp.chain_inputs(g)
+    for rows in (128, 133 * 128, x_full.shape[0]):
+        x = x_full[:rows].contiguous()
+        for n in (1, sp.CHAIN_PREFIX, sp.N_MM):
+            ww = w[:n].contiguous()
+            got, ref = sp.mm_chain(x, ww, mm_dtype, design), sp.mm_chain_reference(x, ww, mm_dtype)
+            torch.cuda.synchronize()
+            tol = (sp.CHAIN_PREFIX_RTOL if n <= sp.CHAIN_PREFIX else sp.CHAIN_RTOL)[mm_dtype]
+            assert bool(torch.isfinite(got).all()) and _nrel(got, ref) <= tol, (rows, n)
+            if mm_dtype == "float32" and design == "redesign":
+                assert torch.equal(got, sp.mm_chain(x, ww, mm_dtype, "parent")), (rows, n)
+
+
+@pytest.mark.cuda
+def test_mm_chain_precast_kernel_is_its_plain_version(cuda_device):
+    """The redesigned bfloat16 chain's first launch (chain_precast) writes
+    precast_reference's bits; a chain with one weight replaced by the one
+    before it (a stale ring slot) fails CHAIN_RTOL."""
+    from noise_flow_tpu_torch.probes import sampler as sp
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    x, w = sp.chain_inputs(g)
+    assert torch.equal(sp.precast_weights(w), sp.precast_reference(w))
+    stale = w.clone()
+    stale[5] = w[4]
+    x = x[:4096].contiguous()
+    ref = sp.mm_chain_reference(x, w, "bfloat16")
+    assert _nrel(sp.mm_chain(x, stale, "bfloat16"), ref) > sp.CHAIN_RTOL["bfloat16"]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("oneshot", [True, False])
 def test_step_graph_replays_eager_steps(cuda_device, oneshot):
     """Trainer with steps_per_call 4 over 10 staged steps at b = 16 (2

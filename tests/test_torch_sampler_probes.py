@@ -263,6 +263,51 @@ def test_chain_plain_version_is_the_jax_dot_chain(mm_dtype):
         sp.px_chain("tf32", xp, wp)
 
 
+@pytest.mark.parametrize("n_mm", [1, 3])
+def test_chain_precast_plain_version_is_the_jax_bf16_cast(n_mm):
+    """The plain version of the redesigned bfloat16 chain's weight cast
+    (precast_reference, which precast_weights runs on CPU tensors): with its
+    layout undone, JAX's ``jnp.asarray(w).astype(jnp.bfloat16)`` bit for bit
+    (round to nearest even, mxu_bound_probe.py:76-81), on seeded normals
+    with ties and values past bf16's mantissa; value (m, k, n) sits where the
+    kernel's chain_precast writes it: block k // 64, row n, 16-byte chunk
+    (k % 64) // 8 XOR n % 8, position k % 8."""
+    rng = np.random.default_rng(11 + n_mm)
+    w = (rng.standard_normal((n_mm, 128, 128)) / np.sqrt(128)).astype(np.float32)
+    w[0, 0, :4] = [1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8, -(1.0 + 2.0 ** -8), 3.0e38]
+    wb = sp.precast_reference(torch.as_tensor(w))
+    assert wb.dtype == torch.bfloat16 and tuple(wb.shape) == (n_mm, 128 * 128)
+    jx = np.asarray(jnp.asarray(w).astype(jnp.bfloat16).astype(jnp.float32))
+    undone = sp.precast_undo(wb).float().numpy()
+    assert np.array_equal(undone.view(np.uint32), jx.view(np.uint32))
+    flat = wb.float().numpy()
+    for m, k, n in ((0, 0, 0), (n_mm - 1, 77, 45), (0, 127, 127), (n_mm - 1, 63, 9), (0, 64, 8)):
+        at = (k // 64) * 8192 + n * 64 + (((k % 64) // 8) ^ (n % 8)) * 8 + k % 8
+        assert flat[m, at] == jx[m, k, n], (m, k, n)
+    assert torch.equal(sp.precast_weights(torch.as_tensor(w)), wb)
+
+
+@pytest.mark.parametrize("mm_dtype", ["float32", "bfloat16"])
+def test_chain_designs_on_cpu_are_the_plain_version(mm_dtype):
+    """mm_chain's designs (the Hopper redesign and the parent's kernels)
+    both take the plain version on CPU tensors; an unknown design raises;
+    CHAIN_DESIGNS are the values of enum ChainDesign in
+    csrc/sample_probe.cu."""
+    from noise_flow_tpu_torch.ops import _build
+    from noise_flow_tpu_torch.probes import train_template as tt
+
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.standard_normal((256, 128)).astype(np.float32))
+    w = torch.as_tensor((rng.standard_normal((4, 128, 128)) / np.sqrt(128)).astype(np.float32))
+    ref = sp.mm_chain_reference(x, w, mm_dtype)
+    for design in (tt.PROD, tt.PARENT):
+        assert torch.equal(sp.mm_chain(x, w, mm_dtype, design), ref)
+    with pytest.raises(ValueError, match="unknown chain design"):
+        sp.mm_chain(x, w, mm_dtype, "wgmma")
+    enum = dict(re.findall(r"(CHAIN_\w+) = (\d+)", (_build.CSRC / "sample_probe.cu").read_text()))
+    assert {d: int(enum[f"CHAIN_{d.upper()}"]) for d in sp.CHAIN_DESIGNS} == sp.CHAIN_DESIGNS
+
+
 def test_chain_prefix_tolerance_catches_a_chain_without_rerounding():
     """Over its first CHAIN_PREFIX products the bfloat16 chain of another
     summation order (mxu_bound_probe.py's jax.lax.dot chain, :76-81) stays
