@@ -65,6 +65,7 @@ from noise_flow_tpu_torch.ops.nn import (
     _edge_pad_with_indicator,
     conv2d_nhwc,
 )
+from noise_flow_tpu_torch.utils.profiling import annotate
 
 H, W, C = 32, 32, 4
 OP_MIX, OP_SCALE, OP_COUPLING = 0, 1, 2
@@ -607,7 +608,8 @@ def make_sampler(program: SampleProgram, cond, temp: float = 1.0, bt: int = 64,
         sa, sb = precompute_scale_ab(program, cond, batch)
 
     def sample(seed):
-        out = fused_sample_chain_rng(program, seed, temp, clean, sa, sb, bt, mm_dtype)
-        return out.view(batch, H, W * C) if tile_out else out
+        with annotate("nf.sample.call"):
+            out = fused_sample_chain_rng(program, seed, temp, clean, sa, sb, bt, mm_dtype)
+            return out.view(batch, H, W * C) if tile_out else out
 
     return sample

@@ -92,6 +92,7 @@ from noise_flow_tpu_torch.ops.fused_sample import (
 )
 from noise_flow_tpu_torch.ops.nn import BN_DECAY, BN_EPS, LOGSCALE_FACTOR, conv2d_nhwc
 from noise_flow_tpu_torch.utils.device import device_constant
+from noise_flow_tpu_torch.utils.profiling import annotate
 
 H, W, C = 32, 32, 4
 SUPPORTED_KINDS = {"coupling", "conv1x1", "perm_reverse"}
@@ -874,10 +875,13 @@ class FusedTrainStep(_Fused):
         clean = (torch.zeros_like(x) if clean is None
                  else torch.as_tensor(clean, dtype=torch.float32, device=x.device)
                  .reshape(batch, H, W, C).contiguous())
-        rec, offs, mixes, mix_logdet = self.fold()
-        sa, sb, ildj = self._prep(cond, batch)
-        knll, sd_z, bnmom = FusedNLL.apply(rec, offs, mixes, sa, sb, x, clean,
-                                           self.ops_code, self.bt, step_fn, self.mm_dtype)
+        with annotate("nf.step.fold"):
+            rec, offs, mixes, mix_logdet = self.fold()
+        with annotate("nf.step.prep"):
+            sa, sb, ildj = self._prep(cond, batch)
+        with annotate("nf.step.kernel"):
+            knll, sd_z, bnmom = FusedNLL.apply(rec, offs, mixes, sa, sb, x, clean,
+                                               self.ops_code, self.bt, step_fn, self.mm_dtype)
         nll = knll - mix_logdet - torch.mean(ildj)
         return nll, sd_z, _bn_state(self.flow, self.coup_idx, bnmom)
 

@@ -37,6 +37,17 @@ all-reduce inside JAX's scan (staging is single-rank, as JAX's; a mesh
 feeds host batches). A mesh on gloo (ranks that share one card) cannot
 capture its collectives, which go through the host, and runs a group as K
 eager steps, as the CPU does: the same arithmetic.
+
+Spans (``utils.profiling``), which a profiler's trace ties to the device's
+operations: a train epoch is ``nf.epoch``; its permutation
+``nf.epoch.order``, each graph replay ``nf.epoch.replay``, each eager step
+``nf.epoch.eager`` and the closing synchronisation ``nf.epoch.sync`` are
+phases of ``self.timers`` (the status line), as are a staged eval's
+``nf.eval.replay`` and ``nf.eval.eager`` and a graph's first capture
+``nf.capture``; a train step's ``nf.step.gather``, ``nf.step.forward``,
+``nf.step.backward``, ``nf.step.optimizer`` and ``nf.step.state``. A
+captured step's spans run once, at capture: a replay runs no Python, so the
+step's phases show in eager steps only.
 """
 
 from __future__ import annotations
@@ -67,7 +78,7 @@ from noise_flow_tpu_torch.utils.checkpoint import (
 )
 from noise_flow_tpu_torch.utils.logger import ResultLogger
 from noise_flow_tpu_torch.utils.metrics import calc_kldiv_mb, kldiv_batch
-from noise_flow_tpu_torch.utils.profiling import PhaseTimers
+from noise_flow_tpu_torch.utils.profiling import PhaseTimers, annotate
 
 _KEEP = ("_x", "_y", "nlf0", "nlf1", "iso", "cam")
 # S6 at ISO 100 (ref:train_noise_flow.py:158-159)
@@ -136,7 +147,7 @@ class Trainer:
         self.bn_psum = self.mesh.psum()
         self.optimizer = make_optimizer(cfg, [p for _, p in flow.named_parameters()])
         replicate(self.mesh, flow, self.optimizer)
-        self.timers = PhaseTimers()  # input/step wall-clock attribution
+        self.timers = PhaseTimers()  # the loop's phases: spans, and host time
         # condSDN is a non-trainable baseline: evaluate only, never step
         # (ref:train_noise_flow.py:189).
         self.trainable = cfg.sidd_cond != "condSDN"
@@ -212,19 +223,21 @@ class Trainer:
         mesh); returns (nll, sd_z) as 0-d tensors on the device, over the
         global batch."""
         flow = self.flow
-        if self.use_oneshot:
-            fs = self._step_for_batch(batch["_x"].shape[0])
-            nll, sd_z, new_state = fs.loss(batch["_x"], batch_to_cond(batch))
-        elif self.use_fused:
-            ff = self._fused_for_batch(batch["_x"].shape[0])
-            nll, sd_z, new_state = ff.loss(batch["_x"], batch_to_cond(batch), train=True)
-        else:
-            # under a mesh, BN moments over every rank's rows, differentiably:
-            # the local NLLs' gradients then average to the global NLL's
-            nll, sd_z, new_state = flow.loss(batch["_x"], batch_to_cond(batch), train=True,
-                                             psum=self.bn_psum)
-        self.optimizer.zero_grad(set_to_none=True)
-        nll.backward()
+        with annotate("nf.step.forward"):
+            if self.use_oneshot:
+                fs = self._step_for_batch(batch["_x"].shape[0])
+                nll, sd_z, new_state = fs.loss(batch["_x"], batch_to_cond(batch))
+            elif self.use_fused:
+                ff = self._fused_for_batch(batch["_x"].shape[0])
+                nll, sd_z, new_state = ff.loss(batch["_x"], batch_to_cond(batch), train=True)
+            else:
+                # under a mesh, BN moments over every rank's rows, differentiably:
+                # the local NLLs' gradients then average to the global NLL's
+                nll, sd_z, new_state = flow.loss(batch["_x"], batch_to_cond(batch), train=True,
+                                                 psum=self.bn_psum)
+        with annotate("nf.step.backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            nll.backward()
         nll, sd_z = nll.detach(), sd_z.detach()
         if self.mesh.size > 1:
             metrics = torch.stack([nll, sd_z])
@@ -234,8 +247,10 @@ class Trainer:
             state = list(new_state.values()) if self.use_fused else []
             self._mean_over_ranks(grads + [metrics] + state)
             nll, sd_z = metrics[0], metrics[1]
-        self.optimizer.step()
-        flow.apply_state(new_state)
+        with annotate("nf.step.optimizer"):
+            self.optimizer.step()
+        with annotate("nf.step.state"):
+            flow.apply_state(new_state)
         return nll, sd_z
 
     @torch.no_grad()
@@ -298,31 +313,34 @@ class Trainer:
         with a copy of ``feed`` as its static inputs."""
         g = self._graphs.get(key)
         if g is None:
-            g = self._graphs[key] = StepGraph(
-                step, {n: v.clone() for n, v in feed.items()}, batch_at, key[2], self.flow,
-                self.optimizer if train else None, self.mesh)
+            with self.timers.phase("capture"):
+                g = self._graphs[key] = StepGraph(
+                    step, {n: v.clone() for n, v in feed.items()}, batch_at, key[2], self.flow,
+                    self.optimizer if train else None, self.mesh)
         return g
 
     def _staged_steps(self, split: str, order, k: int, train: bool):
         """Steps over the staged ``split``, the rows of ``order`` [nsteps, B]
         being each step's indices, train steps (``_step_or_eval``) or eval
         steps: full groups of k as graph replays where ``graphs_on``, every
-        other step eager (a group of k eager steps is k single steps).
+        other step eager (a group of k eager steps is k single steps), timed
+        as the phases ``epoch.*`` (train) or ``eval.*``.
         Returns (nll, sd_z), one a step."""
         data = getattr(self, f"_staged_{split}")
         step = self._step_or_eval if train else self.eval_step
+        phase = "epoch" if train else "eval"
         nsteps, b = order.shape
         full = nsteps - nsteps % k if k > 1 and self.graphs_on else 0
         losses, sdzs = [], []
         for s in range(0, full, k):
-            with self.timers.phase("step"):
-                g = self._graph(("staged_" + split, train, k, b), step, {"idx": order[s:s + k]},
-                                lambda f, j: self._gather_staged(data, f["idx"][j]), train)
+            g = self._graph(("staged_" + split, train, k, b), step, {"idx": order[s:s + k]},
+                            lambda f, j: self._gather_staged(data, f["idx"][j]), train)
+            with self.timers.phase(phase + ".replay"):
                 nll, sd_z = g.replay({"idx": order[s:s + k]})
             losses.append(nll)
             sdzs.append(sd_z)
         for s in range(full, nsteps):
-            with self.timers.phase("step"):
+            with self.timers.phase(phase + ".eager"):
                 nll, sd_z = step(self._gather_staged(data, order[s]))
             losses.append(nll.reshape(1))
             sdzs.append(sd_z.reshape(1))
@@ -336,15 +354,16 @@ class Trainer:
         k = steps_per_call if steps_per_call is not None else self._steps_per_call()
         if k > 1 and self.trainable:
             return self._train_epoch_scan(batches, k)
-        losses, sdzs = [], []
-        for mb in _timed_iter(batches, self.timers, "input"):
-            with self.timers.phase("step"):
-                nll, sd_z = self._step_or_eval(self._put(mb))
-            losses.append(nll)
-            sdzs.append(sd_z)
-        self.epoch_steps = (torch.stack(losses), torch.stack(sdzs))
-        with self.timers.phase("sync"):
-            return (float(self.epoch_steps[0].mean()), float(self.epoch_steps[1].mean()))
+        with annotate("nf.epoch"):
+            losses, sdzs = [], []
+            for mb in _timed_iter(batches, self.timers, "input"):
+                with self.timers.phase("epoch.eager"):
+                    nll, sd_z = self._step_or_eval(self._put(mb))
+                losses.append(nll)
+                sdzs.append(sd_z)
+            self.epoch_steps = (torch.stack(losses), torch.stack(sdzs))
+            with self.timers.phase("epoch.sync"):
+                return (float(self.epoch_steps[0].mean()), float(self.epoch_steps[1].mean()))
 
     def _train_epoch_scan(self, batches: Iterable[Dict], k: int):
         """The epoch in groups of k host batches (JAX's ``_train_epoch_scan``):
@@ -360,39 +379,43 @@ class Trainer:
 
         def flush(buf):
             if len(buf) == k:
-                feed = self._put_stacked(buf)
+                with self.timers.phase("input"):
+                    feed = self._put_stacked(buf)
                 if self.graphs_on:
                     g = self._graph(("host", True, k, feed["_x"].shape[1]), self.train_step,
                                     feed, at, True)
-                    nll, sd_z = g.replay(feed)
+                    with self.timers.phase("epoch.replay"):
+                        nll, sd_z = g.replay(feed)
                 else:
-                    outs = [self.train_step(at(feed, j)) for j in range(k)]
+                    outs = []
+                    for j in range(k):
+                        with self.timers.phase("epoch.eager"):
+                            outs.append(self.train_step(at(feed, j)))
                     nll, sd_z = (torch.stack(v) for v in zip(*outs))
                 losses.append(nll)
                 sdzs.append(sd_z)
                 return
             for mb in buf:
-                nll, sd_z = self.train_step(self._put(mb))
+                with self.timers.phase("epoch.eager"):
+                    nll, sd_z = self.train_step(self._put(mb))
                 losses.append(nll.reshape(1))
                 sdzs.append(sd_z.reshape(1))
 
-        buf = []
-        for mb in _timed_iter(batches, self.timers, "input"):
-            if buf and np.shape(mb["_x"]) != np.shape(buf[0]["_x"]):
-                with self.timers.phase("step"):
+        with annotate("nf.epoch"):
+            buf = []
+            for mb in _timed_iter(batches, self.timers, "input"):
+                if buf and np.shape(mb["_x"]) != np.shape(buf[0]["_x"]):
                     flush(buf)
-                buf = []
-            buf.append(mb)
-            if len(buf) == k:
-                with self.timers.phase("step"):
+                    buf = []
+                buf.append(mb)
+                if len(buf) == k:
                     flush(buf)
-                buf = []
-        if buf:
-            with self.timers.phase("step"):
+                    buf = []
+            if buf:
                 flush(buf)
-        self.epoch_steps = (torch.cat(losses), torch.cat(sdzs))
-        with self.timers.phase("sync"):
-            return float(self.epoch_steps[0].mean()), float(self.epoch_steps[1].mean())
+            self.epoch_steps = (torch.cat(losses), torch.cat(sdzs))
+            with self.timers.phase("epoch.sync"):
+                return float(self.epoch_steps[0].mean()), float(self.epoch_steps[1].mean())
 
     def eval_epoch(self, batches: Iterable[Dict]):
         out = [self.eval_step(self._put(mb)) for mb in batches]
@@ -494,8 +517,9 @@ class Trainer:
         return int(host["_x"].shape[0])
 
     def _gather_staged(self, data: Dict, idx) -> Dict:
-        idx = torch.as_tensor(idx, dtype=torch.long, device=self.device)
-        return {k: v.index_select(0, idx) for k, v in data.items()}
+        with annotate("nf.step.gather"):
+            idx = torch.as_tensor(idx, dtype=torch.long, device=self.device)
+            return {k: v.index_select(0, idx) for k, v in data.items()}
 
     def _steps_per_call(self) -> int:
         return max(int(getattr(self.cfg, "steps_per_call", 1)), 1)
@@ -512,12 +536,15 @@ class Trainer:
             raise ValueError(
                 f"staged train set has {n} patches < n_batch_train={b}; "
                 "stage more patches or lower the batch size")
-        order = np.random.default_rng(shuffle_seed).permutation(n)[:nsteps * b]
-        order = torch.as_tensor(order.reshape(nsteps, b), device=self.device)
-        nlls, sdzs = self._staged_steps("train", order, self._steps_per_call(), self.trainable)
-        self.epoch_steps = (nlls, sdzs)
-        with self.timers.phase("sync"):
-            return float(nlls.mean()), float(sdzs.mean())
+        with annotate("nf.epoch"):
+            with self.timers.phase("epoch.order"):
+                order = np.random.default_rng(shuffle_seed).permutation(n)[:nsteps * b]
+                order = torch.as_tensor(order.reshape(nsteps, b), device=self.device)
+            nlls, sdzs = self._staged_steps("train", order, self._steps_per_call(),
+                                            self.trainable)
+            self.epoch_steps = (nlls, sdzs)
+            with self.timers.phase("epoch.sync"):
+                return float(nlls.mean()), float(sdzs.mean())
 
     def _staged_test_steps(self, max_batches: int = 0):
         """[nsteps, n_batch_test]: the staged test set's batches in order

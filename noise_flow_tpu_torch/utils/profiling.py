@@ -1,22 +1,48 @@
-"""Profiling & tracing.
+"""Spans and phase timers.
 
 Port of noise_flow_tpu.utils.profiling. The reference only had wall-clock
 phase timers in the console line (ref:train_noise_flow.py:389,426,470,501-535
-— `tr/ts/tsm/tv/T`). Here: the same phase timers as a reusable object, plus
-device profiling through ``torch.profiler`` (Chrome-trace files).
+— `tr/ts/tsm/tv/T`). Here the program marks its phases with spans
+(``annotate``): ``record_function`` ranges that PyTorch's profiler records
+beside the device's operations, on the profiler's own clock, so that a trace
+ties each device operation and each idle gap to the program's phase. With no
+profiler recording a span costs one flag check. ``PhaseTimers`` sums the
+training loop's phases on the host's clock for the status line; each phase
+is a span too.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
 import time
-from typing import Dict, Optional
+from typing import Dict
+
+import torch
+
+# what ``annotate`` returns while no profiler records: reusable, holds nothing
+_NO_SPAN = contextlib.nullcontext()
+
+
+def annotate(name: str):
+    """A span named ``name`` in the profiler's trace: ``record_function(name)``
+    while a profiler records, however it was started (the C flag, which the
+    profiler's low-level entry points set too), else a shared null context
+    that calls nothing."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 class PhaseTimers:
-    """Accumulating named wall-clock timers; renders the reference's compact
-    status line (`tr=12.3s ts=1.2s ...`)."""
+    """The training loop's named phases. Each ``phase(name)`` is the span
+    ``nf.<name>`` in the profiler's trace, and its time on the host's clock
+    is summed here into the reference's compact status line
+    (`input=0.1s epoch.replay=3.2s ... T=3.6s`).
+
+    The line measures the host: how long each phase took to launch its device
+    work, which returns before the card has done it; ``epoch.sync`` (and
+    ``sync``) is the host's wait for the card. The device's time in each
+    phase is read from a trace of the spans."""
 
     def __init__(self):
         self.totals: Dict[str, float] = {}
@@ -26,7 +52,8 @@ class PhaseTimers:
     def phase(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with annotate("nf." + name):
+                yield
         finally:
             dt = time.perf_counter() - t0
             self.totals[name] = self.totals.get(name, 0.0) + dt
@@ -40,29 +67,3 @@ class PhaseTimers:
     def reset(self) -> None:
         self.totals.clear()
         self.counts.clear()
-
-
-@contextlib.contextmanager
-def device_trace(logdir: Optional[str]):
-    """``torch.profiler`` trace of the CPU and (where present) the CUDA
-    device, written as ``<logdir>/trace.json`` (Chrome trace format);
-    no-op when logdir is falsy."""
-    if not logdir:
-        yield
-        return
-    import torch
-
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-def annotate(name: str):
-    """Named region inside a trace (shows up in the profiler timeline)."""
-    import torch
-
-    return torch.profiler.record_function(name)

@@ -22,7 +22,7 @@ from noise_flow_tpu_torch.data import bootstrap, cache, histograms, stats
 from noise_flow_tpu_torch.data.patches import PatchDataset
 from noise_flow_tpu_torch.utils import metrics
 from noise_flow_tpu_torch.utils.logger import ResultLogger, add_trace_level
-from noise_flow_tpu_torch.utils.profiling import PhaseTimers, annotate, device_trace
+from noise_flow_tpu_torch.utils.profiling import PhaseTimers
 
 torch.set_num_threads(1)
 
@@ -160,7 +160,9 @@ def test_logger_and_timers(tmp_path):
     with t.phase("step"):
         pass
     assert t.counts == {"step": 1} and t.line().startswith("step=")
-    with device_trace(str(tmp_path / "trace")):
-        with annotate("region"):
+    # a phase is the span nf.<name> while a profiler records
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with t.phase("step"):
             torch.ones(2).sum()
-    assert os.path.exists(tmp_path / "trace" / "trace.json")
+    assert "nf.step" in {e.name for e in prof.events()}
+    assert t.counts == {"step": 2}
