@@ -394,6 +394,16 @@ Phases, each of which fails the run if it fails:
    and 64 eval-forward launches, all in bf16; then ms a step eager and
    graph of the bf16 train and eval steps. The kernels line adds the graph
    run's launches to the bf16 modes (``under_graph``).
+60. the flow trainer's Adam (``ops.adam``, one launch of ``csrc/adam.cu`` a
+   step) against ``torch.optim.Adam(capturable=True)``, the optimizer it
+   replaced, over 200 steps of seeded gradients on the flow's 95 tensors:
+   eager, as K = 32 graph replays (``StepGraph``), and across a checkpoint
+   reload that rebinds the slots followed by a new capture; every parameter
+   and slot the same bits, ``launch_counts["adam_step"]`` one a step (and
+   one a warm-up step before a capture); a planted fault (a step count that
+   never advances) must differ; a traced ghost-cell epoch (70 steps at b =
+   138, K = 32) launches one Adam kernel a step and no multi-tensor kernel.
+   Its numbers are the ``{"adam"}`` line, printed before the last line.
 
 The train template's redesigned step, segment backward and ghost forward
 keep one launch a call, so the exact launch counts of phases 9, 15 and 28
@@ -564,6 +574,12 @@ WGRAD_RTOL = 1e-5
 # launch counts of the main paths, each read just after the path ran with
 # the counts set to 0 just before it (the kernels line's probe entries)
 MAIN_PATH = collections.Counter()
+
+
+def _optimizer_only(counts: dict) -> bool:
+    """Whether a plain-path run launched the optimizer's kernel alone (one
+    ``adam_step`` launch a train step) and none of the model's."""
+    return set(k for k, v in counts.items() if v) == {"adam_step"}
 
 
 def _main_path(counts: dict) -> dict:
@@ -1184,7 +1200,8 @@ def _training_phases(phase, agree):
         nlls = [float(tr5.train_step(tr5._put(mb))[0])
                 for mb in itertools.islice(tr.batches(b, drop_remainder=True), 5)]
         counts = _main_path(dict(fs.launch_counts))
-        want = {"fused_segment_train_forward": 5 * n_seg, "fused_segment_backward": 5 * n_seg}
+        want = {"fused_segment_train_forward": 5 * n_seg, "fused_segment_backward": 5 * n_seg,
+                "adam_step": 5}
         print(f"train {cfg.arch} (5 scale layers, segment path): 5 steps at b={b}, NLL "
               f"{[round(v, 3) for v in nlls]}; launches {counts} (expected {want})")
         if counts != want or not np.isfinite(nlls).all():
@@ -1876,6 +1893,7 @@ def _bf16_phases(phase, programs):
                      ("fused_segment_train_forward", "fused_segment_backward")):
             want[name] = n_train
         want.update({f"{k}_bf16": v for k, v in want.items()})
+        want["adam_step"] = TRAIN_EPOCHS * steps     # one Adam launch a train step
         with open(os.path.join(logdir, "train.txt")) as f:
             rows = [r.split("\t") for r in f.read().splitlines()]
         nll = np.asarray([float(r[1]) for r in rows[1:]])
@@ -2695,7 +2713,7 @@ def _flagship_phases(phase, agree, nf, frame):
         if not hps.get("device", "").startswith("cuda") or hps.get("use_pallas") != "False":
             raise AssertionError(f"the fit ran on {hps.get('device')}, use_pallas "
                                  f"{hps.get('use_pallas')}")
-        if counts:   # exact BN trains on the plain path, as JAX's flagship
+        if not _optimizer_only(counts):   # exact BN trains on the plain path, as JAX's
             raise AssertionError(f"the exact-BN fit launched kernels: {counts}")
         # the cache is reused: a second load never decodes a .MAT
         args, cfg = parse_config(argv)
@@ -2944,7 +2962,8 @@ def _resume_phase(phase, flagship):
               f"{float(steps):g} on {steps.device}); train and test rows the same: {same_rows}; "
               f"planted fault (the resume drops Adam's slots): {len(caught)} tensors differ; "
               f"cuDNN deterministic; kernel launches {counts}")
-        if bad or not same_rows or not caught or counts or len(first_rows) != 1:
+        if bad or not same_rows or not caught or not _optimizer_only(counts) or \
+                len(first_rows) != 1:
             raise AssertionError(f"resume: differing {bad[:8]}, rows the same {same_rows}, "
                                  f"fault caught {bool(caught)}, launches {counts}")
     phase("resume: prod-exact fit stopped by SIGINT and resumed, against one run", resume)
@@ -3023,8 +3042,10 @@ def _model_family_phases(phase, flagship):
     out = {"seconds": {}}
 
     def no_launch(label):
+        """No kernel of the model's (a trainable flow's Adam launches one a
+        step)."""
         counts = _main_path(dict(fs.launch_counts))
-        if counts:
+        if set(counts) - {"adam_step"}:
             raise AssertionError(f"{label} launched kernels: {counts}")
 
     def layers():
@@ -3409,13 +3430,14 @@ def _parallel_phases(phase, flagship, smi, device=PAR_DEVICE):
         if use_pallas:
             # each rank: one step launch a step, none of the segment path; two
             # eval launches (both segments) a test batch
-            want = {"fused_train_step": PAR_EPOCHS, "fused_segment_forward": 2 * PAR_EPOCHS}
+            want = {"fused_train_step": PAR_EPOCHS, "fused_segment_forward": 2 * PAR_EPOCHS,
+                    "adam_step": PAR_EPOCHS}
             if any({k: v for k, v in c.items() if v} != want for c in counts):
                 raise AssertionError(f"launches by rank {counts}, not {want} each")
             out["launches"]["fused_train_step"] = [c["fused_train_step"] for c in counts]
             out["launches"]["fused_segment_forward"] = [c["fused_segment_forward"]
                                                         for c in counts]
-        elif any(c for c in counts):
+        elif any({k: v for k, v in c.items() if v} != {"adam_step": PAR_EPOCHS} for c in counts):
             raise AssertionError(f"the exact-BN path launched kernels: {counts}")
 
     phase("parallel: cli.train coordinator mode, 2 ranks, plain exact BN, vs 1 rank at 276",
@@ -4006,9 +4028,10 @@ def _graph_checks(phase, out):
         """The launches a run must count: each step's, and the warm-up
         steps' before a capture."""
         _, use_pallas, oneshot, dtype, _ = path
-        if not use_pallas:
-            return {}
         n = GRAPH_STEPS + (step_graph.WARMUP_STEPS if graph else 0)
+        adam = {} if evals else {"adam_step": n}     # one Adam launch a train step
+        if not use_pallas:
+            return adam
         segs = 1 if path[4] == FIVE_SCALE_ARCH else 2
         if evals:
             want = {"fused_segment_forward": n * segs}
@@ -4018,7 +4041,7 @@ def _graph_checks(phase, out):
             want = {"fused_segment_train_forward": n * segs, "fused_segment_backward": n * segs}
         if dtype == "bfloat16":
             want.update({f"{k}_bf16": v for k, v in want.items()})
-        return want
+        return dict(want, **adam)
 
     def hold(label, path, evals=False):
         test_set = test if evals else None
@@ -4404,7 +4427,9 @@ def _mesh_graph_phases(phase, flagship, smi):
             eager, graph = r[name]["eager"], r[name]["graph"]
             per_step = 1 if oneshot else 4 * eager["n_bn"] + 1
             read = hold(f"(a) {name}", graph, eager)
-            want_launch = {"fused_train_step": step_graph.WARMUP_STEPS + 2 * k} if oneshot else {}
+            want_launch = {"adam_step": step_graph.WARMUP_STEPS + 2 * k}
+            if oneshot:
+                want_launch["fused_train_step"] = step_graph.WARMUP_STEPS + 2 * k
             print(f"mesh graphs (a) {name}: one-rank nccl group on cuda:0, b={TRAIN_B}, K={k}, "
                   f"2 replays against {2 * k} eager steps: {read}; collectives a replay "
                   f"{graph['per_replay']} (captured {graph['captured']}, want {k * per_step}), "
@@ -4485,7 +4510,8 @@ def _mesh_graph_phases(phase, flagship, smi):
             if not same or not all(r["graphs_on"] for r in graph) or \
                     any(len(r["graphs"]) != 1 for r in graph):
                 raise AssertionError(f"(b) {name}: ranks differ, graphs off, or not one graph")
-            want = {"fused_train_step": MESH_GRAPH_K} if oneshot else {}
+            want = dict({"fused_train_step": MESH_GRAPH_K} if oneshot else {},
+                        adam_step=MESH_GRAPH_K)
             if any(r != [want] for r in replays) or \
                     any(c != [MESH_GRAPH_K * per_step] for c in coll):
                 raise AssertionError(f"(b) {name}: a replay's launches {replays}, "
@@ -4493,7 +4519,7 @@ def _mesh_graph_phases(phase, flagship, smi):
             if oneshot:
                 out["launches"]["fused_train_step"] = [
                     r["launches"]["fused_train_step"] for r in graph]
-            elif any(r["launches"] for r in graph + eager):
+            elif not all(_optimizer_only(r["launches"]) for r in graph + eager):
                 raise AssertionError(f"(b) {name}: the exact-BN path launched kernels")
         shutil.rmtree(MESH_GRAPH_DIR, ignore_errors=True)
     phase(f"mesh graphs (b): cli.train --mesh {n} --steps_per_call {MESH_GRAPH_K} against "
@@ -4623,8 +4649,9 @@ def _ghost_recipe_phase(phase, flagship):
         want = {"fused_train_step": GHOST_EPOCHS * GHOST_STEPS + warm,
                 "fused_segment_forward": 2 * (GHOST_EPOCHS * (n_test + 1) + warm)}
         want.update({f"{k}_bf16": v for k, v in list(want.items())})
+        want["adam_step"] = want["fused_train_step"]     # one Adam launch a train step
         want_replay = {"staged_train": {"fused_train_step": GRAPH_K,
-                                        "fused_train_step_bf16": GRAPH_K},
+                                        "fused_train_step_bf16": GRAPH_K, "adam_step": GRAPH_K},
                        "staged_test": {"fused_segment_forward": 2 * GRAPH_K,
                                        "fused_segment_forward_bf16": 2 * GRAPH_K}}
         out["launches"] = main
@@ -4668,6 +4695,197 @@ def _ghost_recipe_phase(phase, flagship):
             raise AssertionError(f"launches {main} (want {want}), a replay's {graphs}")
         shutil.rmtree(GHOST_DIR, ignore_errors=True)
     phase("ghost recipe: bf16 one-shot train and eval graphs against eager, cli.train", ghost)
+    return out
+
+
+# Phase 60: the flow trainer's Adam (ops.adam, csrc/adam.cu) against
+# torch.optim.Adam(capturable=True), the optimizer it replaced, on the flow's
+# 95 tensors from the benchmark's checkpoint with seeded gradients of mixed
+# scales, over ADAM_STEPS steps. The two share no code, but the kernel
+# computes torch's capturable arithmetic op for op in float32 with torch's
+# roundings (csrc/adam.cu), and on the H100 (torch 2.11) it gave torch's bits
+# in every parameter and slot: ADAM_ULPS, the float32 ulp distance allowed
+# after the run, is 0. The planted fault (a step count that never advances:
+# the bias corrections of step 1 at every step) must exceed it.
+ADAM_STEPS = 200
+ADAM_K = 32
+ADAM_ULPS = 0
+ADAM_TRACE_STEPS = 70     # a ghost epoch at b = 138: 2 replays and a 6-step tail
+
+
+def _adam_phases(phase):
+    """Phase 60 (see the top of this file). Returns the numbers of its
+    runs: ulps and relative gaps, launches, the traced epoch's kernels."""
+    import torch
+
+    from noise_flow_tpu_torch.ops import adam as ad
+    from noise_flow_tpu_torch.ops import fused_sample as fs
+    from noise_flow_tpu_torch.probes import adam as pa
+    from noise_flow_tpu_torch.training.step_graph import StepGraph
+    from noise_flow_tpu_torch.training.trainer import Trainer
+    from noise_flow_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    device = torch.device("cuda", 0)
+    out = {"steps": ADAM_STEPS, "k": ADAM_K, "ulps_tol": ADAM_ULPS}
+    lr = pa.load_config("ghost")["lr"]
+
+    class Params(torch.nn.Module):
+        """The flow's parameters as a module of their own (StepGraph
+        snapshots a module's parameters and buffers)."""
+
+        def __init__(self, flow):
+            super().__init__()
+            self.device = device
+            self.ps = torch.nn.ParameterList(
+                [torch.nn.Parameter(p.detach().clone()) for p in flow.parameters()])
+
+    flow = pa.cell_flow("ghost", device)
+    sizes = [p.numel() for p in flow.parameters()]
+    offs = [sum(sizes[:i]) for i in range(len(sizes))]
+    gen = torch.Generator(device=device).manual_seed(60)
+    grads = torch.empty((ADAM_STEPS, sum(sizes)), device=device)
+    for s in range(ADAM_STEPS):
+        scale = 10.0 ** (-4 + 5 * torch.rand((len(sizes),), generator=gen, device=device))
+        scale = torch.repeat_interleave(scale, torch.tensor(sizes, device=device))
+        grads[s] = torch.randn((sum(sizes),), generator=gen, device=device) * scale
+
+    def set_grads(ps, g):
+        for p, o, n in zip(ps, offs, sizes):
+            p.grad = g[o:o + n].view_as(p)
+
+    ref = Params(flow)
+    ref_opt = pa.torch_adam(list(ref.ps), lr)
+    for s in range(ADAM_STEPS):
+        set_grads(ref.ps, grads[s])
+        ref_opt.step()
+
+    def gaps(mod, opt):
+        row = {}
+        for slot in ("param",) + ad.SLOTS:
+            pairs = [((p, q) if slot == "param" else (opt.state[p][slot], ref_opt.state[q][slot]))
+                     for p, q in zip(mod.ps, ref.ps)]
+            row[slot] = {"max_ulps": max(pa.ulps(a.detach(), b.detach()) for a, b in pairs),
+                         "max_rel": max(pa.rel_gap(a.detach(), b.detach())
+                                        for a, b in pairs),
+                         "bit_equal": all(torch.equal(a, b) for a, b in pairs)}
+        return row
+
+    def held(name, row, launches, expected):
+        worst = max(v["max_ulps"] for v in row.values())
+        print(f"adam {name}: {json.dumps(row)}; launches {launches} (expected {expected})")
+        if worst > ADAM_ULPS or launches != expected:
+            raise AssertionError(f"adam {name}: {worst} ulps (tol {ADAM_ULPS}), "
+                                 f"{launches} launches (expected {expected})")
+        out[name] = dict(row, launches=launches)
+
+    def eager(mod, opt, steps, fault=False):
+        for s in steps:
+            set_grads(mod.ps, grads[s])
+            opt.step()
+            if fault:
+                for st in opt.state.values():
+                    st["step"].zero_()
+
+    def graphed(mod, opt, steps):
+        """steps[0]... as replays of ADAM_K steps (StepGraph, its warm-up and
+        restore), the rest eager."""
+        feed = {"g": torch.empty((ADAM_K, sum(sizes)), device=device)}
+        zero = torch.zeros((), device=device)
+
+        def step(g):
+            set_grads(mod.ps, g)
+            opt.step()
+            return zero, zero
+
+        full = len(steps) - len(steps) % ADAM_K
+        feed["g"].copy_(grads[steps[0]:steps[0] + ADAM_K])
+        graph = StepGraph(step, feed, lambda f, j: f["g"][j], ADAM_K, mod, opt)
+        for s in range(0, full, ADAM_K):
+            graph.replay({"g": grads[steps[s]:steps[s] + ADAM_K]})
+        eager(mod, opt, steps[full:])
+
+    def run_eager():
+        mod = Params(flow)
+        opt = ad.Adam(list(mod.ps), lr=lr, capturable=True)
+        before = fs.launch_counts["adam_step"]
+        eager(mod, opt, range(ADAM_STEPS))
+        torch.cuda.synchronize()
+        held("eager", gaps(mod, opt), fs.launch_counts["adam_step"] - before, ADAM_STEPS)
+
+    def run_graph():
+        mod = Params(flow)
+        opt = ad.Adam(list(mod.ps), lr=lr, capturable=True)
+        before = fs.launch_counts["adam_step"]
+        graphed(mod, opt, list(range(ADAM_STEPS)))
+        torch.cuda.synchronize()
+        # the capture's warm-up steps launch too (and are restored)
+        held("graph", gaps(mod, opt), fs.launch_counts["adam_step"] - before,
+             ADAM_STEPS + 3)
+
+    def run_reload():
+        """Half the steps, a checkpoint written and loaded into the same
+        optimizer (new slot tensors), the rest through a graph captured
+        after the reload."""
+        mod = Params(flow)
+        opt = ad.Adam(list(mod.ps), lr=lr, capturable=True)
+        before = fs.launch_counts["adam_step"]
+        half = ADAM_STEPS // 2
+        eager(mod, opt, range(half))
+        work = os.path.join(ROOT, "build", "chip_smoke_adam")
+        path = save_checkpoint(work, half, mod, half, opt)
+        old = [t for st in opt.state.values() for t in st.values()]   # kept alive
+        if load_checkpoint(path, mod, opt) != half:
+            raise AssertionError("adam reload: epoch tag")
+        rebound = not {t.data_ptr() for st in opt.state.values() for t in st.values()} & {
+            t.data_ptr() for t in old}
+        graphed(mod, opt, list(range(half, ADAM_STEPS)))
+        torch.cuda.synchronize()
+        shutil.rmtree(work, ignore_errors=True)
+        if not rebound:
+            raise AssertionError("adam reload: the checkpoint did not rebind the slots")
+        held("reload", gaps(mod, opt), fs.launch_counts["adam_step"] - before, ADAM_STEPS + 3)
+
+    def run_fault():
+        mod = Params(flow)
+        opt = ad.Adam(list(mod.ps), lr=lr, capturable=True)
+        eager(mod, opt, range(ADAM_STEPS), fault=True)
+        row = gaps(mod, opt)
+        worst = max(row[s]["max_ulps"] for s in ("param", "exp_avg", "exp_avg_sq"))
+        print(f"adam planted fault (step count frozen): {worst} ulps (tol {ADAM_ULPS})")
+        if worst <= ADAM_ULPS:
+            raise AssertionError("adam: the comparison missed the frozen step count")
+        out["fault_ulps"] = worst
+
+    def run_epoch():
+        """A traced ghost-cell epoch of ADAM_TRACE_STEPS steps at K = 32: one
+        adam_step launch a step, no multi-tensor kernel."""
+        from torch.autograd import DeviceType
+
+        gflow = pa.cell_flow("ghost", device)
+        tr = Trainer(gflow, gflow.cfg)
+        tr._staged_train = pa.random_split(ADAM_TRACE_STEPS * gflow.cfg.n_batch_train, device, 61)
+        tr._train_epoch_staged(1)      # captures the graph
+        before = fs.launch_counts["adam_step"]
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            tr._train_epoch_staged(2)
+            torch.cuda.synchronize()
+        names = collections.Counter(e.name for e in prof.events()
+                                    if e.device_type == DeviceType.CUDA)
+        multi = sum(n for k, n in names.items() if "multi_tensor_apply" in k)
+        adam_k = sum(n for k, n in names.items() if "adam_kernel" in k)
+        launches = fs.launch_counts["adam_step"] - before
+        out["epoch"] = {"steps": ADAM_TRACE_STEPS, "adam_step": launches,
+                        "adam_kernels_traced": adam_k, "multi_tensor_apply": multi}
+        print(f"adam traced ghost epoch: {json.dumps(out['epoch'])}")
+        if multi or launches != ADAM_TRACE_STEPS or adam_k != ADAM_TRACE_STEPS:
+            raise AssertionError(f"adam traced epoch: {out['epoch']}")
+
+    phase("adam kernel vs torch Adam, eager (phase 60)", run_eager)
+    phase("adam kernel vs torch Adam, K = 32 graphs (phase 60)", run_graph)
+    phase("adam kernel vs torch Adam, after a checkpoint reload (phase 60)", run_reload)
+    phase("adam planted fault is caught (phase 60)", run_fault)
+    phase("adam in a traced ghost epoch (phase 60)", run_epoch)
     return out
 
 
@@ -5057,6 +5275,7 @@ def main() -> int:
     graphs = _graph_phases(phase)
     mesh_graphs = _mesh_graph_phases(phase, flagship, smi)
     ghost = _ghost_recipe_phase(phase, flagship)
+    adam = _adam_phases(phase)
     comparison = _dncnn_comparison_phase(phase)
     shutil.rmtree(flagship["work"], ignore_errors=True)
     print(f"model_family_seconds {json.dumps(family['seconds'])}")
@@ -5188,6 +5407,7 @@ def main() -> int:
         probe["launches"] = sum(MAIN_PATH.get(c, 0) for c in probe["counters"])
         kernels.append(probe)
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"adam": adam}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

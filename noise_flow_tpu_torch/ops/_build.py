@@ -13,8 +13,8 @@ parallel; ``segment_probe`` the running-statistics eval forward's parent
 design and its redesign with planted faults;
 ``sample_variants_<precision>`` those of ``probes/sampler.py``:
 the sampler's template in the parent's design with its ablations and
-designs. The build runs at first use; ``build_all`` starts one nvcc per
-source, all at once.
+designs; ``adam`` the optimizer's step (``ops/adam.py``). The build runs at
+first use; ``build_all`` starts one nvcc per source, all at once.
 Nothing is built or imported when this module is imported.
 """
 
@@ -62,6 +62,12 @@ SIGNATURES = {
         "nf_probe_launch": ([_I] * 3 + [_P] * 16 + [_I] * 5 + [ctypes.POINTER(_I), _I, _P,
                             ctypes.POINTER(_I)], _I),
     },
+}
+_PP = ctypes.POINTER(_P)
+SIGNATURES["adam"] = {
+    "nf_adam_step": ([_PP] * 5 + [ctypes.POINTER(_I), _I] + [ctypes.c_float] * 6
+                     + [_P, ctypes.POINTER(_I)], _I),
+    "nf_adam_limits": ([ctypes.POINTER(_I)] * 2, _I),
 }
 SIGNATURES["segment_probe"] = {
     "nf_segment_forward_parent": SIGNATURES["fused_train"]["nf_segment_forward"],

@@ -62,6 +62,7 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from noise_flow_tpu_torch.ops.adam import Adam
 from noise_flow_tpu_torch.ops.fused_train import FusedFlow, FusedTrainStep, pick_block
 from noise_flow_tpu_torch.parallel import distributed as pd
 from noise_flow_tpu_torch.parallel.mesh import (
@@ -109,14 +110,14 @@ def _timed_iter(it, timers, name: str):
 def make_optimizer(cfg, params):
     """Adam beta1=.9 beta2=.999 eps=1e-8, or SGD momentum .9
     (ref:train_noise_flow.py:187-198). The arithmetic is optax's; optax's
-    ``flatten`` wrapper (one fused vector) has no counterpart here. For
-    parameters on the card Adam is ``capturable``: its step count lives on
-    the device, so that a CUDA graph can step it; SGD keeps no count."""
+    ``flatten`` wrapper (one fused vector) has no counterpart here. Adam is
+    ``ops.adam.Adam``: for parameters on the card one kernel launch a step,
+    ``capturable`` (its step count lives on the device, so that a CUDA graph
+    can step it); on the CPU torch's Adam arithmetic. SGD keeps no count."""
     params = list(params)
     if cfg.optim == "adam":
         on_card = any(p.device.type == "cuda" for p in params)
-        return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
-                                capturable=on_card)
+        return Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8, capturable=on_card)
     if cfg.optim == "sgd":
         return torch.optim.SGD(params, lr=cfg.lr, momentum=0.9)
     raise ValueError(f"unknown optimizer {cfg.optim!r}")

@@ -288,8 +288,8 @@ def test_segment_forward_planted_faults_disagree(cuda_device):
 
 @pytest.mark.cuda
 def test_trainer_launches_train_kernels_on_card(cuda_device):
-    """Trainer(use_pallas=True): one step kernel a train step, two eval
-    kernels (one a segment) an eval step."""
+    """Trainer(use_pallas=True): one step kernel and one Adam kernel a train
+    step, two eval kernels (one a segment) an eval step."""
     from noise_flow_tpu_torch.training.trainer import Trainer
 
     cfg = load_hps(os.path.join(MODEL, "hps.txt"))
@@ -303,7 +303,8 @@ def test_trainer_launches_train_kernels_on_card(cuda_device):
     ft.launch_counts.clear()
     nll, _ = tr.train_epoch([mb, mb])
     ev, _ = tr.eval_epoch([mb])
-    assert dict(ft.launch_counts) == {"fused_train_step": 2, "fused_segment_forward": 2}
+    assert dict(ft.launch_counts) == {"fused_train_step": 2, "fused_segment_forward": 2,
+                                      "adam_step": 2}
     assert np.isfinite(nll) and np.isfinite(ev)
 
 
@@ -466,7 +467,7 @@ def test_trainer_launches_segment_kernels_on_card(cuda_device, arch):
     ft.launch_counts.clear()
     nll, _ = tr.train_epoch([mb, mb])
     assert dict(ft.launch_counts) == {"fused_segment_train_forward": 2 * n_seg,
-                                      "fused_segment_backward": 2 * n_seg}
+                                      "fused_segment_backward": 2 * n_seg, "adam_step": 2}
     assert np.isfinite(nll)
 
 
@@ -673,6 +674,7 @@ def test_trainer_launches_bf16_kernels_on_card(cuda_device, oneshot):
             {"fused_segment_train_forward": 4, "fused_segment_backward": 4})
     want["fused_segment_forward"] = 2
     want.update({f"{k}_bf16": v for k, v in want.items()})
+    want["adam_step"] = 2
     assert dict(ft.launch_counts) == want
     assert np.isfinite(nll) and np.isfinite(ev)
 
@@ -1151,6 +1153,43 @@ def test_step_graph_replays_eager_steps(cuda_device, oneshot):
     assert all(torch.equal(v, runs[1][2][n]) for n, v in runs[4][2].items())
     per_step = ({"fused_train_step": 1} if oneshot else
                 {"fused_segment_train_forward": 2, "fused_segment_backward": 2})
+    per_step["adam_step"] = 1
     for name, n in per_step.items():
         assert runs[1][3][name] == steps * n
         assert runs[4][3][name] == (steps + step_graph.WARMUP_STEPS) * n
+
+
+# the flow trainer's Adam (csrc/adam.cu) against torch.optim.Adam's
+# capturable path, whose arithmetic it computes op for op in float32 with
+# torch's roundings: the same bits (chip_smoke.py phase 60 runs 200 steps,
+# under graphs and across a checkpoint reload)
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tensors", [95, 300])
+def test_adam_kernel_matches_torch_capturable_adam(cuda_device, n_tensors):
+    from noise_flow_tpu_torch.ops import adam as ad
+    from noise_flow_tpu_torch.probes import adam as pa
+
+    g = torch.Generator(device=cuda_device).manual_seed(n_tensors)
+    shapes = [(int(torch.randint(1, 200, (), generator=g, device=cuda_device)),)
+              for _ in range(n_tensors)]
+    base = [torch.randn(s, generator=g, device=cuda_device) for s in shapes]
+    ours = [torch.nn.Parameter(t.clone()) for t in base]
+    theirs = [torch.nn.Parameter(t.clone()) for t in base]
+    opt = ad.Adam(ours, lr=1e-4, capturable=True)
+    ref = pa.torch_adam(theirs, 1e-4)
+    before = fs.launch_counts["adam_step"]
+    steps = 20
+    for _ in range(steps):
+        for p, q in zip(ours, theirs):
+            p.grad = torch.randn(p.shape, generator=g, device=cuda_device)
+            q.grad = p.grad.clone()
+        opt.step()
+        ref.step()
+    torch.cuda.synchronize()
+    per_launch = ad.limits()[0]
+    assert fs.launch_counts["adam_step"] - before == steps * len(ad.launch_plan(n_tensors,
+                                                                                per_launch))
+    for p, q in zip(ours, theirs):
+        assert torch.equal(p, q)
+        for slot in ad.SLOTS:
+            assert torch.equal(opt.state[p][slot], ref.state[q][slot]), slot
