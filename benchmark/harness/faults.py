@@ -1,7 +1,9 @@
-"""Faults planted under the timed path, to show that the comparison catches
-them (``tests/test_bench_faults.py``, ``calibrate.py``). Each is a function
-for ``Context.plant``: given the trainer, it breaks it in place; given a
-sampler closure, it returns a broken one.
+"""Faults planted under the timed path of the ``train`` and ``sample``
+kinds, to show that the comparison catches them (``tests/test_bench_faults.py``,
+``calibrate.py``). Each is a function for ``Context.plant``: given the
+trainer, it breaks it in place; given a sampler closure, it returns a broken
+one. A kind's module names its faults (``FAULTS``) and those whose readings
+set a limit (``CALIBRATED``).
 
 Training:
 - ``state_unchanged``: the optimizer's step does nothing;
@@ -82,13 +84,5 @@ def _sample_answer_altered(sampler):
 TRAIN = {"state_unchanged": _train_state_unchanged, "bn_state_frozen": _train_bn_state_frozen,
          "tail_dropped": _train_tail_dropped, "half_batch": _train_half_batch,
          "loss_altered": _train_loss_altered}
-# the faults whose readings set a limit; the others read 1 by the measure
-# (a state left unchanged) or are caught by an exact count (the tail)
-CALIBRATED = {"train": ("half_batch", "loss_altered"),
-              "sample": ("state_unchanged", "half_batch", "answer_altered")}
 SAMPLE = {"state_unchanged": _sample_state_unchanged, "half_batch": _sample_half_batch,
           "answer_altered": _sample_answer_altered}
-
-
-def for_kind(kind: str):
-    return TRAIN if kind == "train" else SAMPLE

@@ -21,6 +21,7 @@ call over the window. A traced run traces ``trace_seconds`` of the loop.
 from __future__ import annotations
 
 import collections
+import json
 import sys
 import time
 from typing import Dict
@@ -28,10 +29,13 @@ from typing import Dict
 import numpy as np
 import torch
 
-from harness import check, program, synth
+from harness import check, faults, program, synth
 from harness.trace import Trace, span
+from reference.flow import RefFlow, tf32_round
 
 SEED_MOD = 2 ** 31 - 1
+FAULTS = faults.SAMPLE
+CALIBRATED = ("state_unchanged", "half_batch", "answer_altered")
 
 
 def call_seed(seed: int, i: int) -> int:
@@ -109,3 +113,41 @@ def run(ctx) -> Dict:
             "measured": {"sample_patches_per_s": calls * b / window},
             "trace": tr, "trace_counts": {"calls": calls, "batch": b},
             "answers": kept, "conds": conds}
+
+
+def readings(ctx, seeds, control_seeds, fault_seeds, names) -> Dict:
+    """The limits' readings (``calibrate.py``), each from a window of
+    ``ctx.seconds``: the program's, the control's (the reference in float32
+    with TF32 products, in the program's place, for the program's kept
+    answers) and each planted fault's of ``names``, by seed."""
+    out = {"program": {}, "control": {}, "faults": {}}
+    for seed in sorted(set(seeds) | set(control_seeds)):
+        ctx.seed, ctx.plant = seed, None
+        r = run(ctx)
+        if seed in seeds:
+            out["program"][seed] = dict(r["numbers"], calls=r["attempted"])
+        if seed in control_seeds:
+            ref = RefFlow(ctx.config["weights_path"], ctx.config["arch"], ctx.config["width"],
+                          torch.float32, ctx.device, tf32_round)
+            ctl = [(cs, ci, check.reference_noise(ref, cs, r["conds"][ci], ctx.traffic["temp"]))
+                   for cs, ci, _ in r["answers"]]
+            out["control"][seed] = {"sample_gap": check.sample_gap(
+                ctx.config, ctl, r["conds"], ctx.traffic["temp"], ctx.device)}
+        del r
+        ctx.free()
+        print(json.dumps({"seed": seed, "program": out["program"].get(seed),
+                          "control": out["control"].get(seed)}), file=sys.stderr, flush=True)
+    for seed in fault_seeds:
+        for name in names:
+            ctx.seed, ctx.plant = seed, FAULTS[name]
+            r = run(ctx)
+            out["faults"].setdefault(name, {})[seed] = r["numbers"]
+            del r
+            ctx.free()
+    ctx.plant = None
+    return out
+
+
+def shrink(ctx) -> None:
+    """A CPU test's size: 64 patches a call."""
+    ctx.traffic["batch"] = 64

@@ -30,6 +30,7 @@ up to 15% slower than the rest (``PERF.md``).
 
 from __future__ import annotations
 
+import json
 import sys
 import time
 from typing import Dict
@@ -37,11 +38,15 @@ from typing import Dict
 import numpy as np
 import torch
 
-from harness import check, program, synth
+from harness import check, faults, program, synth
 from harness.trace import Trace, span
-from reference.flow import epoch_order
+from reference.flow import epoch_order, tf32_round
 
 FIELDS = ("_x", "_y", "nlf0", "nlf1", "iso", "cam")
+FAULTS = faults.TRAIN
+# the faults whose readings set a limit; the others read 1 by the measure
+# (a state left unchanged) or are caught by an exact count (the tail)
+CALIBRATED = ("half_batch", "loss_altered")
 
 
 def _trainer(config: Dict, device):
@@ -176,3 +181,55 @@ def run(ctx) -> Dict:
     return {"attempted": steps, "failed": 0, "memory_peak_bytes": peak, "numbers": numbers,
             "measured": {"train_patches_per_s": steps * b / window},
             "trace": tr, "trace_counts": {"steps": steps, "batch": b}}
+
+
+def _with_leaves(prog, ref, short):
+    """The compared numbers, with every step's and leaf's gap beside them;
+    ``short``: the checked epoch's steps short of the split's full batches."""
+    detail = {}
+    numbers = check.train_numbers(prog, ref, detail)
+    return dict(numbers, steps_short=short, detail=detail)
+
+
+def _short(s) -> int:
+    return abs(s["steps_per_epoch"] - s["first_epoch"][1])
+
+
+def readings(ctx, seeds, control_seeds, fault_seeds, names) -> Dict:
+    """The limits' readings (``calibrate.py``) from set-up's first steps and
+    its first epoch, with no window: the program's, the control's (the
+    reference in float32 with TF32 products, in the program's place) and
+    each planted fault's of ``names``, by seed."""
+    out = {"program": {}, "control": {}, "faults": {}}
+    for seed in sorted(set(seeds) | set(control_seeds) | set(fault_seeds)):
+        ctx.seed, ctx.plant = seed, None
+        s = prepare(ctx)
+        del s["trainer"]
+        ctx.free()
+        ref = check.reference_run(ctx.config, s["rows"], s["nsteps"], s["marks"], ctx.device)
+        if seed in seeds:
+            out["program"][seed] = _with_leaves(s["prog"], ref, _short(s))
+        if seed in control_seeds:
+            ctl = check.reference_run(ctx.config, s["rows"], s["nsteps"], s["marks"], ctx.device,
+                                      dtype=torch.float32, products=tf32_round)
+            # the reference in the program's place takes every batch
+            out["control"][seed] = _with_leaves(ctl, ref, 0)
+        if seed in fault_seeds:
+            for name in names:
+                ctx.plant = FAULTS[name]
+                f = prepare(ctx)
+                del f["trainer"]
+                ctx.free()
+                out["faults"].setdefault(name, {})[seed] = _with_leaves(f["prog"], ref, _short(f))
+            ctx.plant = None
+        print(json.dumps({"seed": seed, **{k: v.get(seed) for k, v in out.items()
+                                           if k != "faults"}}), file=sys.stderr, flush=True)
+    return out
+
+
+def shrink(ctx) -> None:
+    """A CPU test's size: 7 batches (3 groups of 2 steps and a tail), no
+    warm-up."""
+    ctx.traffic["patches"] = 7 * ctx.config["n_batch_train"]
+    ctx.traffic["warmup_seconds"] = 0.0
+    ctx.config["steps_per_call"] = 2

@@ -4,7 +4,15 @@
 
 from the root of a checkout. The cell (an entry of ``workloads`` in
 ``BENCHMARK.json``) names a configuration and a traffic mix; the mix's
-``kind`` picks the driver (``harness/train.py``, ``harness/sample.py``).
+``kind`` names the module that runs it, ``harness/<kind>.py``
+(``harness.spec.driver``; ``train``, ``sample``), which provides ``run(ctx)``,
+its planted faults (``FAULTS``, ``CALIBRATED``), the readings its limits are
+set from (``readings``) and a CPU test's size (``shrink``), and is given a
+``Context``: the cell's configuration and mix, the run's arguments and
+device, and the hooks below (``harness/spec.py`` says what each returns). A
+new traffic kind is a new module there, with its mixes, configurations,
+limits and reference as new files.
+
 Set-up builds the program and its inputs from the seed, warms up every shape
 the cell uses and drives the program's first steps; the window then
 measures for about ``--seconds`` (``--trace 1``: a traced window, and the
@@ -58,13 +66,17 @@ def forbidden_modules():
 class Context:
     """What a driver is given: the cell's files, the run's arguments and
     device, and the hooks that mark the window's start, read the peak
-    memory and free the program's state."""
+    memory and free the program's state. ``config`` has ``weights_path``
+    where the configuration names a checkpoint (``weights``); a driver
+    whose weights come from the seed reads what it needs from ``config``."""
 
     def __init__(self, cell, args, device):
         import torch
 
         self.workload = cell["workload"]
-        self.config = dict(cell["config"], weights_path=str(ROOT / cell["config"]["weights"]))
+        self.config = dict(cell["config"])
+        if "weights" in self.config:
+            self.config["weights_path"] = str(ROOT / self.config["weights"])
         self.traffic = cell["traffic"]
         self.seed, self.seconds, self.trace = args.seed, args.seconds, bool(args.trace)
         self.device = torch.device(device)
@@ -106,13 +118,11 @@ def run_cell(name: str, args, device=None, adjust=None):
     the run and may change them."""
     import torch
 
-    from harness import check, spec
-    from harness import sample as sample_kind
-    from harness import train as train_kind
-    from harness import work
+    from harness import check, spec, work
     from harness.trace import idle_share
 
     cell = spec.cell(name)
+    kind = spec.driver(cell["traffic"]["kind"])
     chips = int(cell["workload"]["chips"])
     if device is None:
         if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
@@ -126,8 +136,7 @@ def run_cell(name: str, args, device=None, adjust=None):
     ctx.mark("imports")
     if adjust is not None:
         adjust(cell, ctx)
-    drivers = {"train": train_kind, "sample": sample_kind}
-    out = drivers[cell["traffic"]["kind"]].run(ctx)
+    out = kind.run(ctx)
 
     correct, checks = check.verdict(out["numbers"], cell["limits"]["limits"])
     dev = ctx.device

@@ -1,28 +1,23 @@
 """Whole runs of each cell on the CPU at small sizes (the harness's look for
-a card skipped), with the timed path broken underneath by each fault of
-``harness/faults.py`` that the cell can have: ``correct`` comes out false.
-The port's kernels take their plain PyTorch versions on the CPU; the
-comparison and its limits are the cell's own."""
+a card skipped), with the timed path broken underneath by each fault that
+the cell's traffic kind can have (``FAULTS`` of ``harness/<kind>.py``):
+``correct`` comes out false. The port's kernels take their plain PyTorch
+versions on the CPU; the comparison and its limits are the cell's own."""
 
 import argparse
 
 import pytest
 
 import run
-from harness import faults, spec
+from harness import spec
 
-CELLS = {w["name"]: spec.cell(w["name"])["traffic"]["kind"]
+CELLS = {w["name"]: spec.driver(spec.cell(w["name"])["traffic"]["kind"])
          for w in spec.benchmark()["workloads"]}
 
 
 def _small(plant=None):
     def adjust(cell, ctx):
-        if ctx.traffic["kind"] == "train":
-            ctx.traffic["patches"] = 138 * 7      # 3 groups of 2 and a tail
-            ctx.traffic["warmup_seconds"] = 0.0
-            ctx.config["steps_per_call"] = 2
-        else:
-            ctx.traffic["batch"] = 64
+        CELLS[ctx.workload["name"]].shrink(ctx)
         ctx.seconds = 0.3
         ctx.plant = plant
     return adjust
@@ -34,9 +29,9 @@ def _run(name, plant=None, seed=2 ** 31 + 77):
 
 
 @pytest.mark.parametrize("name,fault", [(n, f) for n, k in sorted(CELLS.items())
-                                        for f in sorted(faults.for_kind(k))])
+                                        for f in sorted(k.FAULTS)])
 def test_a_planted_fault_is_not_correct(name, fault):
-    res = _run(name, faults.for_kind(CELLS[name])[fault])
+    res = _run(name, CELLS[name].FAULTS[fault])
     assert res["correct"] is False, res["checks"]
     assert res["attempted"] > 0
 
